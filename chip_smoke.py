@@ -1,0 +1,346 @@
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Builds the hand-written kernels from unet_research_tpu_torch/ops/cuda/csrc,
+holds each kernel against its plain PyTorch version at the shapes of the
+main path, then runs the MC-DropBlock ensemble of the canonical 31M U-Net
+(bf16, dependent DropBlock b=7 p=0.15, conv_impl='pair' + mask_impl='fused')
+on a seeded synthetic 584x565 image and checks its outputs and launch
+counts. Every phase prints one JSON line; the last line is
+{"ok": true, "device": {...}}. Any failure raises (non-zero exit). Needs
+one CUDA card; exits non-zero without one.
+
+Tolerances: masks and keep counts exact (one counter hash on both sides);
+K1 outputs within 2 bf16 ulps; K3 max |y - plain| / max |plain| <= 1e-2 in
+bf16, and the moment sums within 1e-3 of the plain version's float32 sums
+relative to their largest magnitude (float32 atomics in run-dependent
+order; TF32 is off for every float32 reference); the kernel route's
+probability map within twice the plain bf16 route's distance from the plain
+float32 route, on the same chunk and site keys.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false")
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from unet_research_tpu_torch.models import unet as tunet  # noqa: E402
+from unet_research_tpu_torch.ops.cuda import build  # noqa: E402
+from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk  # noqa: E402
+from unet_research_tpu_torch.ops.cuda import pair_conv as pc  # noqa: E402
+from unet_research_tpu_torch.ops.dropblock import dropblock_gamma_dependent  # noqa: E402
+from unet_research_tpu_torch.uncertainty.mc_dropblock import MCDropBlockEngine  # noqa: E402
+
+DEV = torch.device("cuda")
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM
+BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+H, W = 592, 576                # 584x565 autopadded to a multiple of 16
+CHUNK = 16
+P_DROP, BLOCK = 0.15, 7
+GAMMA = dropblock_gamma_dependent(H, W, BLOCK, P_DROP)
+COUNTERS = {"dropblock_fused_apply": dbk.dropblock_fused_apply,
+            "dropblock_mask": dbk.dropblock_mask,
+            "conv3x3_pair": pc.conv3x3_pair}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def reset_counts() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(bytes_moved: float, flops: float = 0.0):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in bf16 units in the last place between a and b."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def header() -> None:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(f"{smi} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+
+def build_kernels() -> None:
+    t0 = time.perf_counter()
+    done = build.build()
+    usage = {name: [line.strip() for line in info["log"].splitlines()
+                    if "registers" in line or "spill" in line]
+             for name, info in done.items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "compiled": sorted(done), "ptxas": usage})
+
+
+def keys(seed: int) -> torch.Tensor:
+    return tunet.draw_site_keys(1, torch.Generator().manual_seed(seed))[0].to(DEV)
+
+
+def gn_ab(x: torch.Tensor, groups: int = 32) -> torch.Tensor:
+    g = torch.Generator(device=DEV).manual_seed(1)
+    c = x.shape[-1]
+    scale = 1.0 + 0.1 * torch.randn(c, device=DEV, generator=g)
+    bias = 0.1 * torch.randn(c, device=DEV, generator=g)
+    a, b = tunet.group_norm_coeffs(x, scale, bias, groups, 1e-5)
+    return torch.stack([a, b]).contiguous()
+
+
+def activation(n: int, c: int, seed: int) -> torch.Tensor:
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn((n, H, W, c), device=DEV, generator=g).to(torch.bfloat16)
+
+
+def check_k1() -> dict:
+    worst = 0
+    for c, with_ab, act in ((64, True, "relu"), (128, False, "none")):
+        x = activation(2, c, seed=c)
+        ab = gn_ab(x) if with_ab else None
+        key = keys(c)
+        out, keep = dbk.dropblock_fused_apply(x, ab, key, GAMMA, BLOCK, act)
+        ref, ref_keep = dbk.dropblock_fused_apply_plain(x, ab, key, GAMMA, BLOCK, act)
+        torch.cuda.synchronize()
+        ulps = bf16_ulps(out, ref)
+        if not torch.equal(keep, ref_keep) or ulps > 2:
+            raise AssertionError(f"K1 {tuple(x.shape)}: keep {keep.tolist()} vs "
+                                 f"{ref_keep.tolist()}, {ulps} ulps")
+        worst = max(worst, float((out.float() - ref.float()).abs().max()))
+        emit({"phase": "K1", "shape": list(x.shape), "affine": with_ab, "act": act,
+              "max_ulps": ulps, "keep_exact": True})
+    x = activation(CHUNK, 64, seed=3)
+    ab, key = gn_ab(x), keys(3)
+    ms = time_ms(lambda: dbk.dropblock_fused_apply(x, ab, key, GAMMA, BLOCK), 10)
+    plain = time_ms(lambda: dbk.dropblock_fused_apply_plain(x, ab, key, GAMMA, BLOCK), 3, 1)
+    bound, by = bound_ms(2 * x.numel() * x.element_size() + ab.numel() * 4)
+    row = {"name": "dropblock_fused_apply", "route": "cuda",
+           "source": "unet_research_tpu_torch/ops/cuda/csrc/dropblock.cu",
+           "replaces": "unet_research_tpu/ops/pallas/dropblock_kernel.py:291",
+           "shape": list(x.shape), "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+           "bound_ms": bound, "bound_by": by, "library_ms": None}
+    emit({"phase": "K1-time", **row})
+    return row
+
+
+def check_k2() -> dict:
+    shape = (2, H, W, 64)
+    key = keys(7)
+    mask, keep = dbk.dropblock_mask(shape, key, GAMMA, BLOCK)
+    ref, ref_keep = dbk.dropblock_mask_plain(shape, key, GAMMA, BLOCK)
+    torch.cuda.synchronize()
+    if not (torch.equal(mask, ref) and torch.equal(keep, ref_keep)):
+        raise AssertionError("K2: mask or keep counts differ from the plain version")
+    emit({"phase": "K2", "shape": list(shape), "mask_exact": True, "keep_exact": True,
+          "keep_fraction": (keep / (H * W * 64)).tolist()})
+    shape = (CHUNK, H, W, 64)
+    ms = time_ms(lambda: dbk.dropblock_mask(shape, key, GAMMA, BLOCK), 10)
+    plain = time_ms(lambda: dbk.dropblock_mask_plain(shape, key, GAMMA, BLOCK), 3, 1)
+    bound, by = bound_ms(float(np.prod(shape)))
+    row = {"name": "dropblock_mask", "route": "cuda",
+           "source": "unet_research_tpu_torch/ops/cuda/csrc/dropblock.cu",
+           "replaces": "unet_research_tpu/ops/pallas/dropblock_kernel.py:347",
+           "shape": list(shape), "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+           "bound_ms": bound, "bound_by": by, "library_ms": None}
+    emit({"phase": "K2-time", **row})
+    return row
+
+
+def conv_weights(cin: int, cout: int) -> torch.Tensor:
+    g = torch.Generator(device=DEV).manual_seed(cin)
+    bound = 1.0 / (9 * cin) ** 0.5
+    return ((torch.rand((3, 3, cin, cout), device=DEV, generator=g) * 2 - 1) * bound).to(torch.bfloat16)
+
+
+def library_conv(x, w):
+    """F.conv2d + the two float32 sums: the yardstick, not used by the port."""
+    y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w, padding=1)
+    y32 = y.float()
+    return y, y32.sum(dim=(2, 3)), (y32 * y32).sum(dim=(2, 3))
+
+
+def check_k3() -> dict:
+    worst, row = 0.0, None
+    for cin in (64, 128):
+        x, w = activation(2, cin, seed=cin + 1), conv_weights(cin, 64)
+        y, s1, s2 = pc.conv3x3_pair(x, w, stats=True)
+        if not pc.conv3x3_pair.tensor_cores:
+            raise AssertionError("K3 took the CUDA-core kernel at a main-path shape")
+        ry = pc.conv3x3_pair_plain(x, w)
+        # the kernel's sums come from its float32 accumulator: hold them
+        # against the plain version run in float32 on the same values
+        _, r1, r2 = pc.conv3x3_pair_plain(x.float(), w.float(), stats=True)
+        torch.cuda.synchronize()
+        y_rel = float((y.float() - ry.float()).abs().max() / ry.float().abs().max())
+        s_rel = max(float((s - r).abs().max() / r.abs().max()) for s, r in ((s1, r1), (s2, r2)))
+        if y_rel > 1e-2 or s_rel > 1e-3:
+            raise AssertionError(f"K3 {cin}->64: y rel {y_rel}, sums rel {s_rel}")
+        emit({"phase": "K3", "shape": list(x.shape), "cout": 64, "y_max_rel": y_rel,
+              "sums_max_rel": s_rel})
+        worst = max(worst, float((y.float() - ry.float()).abs().max()))
+        xb, wb = activation(CHUNK, cin, seed=cin + 2), w
+        w_lib = wb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        ms = time_ms(lambda: pc.conv3x3_pair(xb, wb, stats=True), 5)
+        plain = time_ms(lambda: pc.conv3x3_pair_plain(xb, wb, stats=True), 5)
+        lib = time_ms(lambda: library_conv(xb, w_lib), 5)
+        bound, by = bound_ms(xb.numel() * 2 + CHUNK * H * W * 64 * 2 + wb.numel() * 2,
+                             2.0 * 9 * cin * 64 * CHUNK * H * W)
+        timing = {"shape": list(xb.shape), "cout": 64, "ms": ms, "plain_ms": plain,
+                  "bound_ms": bound, "bound_by": by, "library_ms": lib}
+        emit({"phase": "K3-time", **timing})
+        if cin == 64:
+            row = {"name": "conv3x3_pair", "route": "cuda",
+                   "source": "unet_research_tpu_torch/ops/cuda/csrc/pair_conv.cu",
+                   "replaces": "unet_research_tpu/ops/pallas/pair_conv.py:234", **timing}
+    row["max_abs_err"] = worst
+    return row
+
+
+def synthetic_image():
+    rng = np.random.default_rng(0)
+    h, w = 584, 565
+    yy, xx = np.mgrid[0:h, 0:w]
+    fov = (((yy - h / 2) / (h / 2)) ** 2 + ((xx - w / 2) / (w / 2)) ** 2 <= 1.0)
+    im = (0.5 + 0.25 * np.sin(xx / 9.0) * np.cos(yy / 13.0)
+          + 0.1 * rng.standard_normal((h, w))).astype(np.float32)
+    gt = (rng.random((h, w)) > 0.9).astype(np.float32)
+    return (im[None, :, :, None], gt[None, :, :, None],
+            fov.astype(np.float32)[None, :, :, None])
+
+
+def model_for(state, **overrides):
+    db = tunet.DropBlockConfig(kind="dependent", block_size=BLOCK,
+                               mask_impl=overrides.pop("mask_impl", "fused"))
+    cfg = tunet.canonical_config(dropblock=db, **{"dtype": torch.bfloat16,
+                                                  "conv_impl": "pair", **overrides})
+    model = tunet.UNet(cfg, device=DEV)
+    model.load_state_dict(state)
+    return model.eval()
+
+
+def run_slice() -> dict:
+    base = tunet.UNet(tunet.canonical_config(), device=DEV,
+                      generator=torch.Generator().manual_seed(0))
+    state = base.state_dict()
+    model = model_for(state)
+    im, gt, mask = synthetic_image()
+    iters, ret = 48, 4
+    engine = MCDropBlockEngine(model, num_iterations=iters, return_num=ret, chunk=CHUNK,
+                               device=DEV, generator=torch.Generator().manual_seed(1))
+    engine.predict(im, gt, mask, P_DROP)  # warm-up (cuDNN plans, allocator)
+    torch.cuda.synchronize()
+    forwards = 1 + (iters - ret) // CHUNK + (1 if (iters - ret) % CHUNK else 0)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    mean, std, saved, *_ = engine.predict(im, gt, mask, P_DROP)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    main = counts()
+    if main != {"dropblock_fused_apply": 22 * forwards, "dropblock_mask": 0,
+                "conv3x3_pair": 3 * forwards}:
+        raise AssertionError(f"main path launches {main} over {forwards} forwards")
+    if not (mean.shape == std.shape == (1, 584, 565, 1) and saved.shape == (ret, 1, 584, 565, 1)):
+        raise AssertionError(f"shapes {mean.shape} {std.shape} {saved.shape}")
+    for t in (mean, std, saved):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError("non-finite output")
+    if not (0.0 <= float(mean.min()) and float(mean.max()) <= 1.0 and float(saved.max()) <= 1.0
+            and float(std.max()) > 0.0):
+        raise AssertionError("outputs out of range or std == 0 everywhere")
+    emit({"phase": "slice", "config": "canonical 31M, bf16, dependent b=7 p=0.15, pair+fused",
+          "input": [584, 565], "iterations": iters, "chunk": CHUNK, "return_num": ret,
+          "forwards": forwards, "seconds": seconds, "passes_per_s": iters / seconds,
+          "launches": main, "mean_range": [float(mean.min()), float(mean.max())],
+          "std_max": float(std.max())})
+
+    # the mask_impl='kernel' variant of the same path runs the mask producer
+    variant = model_for(state, mask_impl="kernel")
+    x = torch.as_tensor(im, device=DEV).expand(CHUNK, -1, -1, -1)
+    site_keys = tunet.draw_site_keys(variant.num_mask_sites(),
+                                     torch.Generator().manual_seed(2)).to(DEV)
+    reset_counts()
+    with torch.inference_mode():
+        variant(x, drop_prob=P_DROP, site_keys=site_keys)
+    torch.cuda.synchronize()
+    kernel_variant = counts()
+    if kernel_variant != {"dropblock_fused_apply": 0, "dropblock_mask": 22, "conv3x3_pair": 3}:
+        raise AssertionError(f"mask_impl='kernel' launches {kernel_variant}")
+    emit({"phase": "kernel-variant", "launches": kernel_variant})
+
+    # one chunk, same site keys: kernel route vs the plain routes
+    routes = {"kernels": model,
+              "plain_bf16": model_for(state, mask_impl="elementwise", conv_impl="torch"),
+              "plain_f32": model_for(state, mask_impl="elementwise", conv_impl="torch",
+                                     dtype=torch.float32)}
+    fov = torch.as_tensor(mask, device=DEV)
+    with torch.inference_mode():
+        outs = {name: m(x, drop_prob=P_DROP, site_keys=site_keys) * fov
+                for name, m in routes.items()}
+    d_kernel = float((outs["kernels"] - outs["plain_bf16"]).abs().max())
+    d_bf16 = float((outs["plain_bf16"] - outs["plain_f32"]).abs().max())
+    d_kernel_f32 = float((outs["kernels"] - outs["plain_f32"]).abs().max())
+    emit({"phase": "routes", "max_abs_kernel_vs_plain_bf16": d_kernel,
+          "max_abs_plain_bf16_vs_f32": d_bf16, "max_abs_kernel_vs_f32": d_kernel_f32,
+          "mean_abs_kernel_vs_plain_bf16":
+              float((outs["kernels"] - outs["plain_bf16"]).abs().mean())})
+    if not d_kernel <= 2.0 * d_bf16:
+        raise AssertionError(f"kernel route {d_kernel} vs plain bf16 noise {d_bf16}")
+    return {"main": main, "kernel_variant": kernel_variant}
+
+
+def main() -> None:
+    # float32 references run in full float32, not TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    header()
+    build_kernels()
+    rows = [check_k1(), check_k2(), check_k3()]
+    launches = run_slice()
+    rows[0]["launches"] = launches["main"]["dropblock_fused_apply"]
+    rows[1]["launches"] = launches["kernel_variant"]["dropblock_mask"]
+    rows[2]["launches"] = launches["main"]["conv3x3_pair"]
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,79 @@
+"""The hand-written CUDA kernels against their plain versions on the card, at
+edge shapes the main path does not reach (ragged tiles, channel counts that
+are not multiples of 32 or 16, float32, the smallest and largest block
+sizes, more than 64 output channels). They skip without a card; run them on
+one with
+
+    python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
+
+(`--noconftest`: the suite's conftest configures JAX, which the card's
+machine need not have). Tolerances: masks, keep counts and K1 outputs exact
+(same hash, same rounding steps); K3 max |y - plain| / max |plain| <= 1e-2 in
+bf16 and 1e-5 in float32, sums 1e-5 relative to their largest magnitude
+against the plain version in float32 (TF32 off)."""
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _key(dev, words=(0xFFFFFFF0, 0x80000001)):
+    return torch.tensor(words, dtype=torch.int64, device=dev)
+
+
+@pytest.mark.parametrize("shape,dtype,b,act,affine", [
+    ((2, 37, 45, 20), torch.float32, 7, "leaky_relu", True),
+    ((3, 40, 33, 70), torch.float32, 3, "relu", True),
+    ((1, 50, 70, 33), torch.bfloat16, 17, "none", False),
+    ((2, 31, 64, 96), torch.bfloat16, 5, "relu", True),
+])
+def test_dropblock_kernels_match_plain(dev, shape, dtype, b, act, affine):
+    from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(shape, device=dev, generator=g).to(dtype)
+    n, h, w, c = shape
+    ab = torch.randn((2, n, c), device=dev, generator=g) if affine else None
+    gamma = 0.2 * h * w / (b * b * (h - b + 1) * (w - b + 1))
+    key = _key(dev)
+    before = dbk.dropblock_fused_apply.launches
+    out, keep = dbk.dropblock_fused_apply(x, ab, key, gamma, b, act)
+    ref, ref_keep = dbk.dropblock_fused_apply_plain(x, ab, key, gamma, b, act)
+    assert dbk.dropblock_fused_apply.launches == before + 1
+    assert torch.equal(out, ref) and torch.equal(keep, ref_keep)
+    mask, mkeep = dbk.dropblock_mask(shape, key, gamma, b)
+    rmask, rkeep = dbk.dropblock_mask_plain(shape, key, gamma, b)
+    assert torch.equal(mask, rmask) and torch.equal(mkeep, rkeep)
+    assert 0 < float(keep.min()) < h * w * c
+
+
+@pytest.mark.parametrize("shape,cout,dtype,tensor_cores", [
+    ((2, 37, 46, 32), 40, torch.bfloat16, True),
+    ((1, 20, 16, 64), 130, torch.bfloat16, True),
+    ((2, 37, 46, 24), 40, torch.bfloat16, False),
+    ((2, 19, 30, 5), 8, torch.float32, False),
+])
+def test_conv3x3_pair_matches_plain(dev, shape, cout, dtype, tensor_cores):
+    from unet_research_tpu_torch.ops.cuda import pair_conv as pc
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(shape, device=dev, generator=g).to(dtype)
+    k = (0.1 * torch.randn((3, 3, shape[-1], cout), device=dev, generator=g)).to(dtype)
+    y, s1, s2 = pc.conv3x3_pair(x, k, stats=True)
+    assert pc.conv3x3_pair.tensor_cores == tensor_cores
+    ry = pc.conv3x3_pair_plain(x, k)
+    _, r1, r2 = pc.conv3x3_pair_plain(x.float(), k.float(), stats=True)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert float((y.float() - ry.float()).abs().max() / ry.float().abs().max()) <= tol
+    for s, r in ((s1, r1), (s2, r2)):
+        assert float((s - r).abs().max() / r.abs().max()) <= 1e-5

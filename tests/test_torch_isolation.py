@@ -1,0 +1,80 @@
+"""The port stands alone: it imports neither jax, flax nor the JAX package,
+and its entry points run on the card unless the CPU is asked for."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "unet_research_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "flax", "unet_research_tpu")
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def _blocked(name: str) -> bool:
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+
+def test_imports_with_jax_blocked():
+    code = f"""
+import importlib, sys
+BLOCKED = {BLOCKED!r}
+def blocked(name):
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+for name in list(sys.modules):
+    if blocked(name):
+        del sys.modules[name]
+class Finder:
+    def find_spec(self, name, path=None, target=None):
+        if blocked(name):
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Finder())
+for name in {list(_modules())!r}:
+    importlib.import_module(name)
+print("ok", len([m for m in sys.modules if blocked(m)]))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok 0"
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports_in_source(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_blocked(n) for n in names), (path, names)
+
+
+def test_entry_points_default_to_the_card():
+    from unet_research_tpu_torch.device import resolve_device
+    from unet_research_tpu_torch.models.unet import UNet, canonical_config
+    from unet_research_tpu_torch.uncertainty.mc_dropblock import MCDropBlockEngine
+
+    cfg = canonical_config(filters=4, model_depth=2, group_norm_groups=2)
+    cpu_model = UNet(cfg, device="cpu")
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    for call in (resolve_device, lambda: UNet(cfg), lambda: MCDropBlockEngine(cpu_model)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

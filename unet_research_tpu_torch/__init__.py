@@ -1,0 +1,19 @@
+"""unet_research_tpu_torch — the PyTorch/CUDA port of `unet_research_tpu`.
+
+Same subpackage layout as the JAX package, one twin per module:
+
+- `models/`       the configurable U-Net as an `nn.Module` (reference torch
+                  state_dict layout), DropBlock mask sites and fold_rescale.
+- `ops/`          image geometry and the plain DropBlock ops (counter hash).
+- `ops/cuda/`     hand-written Hopper kernels (CUDA C++, sm_90a) with their
+                  plain PyTorch versions and launch counters; twin of
+                  `ops/pallas/`.
+- `uncertainty/`  the streaming Chan-merge ensemble and the MC-DropBlock
+                  engine.
+- `utils/`        JAX-params / reference-checkpoint conversion.
+
+Public functions keep JAX's NHWC layout. Entry points run on the card
+(`device="cuda"`) unless the caller passes `device="cpu"`.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,508 @@
+"""Configurable U-Net as an nn.Module (twin of unet_research_tpu/models/unet.py).
+
+The reference builder's layout (unet_code/utils/utils_unet.py:11-463), with
+its torch state_dict keys, so a reference PL checkpoint loads as it is
+(utils/convert.py of the JAX package, :8-20):
+
+  down_blocks.{d}.0.{4i}     3x3 Conv2d        down_blocks.{d}.0.{4i+1}  norm
+  down_blocks.{d}.1.0        2x2 pool conv ('conv' pooling)
+  down_blocks.{d}.1.1        pool norm
+  conn_block.{4i}/{4i+1}     bottleneck conv / norm
+  up_blocks.{d}.0.0          ConvTranspose2d(k=2, s=2) ('upconv'), .0.1 norm
+  up_blocks.{d}.0.1          3x3 Conv2d ('upsample'),              .0.2 norm
+  up_blocks.{d}.1.{4i}/{4i+1} post-merge conv / norm
+  output_conv.0              1x1 Conv2d head
+
+Each conv is followed by norm -> DropBlock -> activation; the skip merge
+carries one more (bare) DropBlock site. Norm modules hold parameters only:
+GroupNorm is computed by `group_norm_affine` (float32 statistics, the apply
+in the storage dtype), as in the JAX model.
+
+`forward(x, drop_prob=None, site_keys=None)` takes and returns NHWC.
+`drop_prob=None` switches DropBlock off; otherwise `site_keys` is an (S, 2)
+int64 tensor of uint32 key words, one row per mask site in call order (see
+`num_mask_sites`), the keys the JAX model draws with `make_rng`. Activations
+and weights are cast to `cfg.dtype` at use; parameters stay float32.
+
+Mask pipelines (`DropBlockConfig.mask_impl`): 'fused' runs every site
+through the fused kernel (ops/cuda/dropblock_kernel.py::dropblock_fused_apply)
+when the norm is GroupNorm or None and the activation relu/leaky_relu;
+'kernel' draws masks with the mask producer; 'elementwise' is the plain op.
+`conv_impl='pair'` runs the eligible 3x3 convs through
+ops/cuda/pair_conv.py::conv3x3_pair, whose moment sums feed GroupNorm.
+Forward only: training is not part of this package yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from unet_research_tpu_torch.device import resolve_device
+from unet_research_tpu_torch.ops.cuda.dropblock_kernel import (
+    dropblock_fused_apply,
+    dropblock_kernel_supported,
+)
+from unet_research_tpu_torch.ops.cuda.pair_conv import conv3x3_pair
+from unet_research_tpu_torch.ops.dropblock import (
+    dropblock_dependent,
+    dropblock_gamma_dependent,
+    dropblock_gamma_independent,
+    dropblock_independent,
+)
+from unet_research_tpu_torch.ops.image import center_crop, crop_to, pad_to_multiple
+
+_ACTIVATIONS = ("relu", "leaky_relu", "elu", "gelu", "silu", "tanh", "sigmoid", "none")
+
+
+@dataclasses.dataclass(frozen=True)
+class DropBlockConfig:
+    """DropBlock plug-in (reference UNet.set_dropblock, utils_unet.py:117-134).
+
+    kind: 'dependent' | 'independent' | None. mask_impl: 'fused' (the fused
+    kernel at every site), 'kernel' (the mask producer) or 'elementwise'."""
+
+    kind: Optional[str] = "dependent"
+    block_size: int = 7
+    drop_prob: float = 0.1
+    use_scheduler: bool = True
+    start_drop_prob: float = 0.0
+    max_drop_prob: float = 0.2
+    nr_steps: int = 500
+    mask_impl: str = "fused"
+
+    def __post_init__(self):
+        if self.mask_impl not in ("elementwise", "kernel", "fused"):
+            raise ValueError(f"unknown dropblock mask_impl {self.mask_impl!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """Constructor-arg parity with the reference UNet (utils_unet.py:14-26)
+    and the JAX UNetConfig. conv_impl: 'pair' (the eligible 3x3 convs run
+    through conv3x3_pair) or 'torch' (F.conv2d everywhere). remat is kept for
+    config parity; it applies to training, which this package has not yet."""
+
+    init_channels: int = 3
+    filters: int = 64
+    output_channels: int = 1
+    model_depth: int = 4
+    pool_mode: str = "max"
+    up_mode: str = "upconv"
+    connection: str = "cat"
+    same_padding: bool = True
+    conv_layers_per_block: int = 2
+    norm: Optional[str] = "group"
+    group_norm_groups: int = 32
+    activation: str = "relu"
+    negative_slope: float = 0.01
+    dropblock: DropBlockConfig = dataclasses.field(default_factory=DropBlockConfig)
+    remat: bool = False
+    dtype: torch.dtype = torch.float32
+    conv_impl: str = "pair"
+    fold_rescale: bool = True
+
+    def __post_init__(self):
+        if self.connection not in ("add", "cat", "none"):
+            raise ValueError("Connection type must be of (add, cat, none)")
+        if self.pool_mode not in ("max", "avg", "conv"):
+            raise ValueError("Pool Mode must be of (max, avg, conv).")
+        if self.up_mode not in ("upsample", "upconv"):
+            raise ValueError("Up_Mode must be of (upsample, upconv).")
+        if self.conv_layers_per_block <= 1:
+            raise ValueError("Convolutional Layers in each block must be 2 or more.")
+        if self.dropblock.kind not in (None, "dependent", "independent"):
+            raise ValueError("dropblock.kind must be dependent/independent/None")
+        if self.norm not in (None, "group", "batch"):
+            raise ValueError("norm must be 'group', 'batch' or None")
+        if self.activation not in _ACTIVATIONS:
+            raise ValueError(f"unknown activation {self.activation!r}")
+        if self.conv_impl not in ("torch", "pair"):
+            raise ValueError("conv_impl must be 'torch' or 'pair'")
+
+
+def canonical_config(**overrides) -> UNetConfig:
+    """The configuration every reference entry point uses: the 31M-parameter
+    U-Net with GroupNorm(32) and ReLU (base_model_tests/training.py:171-192)."""
+    base = dict(
+        init_channels=1, filters=64, output_channels=1, model_depth=4,
+        pool_mode="max", up_mode="upconv", connection="cat", same_padding=True,
+        conv_layers_per_block=2, norm="group", group_norm_groups=32,
+        activation="relu",
+    )
+    base.update(overrides)
+    return UNetConfig(**base)
+
+
+# --- GroupNorm as per-(sample, channel) affine coefficients -------------------
+
+def group_norm_coeffs_from_sums(s1, s2, hw: int, scale, bias, num_groups: int,
+                                eps: float):
+    """(a, b), float32 (N, C) each, with GN(x) = x*a + b, from the per-channel
+    sums s1 = sum x and s2 = sum x^2 over (H, W); hw = H*W. The variance is
+    clamped at 0 against float32 cancellation."""
+    n, c = s1.shape
+    cg = c // num_groups
+    g1 = s1.reshape(n, num_groups, cg).sum(-1)
+    g2 = s2.reshape(n, num_groups, cg).sum(-1)
+    cnt = float(hw * cg)
+    mean = g1 / cnt
+    var = torch.clamp(g2 / cnt - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + eps).repeat_interleave(cg, dim=1)
+    a = mul * scale.to(torch.float32)[None, :]
+    b = bias.to(torch.float32)[None, :] - mean.repeat_interleave(cg, dim=1) * a
+    return a, b
+
+
+def group_norm_coeffs(x, scale, bias, num_groups: int, eps: float):
+    """GroupNorm affine coefficients of NHWC x (torch GroupNorm semantics:
+    biased variance over (H, W, C/G) per sample), statistics in float32.
+    Both sums accumulate in float32 straight from x's dtype (one reduction
+    kernel each on the card, no float32 copy of x); s2 is the squared
+    float32 2-norm."""
+    s1 = x.sum(dim=(1, 2), dtype=torch.float32)
+    s2 = torch.linalg.vector_norm(x, 2, dim=(1, 2), dtype=torch.float32).square()
+    return group_norm_coeffs_from_sums(s1, s2, x.shape[1] * x.shape[2], scale,
+                                       bias, num_groups, eps)
+
+
+def group_norm_affine(x, scale, bias, num_groups: int, eps: float, dtype,
+                      sums=None):
+    """GroupNorm of NHWC x as x*a + b, applied in x's dtype (a, b rounded
+    once). sums: precomputed (s1, s2), e.g. from conv3x3_pair."""
+    if sums is not None:
+        a, b = group_norm_coeffs_from_sums(sums[0], sums[1], x.shape[1] * x.shape[2],
+                                           scale, bias, num_groups, eps)
+    else:
+        a, b = group_norm_coeffs(x, scale, bias, num_groups, eps)
+    a = a.to(x.dtype)[:, None, None, :]
+    b = b.to(x.dtype)[:, None, None, :]
+    return (x * a + b).to(dtype)
+
+
+# --- the module ---------------------------------------------------------------
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+class UNet(nn.Module):
+    """The full encoder/decoder (reference UNet.forward, utils_unet.py:408-449).
+
+    device: where the parameters live, the card unless "cpu" is asked for.
+    generator: a torch.Generator for a seeded torch-style initialisation
+    (U(+-1/sqrt(fan_in)) for conv weights and biases, GroupNorm ones/zeros)."""
+
+    def __init__(self, cfg: UNetConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        dev = resolve_device(device)
+        bias = cfg.norm is None
+        pad = 1 if cfg.same_padding else 0
+        n_convs = cfg.conv_layers_per_block
+
+        def norm(c):
+            if cfg.norm == "group":
+                return nn.GroupNorm(cfg.group_norm_groups, c)
+            if cfg.norm == "batch":
+                return nn.BatchNorm2d(c)
+            return nn.Identity()
+
+        def stack(cin, cout):
+            mods = []
+            for i in range(n_convs):
+                mods += [nn.Conv2d(cin if i == 0 else cout, cout, 3, padding=pad, bias=bias),
+                         norm(cout), nn.Identity(), nn.Identity()]
+            return nn.Sequential(*mods)
+
+        filters, cin = cfg.filters, cfg.init_channels
+        self.down_blocks = nn.ModuleList()
+        for d in range(cfg.model_depth):
+            if d > 0:
+                filters *= 2
+            pool0 = (nn.Conv2d(filters, filters, 2, stride=2, bias=bias)
+                     if cfg.pool_mode == "conv" else nn.Identity())
+            self.down_blocks.append(nn.Sequential(stack(cin, filters),
+                                                  nn.Sequential(pool0, norm(filters))))
+            cin = filters
+        filters *= 2
+        self.conn_block = stack(cin, filters)
+        self.up_blocks = nn.ModuleList()
+        for d in range(cfg.model_depth):
+            half = filters // 2
+            if cfg.up_mode == "upconv":
+                up = nn.Sequential(nn.ConvTranspose2d(filters, half, 2, stride=2, bias=bias),
+                                   norm(half))
+            else:
+                up = nn.Sequential(nn.Identity(),
+                                   nn.Conv2d(filters, half, 3, padding=pad, bias=bias),
+                                   norm(half))
+            merged = 2 * half if cfg.connection == "cat" else half
+            self.up_blocks.append(nn.Sequential(up, stack(merged, half)))
+            filters = half
+        self.output_conv = nn.Sequential(nn.Conv2d(filters, cfg.output_channels, 1,
+                                                   bias=bias))
+        if generator is not None:
+            self.reset_parameters(generator)
+        self.to(dev)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded torch-style initialisation, drawn on the CPU."""
+        for mod in self.modules():
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = mod.weight
+                # torch's fan_in: dim 1 of the weight times the kernel area
+                bound = 1.0 / math.sqrt(w.shape[1] * w.shape[2] * w.shape[3])
+                w.copy_(torch.empty(w.shape).uniform_(-bound, bound, generator=generator))
+                if mod.bias is not None:
+                    mod.bias.copy_(torch.empty(mod.bias.shape).uniform_(
+                        -bound, bound, generator=generator))
+            elif isinstance(mod, (nn.GroupNorm, nn.BatchNorm2d)):
+                mod.reset_parameters()
+
+    def num_mask_sites(self) -> int:
+        """Rows `site_keys` needs: one per conv, plus one per skip merge."""
+        cfg = self.cfg
+        convs = (2 * cfg.model_depth + 1) * cfg.conv_layers_per_block
+        merges = cfg.model_depth if cfg.connection != "none" else 0
+        return convs + merges
+
+    def forward(self, x, drop_prob=None, site_keys=None):
+        """x: NHWC float batch -> (N, H, W, output_channels) float32 in [0, 1]."""
+        return _Pass(self, drop_prob, site_keys).run(x)
+
+
+def draw_site_keys(num_sites: int, generator: torch.Generator) -> torch.Tensor:
+    """(num_sites, 2) int64 uint32 key words from an explicit CPU generator."""
+    return torch.randint(0, 2**32, (num_sites, 2), dtype=torch.int64, generator=generator)
+
+
+class _Pass:
+    """One forward pass: the DropBlock state (drop_prob, the site-key
+    iterator, fold_rescale, the fused route) and the layer helpers."""
+
+    def __init__(self, model: UNet, drop_prob, site_keys):
+        cfg = model.cfg
+        db = cfg.dropblock
+        self.model, self.cfg, self.db = model, cfg, db
+        self.dtype = cfg.dtype
+        self.drop_prob = drop_prob
+        self.active = db.kind is not None and drop_prob is not None
+        self.keys = None
+        if self.active:
+            want = (model.num_mask_sites(), 2)
+            if site_keys is None or tuple(site_keys.shape) != want:
+                raise ValueError(f"DropBlock is active: site_keys must have shape {want}")
+            device = model.output_conv[0].weight.device
+            self.keys = iter(site_keys.to(device=device, dtype=torch.int64))
+        # fold_rescale (JAX UNetConfig): needs GroupNorm and live DropBlock
+        self.fold = cfg.fold_rescale and cfg.norm == "group" and self.active
+        self.fused = (self.active and db.mask_impl == "fused"
+                      and cfg.norm in (None, "group")
+                      and cfg.activation in ("relu", "leaky_relu")
+                      and dropblock_kernel_supported(db.block_size))
+
+    # -- layers ----------------------------------------------------------------
+
+    def conv(self, x, mod):
+        """3x3 (or any) conv of NHWC x. Returns (y, sums): sums are the
+        GroupNorm moment sums when conv3x3_pair produced them, else None."""
+        cfg = self.cfg
+        n, h, w, c = x.shape
+        if (cfg.conv_impl == "pair" and cfg.norm is not None and cfg.same_padding
+                and mod.kernel_size == (3, 3) and mod.out_channels <= 64
+                and h % 2 == 0 and w % 2 == 0 and c % 64 == 0 and (w // 2) % 8 == 0):
+            # the JAX model's compiled-path gate (models/unet.py:461-494)
+            kernel = mod.weight.permute(2, 3, 1, 0).to(self.dtype).contiguous()
+            xin = x.to(self.dtype).contiguous()
+            if cfg.norm == "group":
+                y, s1, s2 = conv3x3_pair(xin, kernel, stats=True)
+                return y, (s1, s2)
+            return conv3x3_pair(xin, kernel), None
+        return self.torch_conv(x, mod), None
+
+    def torch_conv(self, x, mod):
+        bias = None if mod.bias is None else mod.bias.to(self.dtype)
+        y = F.conv2d(_nchw(x.to(self.dtype)), mod.weight.to(self.dtype), bias,
+                     stride=mod.stride, padding=mod.padding)
+        return _nhwc(y)
+
+    def norm(self, x, mod, sums=None):
+        cfg = self.cfg
+        if cfg.norm == "group":
+            return group_norm_affine(x, mod.weight, mod.bias, cfg.group_norm_groups,
+                                     1e-5, self.dtype, sums=sums)
+        if cfg.norm == "batch":
+            y = F.batch_norm(_nchw(x.to(torch.float32)), mod.running_mean, mod.running_var,
+                             mod.weight, mod.bias, False, 0.0, 1e-5)
+            return _nhwc(y).to(self.dtype)
+        return x
+
+    def act(self, x):
+        a = self.cfg.activation
+        if a == "relu":
+            return torch.relu(x)
+        if a == "leaky_relu":
+            return F.leaky_relu(x, self.cfg.negative_slope)
+        if a == "elu":
+            return F.elu(x)
+        if a == "gelu":
+            return F.gelu(x)
+        if a == "silu":
+            return F.silu(x)
+        if a == "tanh":
+            return torch.tanh(x)
+        if a == "sigmoid":
+            return torch.sigmoid(x)
+        return x
+
+    # -- DropBlock sites -------------------------------------------------------
+
+    def fused_site(self, x, norm_mod, rescale: str, with_act: bool, sums=None):
+        """One mask site through the fused kernel: act((x*a + b) * mask), the
+        GroupNorm coefficients computed outside (from `sums` if given)."""
+        cfg, db = self.cfg, self.db
+        n, h, w, c = x.shape
+        ab = None
+        if with_act and cfg.norm == "group":
+            if sums is not None:
+                a, b = group_norm_coeffs_from_sums(sums[0], sums[1], h * w, norm_mod.weight,
+                                                   norm_mod.bias, cfg.group_norm_groups, 1e-5)
+            else:
+                a, b = group_norm_coeffs(x, norm_mod.weight, norm_mod.bias,
+                                         cfg.group_norm_groups, 1e-5)
+            ab = torch.stack([a, b]).contiguous()
+        key = next(self.keys)
+        gamma_fn = (dropblock_gamma_dependent if db.kind == "dependent"
+                    else dropblock_gamma_independent)
+        out, keep = dropblock_fused_apply(
+            x.contiguous(), ab, key, gamma_fn(h, w, db.block_size, self.drop_prob),
+            db.block_size, act=cfg.activation if with_act else "none",
+            slope=cfg.negative_slope)
+        out = out.to(self.dtype)
+        if rescale == "skip":
+            return out
+        # the per-sample and whole-batch scales of the JAX model (:410-422)
+        if db.kind == "dependent":
+            per = float(h * w * c) / keep
+            whole = float(n * h * w * c) / keep.sum()
+        else:
+            kf = keep / float(h * w * c)
+            per = torch.where(kf != 0, 1.0 / kf, torch.ones_like(kf))
+            kfw = keep.sum() / float(n * h * w * c)
+            whole = torch.where(kfw != 0, 1.0 / kfw, torch.ones_like(kfw))
+        if rescale == "defer":
+            return out, per
+        return out * whole.to(out.dtype)
+
+    def dropblock(self, x, rescale: str = "apply"):
+        """A bare mask site (the skip merge, or after a norm)."""
+        if not self.active:
+            return (x, None) if rescale == "defer" else x
+        if self.fused:
+            return self.fused_site(x, None, rescale, with_act=False)
+        fn = dropblock_dependent if self.db.kind == "dependent" else dropblock_independent
+        return fn(x, next(self.keys), self.drop_prob, self.db.block_size,
+                  mask_impl=self.db.mask_impl, rescale=rescale)
+
+    def norm_db_act(self, x, norm_mod, rescale: str, sums=None):
+        """The conv epilogue norm -> DropBlock -> activation."""
+        if self.fused:
+            return self.fused_site(x, norm_mod, rescale, with_act=True, sums=sums)
+        x = self.norm(x, norm_mod, sums)
+        if rescale == "defer":
+            x, scale = self.dropblock(x, rescale="defer")
+            return self.act(x), scale
+        return self.act(self.dropblock(x, rescale))
+
+    # -- blocks ----------------------------------------------------------------
+
+    def conv_block(self, x, stack, want_scale: bool):
+        """conv -> norm -> DropBlock -> act, conv_layers_per_block times. Under
+        fold_rescale the last site of a block that feeds a skip merge or the
+        head defers its per-sample scale; every other site skips its count."""
+        last = self.cfg.conv_layers_per_block - 1
+        scale = None
+        for i in range(last + 1):
+            x, sums = self.conv(x, stack[4 * i])
+            if not self.fold:
+                x = self.norm_db_act(x, stack[4 * i + 1], "apply", sums)
+            elif want_scale and i == last:
+                x, scale = self.norm_db_act(x, stack[4 * i + 1], "defer", sums)
+            else:
+                x = self.norm_db_act(x, stack[4 * i + 1], "skip", sums)
+        return (x, scale) if want_scale else x
+
+    def pool(self, x, seq):
+        mode = self.cfg.pool_mode
+        if mode == "max":
+            x = _nhwc(F.max_pool2d(_nchw(x), 2, 2))
+        elif mode == "avg":
+            x = _nhwc(F.avg_pool2d(_nchw(x), 2, 2))
+        else:
+            x = self.torch_conv(x, seq[0])
+        x = self.norm(x, seq[1])
+        return self.act(x) if mode == "conv" else x
+
+    def up(self, x, seq):
+        if self.cfg.up_mode == "upconv":
+            mod = seq[0]
+            bias = None if mod.bias is None else mod.bias.to(self.dtype)
+            x = _nhwc(F.conv_transpose2d(_nchw(x), mod.weight.to(self.dtype), bias, stride=2))
+            return self.act(self.norm(x, seq[1]))
+        x = _nhwc(F.interpolate(_nchw(x), scale_factor=2, mode="nearest"))
+        x, sums = self.conv(x, seq[1])
+        return self.act(self.norm(x, seq[2], sums))
+
+    def merge(self, x, skip, skip_scale):
+        conn = self.cfg.connection
+        if conn == "none":
+            return x
+        if skip_scale is not None:
+            # the encoder block's deferred per-sample scale (JAX :694-708)
+            skip = skip * skip_scale.to(skip.dtype)[:, None, None, None]
+        skip = center_crop(skip, (x.shape[1], x.shape[2]))
+        x = torch.cat([x, skip], dim=-1) if conn == "cat" else x + skip
+        return self.dropblock(x, "skip" if self.fold else "apply")
+
+    def run(self, x):
+        cfg = self.cfg
+        x = x.to(device=self.model.output_conv[0].weight.device, dtype=self.dtype)
+        x, orig_hw = pad_to_multiple(x, 2 ** cfg.model_depth)
+        x = x.contiguous()
+        want_skip_scale = self.fold and cfg.connection != "none"
+        skips = []
+        for blk in self.model.down_blocks:
+            if want_skip_scale:
+                x, s = self.conv_block(x, blk[0], True)
+            else:
+                x, s = self.conv_block(x, blk[0], False), None
+            skips.append((x, s))
+            x = self.pool(x, blk[1])
+        x = self.conv_block(x, self.model.conn_block, False)
+        head_scale = None
+        for d, blk in enumerate(self.model.up_blocks):
+            x = self.up(x, blk[0])
+            skip_x, skip_s = skips[-1 - d]
+            x = self.merge(x, skip_x, skip_s)
+            if self.fold and d == cfg.model_depth - 1:
+                x, head_scale = self.conv_block(x, blk[1], True)
+            else:
+                x = self.conv_block(x, blk[1], False)
+        x = self.torch_conv(x, self.model.output_conv[0]).to(torch.float32)
+        if head_scale is not None:
+            # the last site's deferred scale, moved past the bias-free 1x1
+            # head to just before the sigmoid
+            x = x * head_scale[:, None, None, None]
+        x = crop_to(torch.sigmoid(x), orig_hw)
+        return torch.nan_to_num(torch.clamp(x, 0.0, 1.0), nan=0.0)

@@ -1,0 +1,160 @@
+"""DropBlock kernels K1 (fused apply) and K2 (mask producer) and their plain
+versions.
+
+Replaces unet_research_tpu/ops/pallas/dropblock_kernel.py:
+- `dropblock_fused_apply` <- `dropblock_fused_apply` (body `_fused_kernel`,
+  dropblock_kernel.py:245-344): out = act((x*a + b) * keep_mask) and the
+  per-sample keep counts in one pass over x;
+- `dropblock_mask` <- `dropblock_pallas_mask` (body `_mask_kernel`,
+  dropblock_kernel.py:204-225, 347-386): the dense int8 keep-mask and the
+  keep counts, reading no x.
+
+Source: csrc/dropblock.cu. Both are bound by memory: K1 moves 2 bytes/element
+each way in bf16 (0.42 ms at the top site (16,592,576,64) on an H100 SXM at
+3.35 TB/s), K2 writes 1 byte/element (0.10 ms). The mask is the odd-b
+DropBlock of ops/dropblock.py::dropped_blocks, drawn from the same counter
+hash at the flat NHWC index, so kernel, plain version and the JAX
+elementwise pipeline agree bit for bit given the same two key words. (The
+TPU kernels use the TPU's hardware PRNG and a 16-bit gamma, and match only
+in distribution.)
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from unet_research_tpu_torch.ops.cuda.build import check, load_library
+from unet_research_tpu_torch.ops.dropblock import dropped_blocks, f32
+
+_ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def dropblock_kernel_supported(block_size: int) -> bool:
+    return block_size % 2 == 1 and 1 < block_size <= 17
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = load_library("dropblock")
+        p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+        lib.dropblock_fused_apply_launch.argtypes = [p, p, p, p, p, i, i, i, i, u, i, i, f, i, p]
+        lib.dropblock_fused_apply_launch.restype = i
+        lib.dropblock_mask_launch.argtypes = [p, p, p, i, i, i, i, u, i, p]
+        lib.dropblock_mask_launch.restype = i
+        _lib = lib
+    return _lib
+
+
+def seed_threshold(gamma) -> int:
+    """The kernels' integer form of `u < gamma`: a seed where the hash's top
+    24 bits are below ceil(gamma * 2^24), gamma rounded to float32 first
+    (the product is exact in double precision)."""
+    return min(max(math.ceil(f32(gamma) * float(1 << 24)), 0), 1 << 24)
+
+
+def _check_args(shape, key_words, block_size):
+    if not dropblock_kernel_supported(block_size):
+        raise ValueError("dropblock kernel requires odd 1 < block_size <= 17")
+    if len(shape) != 4:
+        raise ValueError(f"expected an NHWC shape, got {tuple(shape)}")
+    n, h, w, c = shape
+    if n * h * w * c >= 2**32:
+        raise ValueError("dropblock kernel: the flat NHWC index must fit in uint32")
+    if tuple(key_words.shape) != (2,) or key_words.dtype != torch.int64:
+        raise ValueError("key_words must be an int64 tensor of shape (2,)")
+
+
+def _apply_act(y, act: str, slope: float):
+    if act == "relu":
+        return torch.relu(y)
+    if act == "leaky_relu":
+        return torch.where(y > 0, y, y * slope)
+    if act == "none":
+        return y
+    raise ValueError(f"unsupported activation {act!r}")
+
+
+def dropblock_fused_apply_plain(x, ab, key_words, gamma, block_size: int,
+                                act: str = "relu", slope: float = 0.01):
+    """K1's plain version: the same function in PyTorch ops. x*a and then +b
+    are each rounded in x's dtype, as the JAX GroupNorm apply does."""
+    n, h, w, c = x.shape
+    dropped = dropped_blocks(tuple(x.shape), key_words, gamma, block_size)
+    y = x
+    if ab is not None:
+        y = (x * ab[0].to(x.dtype)[:, None, None, :]) + ab[1].to(x.dtype)[:, None, None, :]
+    y = _apply_act(torch.where(dropped, torch.zeros((), dtype=x.dtype, device=x.device), y),
+                   act, slope)
+    keep = (h * w * c - dropped.sum(dim=(1, 2, 3))).to(torch.float32)
+    return y, keep
+
+
+def dropblock_fused_apply(x, ab, key_words, gamma, block_size: int,
+                          act: str = "relu", slope: float = 0.01):
+    """act((x*a + b) * keep_mask) and per-sample keep counts in one pass.
+
+    x: (N, H, W, C) float32/bfloat16, contiguous NHWC. ab: (2, N, C) float32
+    GroupNorm-affine coefficients, or None (the bare skip-merge site).
+    key_words: int64 (2,) holding two uint32 words, on x's device. gamma: the
+    seed probability (rounded to float32). Returns (out in x.dtype, keep (N,)
+    float32). Forward only. CPU tensors take the plain version."""
+    _check_args(x.shape, key_words, block_size)
+    if act not in _ACTS:
+        raise ValueError(f"unsupported activation {act!r}")
+    if not x.is_cuda:
+        return dropblock_fused_apply_plain(x, ab, key_words, gamma, block_size, act, slope)
+    if x.dtype not in _DTYPES or not x.is_contiguous():
+        raise ValueError("dropblock_fused_apply: x must be contiguous NHWC float32/bfloat16")
+    n, h, w, c = x.shape
+    if ab is not None:
+        if tuple(ab.shape) != (2, n, c) or ab.dtype != torch.float32 \
+                or not ab.is_contiguous() or ab.device != x.device:
+            raise ValueError("dropblock_fused_apply: ab must be contiguous (2, N, C) float32")
+    if key_words.device != x.device:
+        raise ValueError("dropblock_fused_apply: key_words must be on x's device")
+    out = torch.empty_like(x)
+    keep = torch.zeros(n, dtype=torch.int64, device=x.device)
+    status = _library().dropblock_fused_apply_launch(
+        x.data_ptr(), out.data_ptr(), None if ab is None else ab.data_ptr(),
+        keep.data_ptr(), key_words.data_ptr(), n, h, w, c, seed_threshold(gamma), block_size,
+        _ACTS[act], float(slope), _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(status, "dropblock_fused_apply")
+    dropblock_fused_apply.launches += 1
+    return out, keep.to(torch.float32)
+
+
+dropblock_fused_apply.launches = 0
+
+
+def dropblock_mask_plain(shape, key_words, gamma, block_size: int):
+    """K2's plain version: int8 keep-mask (N, H, W, C) and keep counts."""
+    keep_mask = (~dropped_blocks(tuple(shape), key_words, gamma, block_size)).to(torch.int8)
+    return keep_mask, keep_mask.sum(dim=(1, 2, 3)).to(torch.float32)
+
+
+def dropblock_mask(shape, key_words, gamma, block_size: int):
+    """Dense int8 keep-mask (N, H, W, C) and keep counts (N,) float32, on
+    key_words' device. CPU key words take the plain version."""
+    _check_args(shape, key_words, block_size)
+    if not key_words.is_cuda:
+        return dropblock_mask_plain(shape, key_words, gamma, block_size)
+    n, h, w, c = (int(s) for s in shape)
+    mask = torch.empty((n, h, w, c), dtype=torch.int8, device=key_words.device)
+    keep = torch.zeros(n, dtype=torch.int64, device=key_words.device)
+    status = _library().dropblock_mask_launch(
+        mask.data_ptr(), keep.data_ptr(), key_words.data_ptr(), n, h, w, c,
+        seed_threshold(gamma), block_size,
+        torch.cuda.current_stream(key_words.device).cuda_stream)
+    check(status, "dropblock_mask")
+    dropblock_mask.launches += 1
+    return mask, keep.to(torch.float32)
+
+
+dropblock_mask.launches = 0

@@ -1,0 +1,202 @@
+"""DropBlock, the plain PyTorch versions (twin of unet_research_tpu/ops/dropblock.py).
+
+The reference's two torch DropBlock variants (utils/utils_modules.py):
+
+- dependent (``DropBlock2D``): Bernoulli(gamma) seeds over the valid-centre
+  region, expanded to b x b blocks by a stride-1 max-pool, inverted, applied,
+  rescaled by numel/sum (utils_modules.py:36-82);
+- independent (``Dropblock2d_ichan``): seeds over the full grid with the b//2
+  border zeroed, the same expansion, a zero-guarded 1/mean rescale
+  (utils_modules.py:86-139).
+
+The seeds come from the JAX package's counter hash, indexed in flat NHWC
+order, so the same two key words draw bit-identical masks here, in the
+hand-written kernels (ops/cuda/dropblock_kernel.py) and in the JAX
+elementwise pipeline. The hash's uint32 arithmetic runs in int64 with an
+explicit 32-bit wrap, since uint32 tensor ops are incomplete on the CPU.
+
+`mask_impl`: 'elementwise' (the functions below), 'kernel' (the mask
+producer, ops/cuda/dropblock_kernel.py::dropblock_mask) or 'fused' (a
+model-level pipeline; at the op level it means 'kernel', as in JAX).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+_M32 = 0xFFFFFFFF
+
+
+def _resolve_impl(mask_impl) -> str:
+    impl = mask_impl or "elementwise"
+    if impl not in ("elementwise", "kernel", "fused"):
+        raise ValueError(f"unknown dropblock mask_impl {impl!r}")
+    return impl
+
+
+def f32(value) -> float:
+    """`value` rounded to float32 once (the gamma every mask path compares
+    its float32 uniforms against)."""
+    return float(np.float32(value))
+
+
+def dropblock_gamma_dependent(h: int, w: int, block_size: int, drop_prob) -> float:
+    """Gamma for the dependent variant (utils_modules.py:81-82). Unclamped."""
+    b = block_size
+    return drop_prob * h * w / ((b * b) * (h - b + 1) * (w - b + 1))
+
+
+def dropblock_gamma_independent(h: int, w: int, block_size: int, drop_prob) -> float:
+    """Gamma for the independent-channel variant (utils_modules.py:98-102),
+    clamped to 1."""
+    b = block_size
+    return min((drop_prob / (b * b)) * (h * w) / ((h - b + 1) * (w - b + 1)), 1.0)
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 a in [0, 2^32) without int64 overflow:
+    c is split into 16-bit halves so every partial product stays < 2^48."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
+
+
+def hash_uniform(key_words: torch.Tensor, shape) -> torch.Tensor:
+    """Counter-hash uniforms in [0, 1), float32, on key_words' device.
+
+    The murmur-style mixer of the JAX package (ops/dropblock.py:91-113) over
+    the flat row-major index of `shape`, keyed by the first and last of the
+    uint32 key words (an int64 tensor). Bit-identical to JAX's
+    `_hash_uniform` for the same key words."""
+    kd = key_words.reshape(-1).to(torch.int64) & _M32
+    n = 1
+    for s in shape:
+        n *= int(s)
+    if n >= 2**32:
+        raise ValueError(f"hash_uniform: {n} elements exceed the uint32 counter")
+    x = torch.arange(n, dtype=torch.int64, device=kd.device).reshape(tuple(shape))
+    x = _mul32(x, 2654435761) ^ kd[0]
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15) ^ kd[-1]
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    # 24-bit mantissa -> exact float32 uniform in [0, 1)
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _block_expand(seeds: torch.Tensor, block_size: int) -> torch.Tensor:
+    """bool NHWC seeds -> bool NHWC blocks: stride-1 b x b max-pool with
+    torch-style b//2 padding; even b crops the trailing row/column."""
+    n, h, w, c = seeds.shape
+    p = block_size // 2
+    out = F.max_pool2d(seeds.permute(0, 3, 1, 2).to(torch.float32),
+                       block_size, stride=1, padding=p)
+    return out[:, :, :h, :w].permute(0, 2, 3, 1) > 0
+
+
+def interior_mask(h: int, w: int, p: int, device) -> torch.Tensor:
+    """bool (H, W): the seed region [p, H-1-p] x [p, W-1-p]."""
+    rows = torch.arange(h, device=device)
+    cols = torch.arange(w, device=device)
+    return (((rows >= p) & (rows <= h - 1 - p))[:, None]
+            & ((cols >= p) & (cols <= w - 1 - p))[None, :])
+
+
+def dropped_blocks(shape, key_words: torch.Tensor, gamma, block_size: int) -> torch.Tensor:
+    """bool (N, H, W, C): the positions an odd-b DropBlock drops.
+
+    Seeds are Bernoulli(gamma) from `hash_uniform` at the flat NHWC index,
+    kept only in the interior (b//2 border excluded), then expanded to b x b
+    blocks. Drawing over the full grid and masking the border equals the
+    reference's valid-centre draw + zero pad for odd b (ops/dropblock.py:214-224
+    of the JAX package). This is the mask both Hopper kernels compute."""
+    n, h, w, c = shape
+    seeds = hash_uniform(key_words, shape) < f32(gamma)
+    seeds &= interior_mask(h, w, block_size // 2, seeds.device)[None, :, :, None]
+    return _block_expand(seeds, block_size)
+
+
+def _dropped(shape, key_words, gamma, block_size) -> torch.Tensor:
+    if block_size % 2 == 1:
+        return dropped_blocks(shape, key_words, gamma, block_size)
+    # even b: seeds over the (H-b+1, W-b+1) valid centres in their own index
+    # space, ZeroPad2d(b//2), crop the trailing row/column (JAX :225-230)
+    n, h, w, c = shape
+    b, p = block_size, block_size // 2
+    seeds = hash_uniform(key_words, (n, h - b + 1, w - b + 1, c)) < f32(gamma)
+    seeds = F.pad(seeds, (0, 0, p, p, p, p))[:, :h, :w, :]
+    return _block_expand(seeds, b)
+
+
+def _kernel_path(impl: str, block_size: int) -> bool:
+    from unet_research_tpu_torch.ops.cuda.dropblock_kernel import dropblock_kernel_supported
+
+    return impl in ("kernel", "fused") and dropblock_kernel_supported(block_size)
+
+
+def _mask_and_keep(x, key_words, gamma, block_size, impl):
+    """(int8 keep-mask, per-sample keep counts float32 (N,))."""
+    if _kernel_path(impl, block_size):
+        from unet_research_tpu_torch.ops.cuda.dropblock_kernel import dropblock_mask
+
+        return dropblock_mask(tuple(x.shape), key_words, gamma, block_size)
+    keep_mask = (~_dropped(tuple(x.shape), key_words, gamma, block_size)).to(torch.int8)
+    return keep_mask, keep_mask.sum(dim=(1, 2, 3)).to(torch.float32)
+
+
+def dropblock_dependent(x: torch.Tensor, key_words: torch.Tensor, drop_prob,
+                        block_size: int, mask_impl: str | None = None,
+                        rescale: str = "apply"):
+    """DropBlock2D-equivalent (utils_modules.py:36-82), NHWC.
+
+    rescale: 'apply' multiplies in numel/sum over the whole batch (the
+    reference op); 'defer' returns (x*mask, per-sample (N,) scale numel/sum);
+    'skip' omits the count (the model's fold_rescale algebra)."""
+    impl = _resolve_impl(mask_impl)
+    n, h, w, c = x.shape
+    gamma = dropblock_gamma_dependent(h, w, block_size, drop_prob)
+    keep_mask, keep = _mask_and_keep(x, key_words, gamma, block_size, impl)
+    out = x * keep_mask.to(x.dtype)
+    if rescale == "skip":
+        return out
+    if rescale == "defer":
+        return out, float(h * w * c) / keep
+    scale = float(n * h * w * c) / keep.sum()
+    return out * scale.to(x.dtype)
+
+
+def dropblock_independent(x: torch.Tensor, key_words: torch.Tensor, drop_prob,
+                          block_size: int, mask_impl: str | None = None,
+                          rescale: str = "apply"):
+    """Dropblock2d_ichan-equivalent (utils_modules.py:107-139), NHWC: the
+    guarded 1/mean rescale (identity when everything was dropped). Odd b
+    only, as in the reference."""
+    if block_size % 2 == 0:
+        raise ValueError("dropblock_independent requires an odd block_size")
+    impl = _resolve_impl(mask_impl)
+    n, h, w, c = x.shape
+    gamma = dropblock_gamma_independent(h, w, block_size, drop_prob)
+    keep_mask, keep = _mask_and_keep(x, key_words, gamma, block_size, impl)
+    out = x * keep_mask.to(x.dtype)
+    if rescale == "skip":
+        return out
+    if rescale == "defer":
+        return out, _guarded_inverse(keep / float(h * w * c))
+    scale = _guarded_inverse(keep.sum() / float(n * h * w * c))
+    return out * scale.to(x.dtype)
+
+
+def _guarded_inverse(frac: torch.Tensor) -> torch.Tensor:
+    return torch.where(frac != 0, 1.0 / frac, torch.ones_like(frac))
+
+
+def linear_drop_prob(step: int, start: float, stop: float, nr_steps: int) -> float:
+    """Drop-prob of the dropblock package's LinearScheduler at `step`
+    (np.linspace(start, stop, nr_steps), held at `stop` afterwards;
+    reference utils_unet.py:129-132, 410-411)."""
+    if nr_steps <= 1:
+        return float(stop)
+    i = min(float(step), nr_steps - 1)
+    return start + (stop - start) * i / (nr_steps - 1)

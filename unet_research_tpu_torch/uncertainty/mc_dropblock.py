@@ -1,0 +1,63 @@
+"""Monte-Carlo DropBlock uncertainty (twin of
+unet_research_tpu/uncertainty/mc_dropblock.py).
+
+The reference's serial batch-1 forward passes with DropBlock forced on
+(uncertainty_tests/Dropblock_Uncertainty.py:22-25, 48-72) as chunked batched
+forwards: each chunk draws one (S, 2) set of site keys from the engine's
+generator, and members of a chunk draw different masks through their flat
+batch index in the counter hash. Optional square-pad + resize first
+(Dropblock_Uncertainty.py:52-61). The statistics are the per-pixel mean and
+unbiased std of the masked segmentations.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from unet_research_tpu_torch.device import resolve_device
+from unet_research_tpu_torch.models.unet import UNet, draw_site_keys
+from unet_research_tpu_torch.ops.image import resize_bilinear, square_pad
+from unet_research_tpu_torch.uncertainty.ensemble import streaming_ensemble_batched
+
+
+class MCDropBlockEngine:
+    """Build once per model, call `predict` per image.
+
+    generator: the torch.Generator the site keys are drawn from (seeded 0
+    when None)."""
+
+    def __init__(self, model: UNet, num_iterations: int = 1000, return_num: int = 25,
+                 resize: int = -1, chunk: int = 25, device=None,
+                 generator: torch.Generator | None = None):
+        self.model = model
+        self.num_iterations = num_iterations
+        self.return_num = min(return_num, num_iterations)
+        self.resize = resize
+        self.chunk = chunk
+        self.device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.generator = generator
+
+    def _prep(self, img):
+        img = torch.as_tensor(img, dtype=torch.float32).to(self.device)
+        if self.resize != -1:
+            img = resize_bilinear(square_pad(img), (self.resize, self.resize))
+        return img
+
+    def predict(self, im, gt, mask, drop_prob: float):
+        """im, gt, mask: NHWC (1, H, W, C) arrays or tensors. Returns
+        (mean, std, saved, im, gt, mask): mean/std are (1, H, W, 1), saved is
+        (return_num, 1, H, W, 1), the reference's tensor layout."""
+        im, gt, mask = self._prep(im), self._prep(gt), self._prep(mask)
+        num_sites = self.model.num_mask_sites()
+
+        def batch(size: int):
+            keys = draw_site_keys(num_sites, self.generator).to(self.device)
+            xb = im.expand((size,) + tuple(im.shape[1:]))
+            return self.model(xb, drop_prob=drop_prob, site_keys=keys) * mask
+
+        with torch.inference_mode():
+            mean, std, saved = streaming_ensemble_batched(
+                batch, self.num_iterations, self.chunk, self.return_num)
+        return mean[None], std[None], saved[:, None], im, gt, mask
