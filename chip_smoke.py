@@ -7,7 +7,9 @@ holds each kernel against its plain PyTorch version at the shapes of the
 main path, then runs the MC-DropBlock ensemble of the canonical 31M U-Net
 (bf16, dependent DropBlock b=7 p=0.15, conv_impl='pair' + mask_impl='fused')
 on a seeded synthetic 584x565 image and checks its outputs and launch
-counts. Every phase prints one JSON line; the last line is
+counts, then the rotational TTA ensemble of the same model (bf16, DropBlock
+off, conv_impl='pair', all 359 angles) under both warps, 'shear' (kernel K4)
+and 'gather'. Every phase prints one JSON line; the last line is
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit). Needs
 one CUDA card; exits non-zero without one.
 
@@ -15,9 +17,11 @@ Tolerances: masks and keep counts exact (one counter hash on both sides);
 K1 outputs within 2 bf16 ulps; K3 max |y - plain| / max |plain| <= 1e-2 in
 bf16, and the moment sums within 1e-3 of the plain version's float32 sums
 relative to their largest magnitude (float32 atomics in run-dependent
-order; TF32 is off for every float32 reference); the kernel route's
-probability map within twice the plain bf16 route's distance from the plain
-float32 route, on the same chunk and site keys.
+order; TF32 is off for every float32 reference); K4 within 1e-6 max abs of
+its plain version (the same float32 operations in the same order: bit-equal
+expected); for each ensemble, the kernel route's probability map within
+twice the plain bf16 route's distance from the plain float32 route, on the
+same chunk (and site keys).
 """
 
 from __future__ import annotations
@@ -40,8 +44,11 @@ from unet_research_tpu_torch.models import unet as tunet  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import build  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import pair_conv as pc  # noqa: E402
+from unet_research_tpu_torch.ops.cuda import shear_rotate as sr  # noqa: E402
 from unet_research_tpu_torch.ops.dropblock import dropblock_gamma_dependent  # noqa: E402
+from unet_research_tpu_torch.ops.image import rotate_bilinear  # noqa: E402
 from unet_research_tpu_torch.uncertainty.mc_dropblock import MCDropBlockEngine  # noqa: E402
+from unet_research_tpu_torch.uncertainty.rotational import RotationalEngine  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
@@ -52,7 +59,11 @@ P_DROP, BLOCK = 0.15, 7
 GAMMA = dropblock_gamma_dependent(H, W, BLOCK, P_DROP)
 COUNTERS = {"dropblock_fused_apply": dbk.dropblock_fused_apply,
             "dropblock_mask": dbk.dropblock_mask,
-            "conv3x3_pair": pc.conv3x3_pair}
+            "conv3x3_pair": pc.conv3x3_pair,
+            "rotate_fan": sr.rotate_fan}
+# one chunk of the rotational fan, the four ties 45 + 90k included
+FAN = torch.tensor([45.0, 135.0, 225.0, 315.0, 1.0, 17.0, 33.0, 60.0, 90.0, 101.0, 180.0,
+                    200.5, 270.0, 300.0, 333.0, 359.0])
 
 
 def emit(obj) -> None:
@@ -79,6 +90,25 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 5) -> float:
+    """Device time per call from torch.profiler: the summed time of the
+    kernels fn launches. For a wrapper whose host work per call (K4's
+    per-member scalars) is about as long as its kernels, where time_ms
+    would measure the host."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(ev.device_time for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    if total_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return total_us / 1e3 / iters
 
 
 def bound_ms(bytes_moved: float, flops: float = 0.0):
@@ -233,6 +263,45 @@ def check_k3() -> dict:
     return row
 
 
+def check_k4() -> dict:
+    im = torch.as_tensor(synthetic_image()[0], device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(4)
+    segs = torch.rand((len(FAN), 584, 565, 1), device=DEV, generator=g)
+    fans = {"forward": (im, FAN), "inverse": (segs, -FAN)}
+    worst, row = 0.0, None
+    for name, (img, angles) in fans.items():
+        out = sr.rotate_fan(img, angles)
+        ref = sr.rotate_fan_plain(img, angles)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if out.shape != ref.shape or not err <= 1e-6:
+            raise AssertionError(f"K4 {name} fan: max abs {err} from the plain version")
+        worst = max(worst, err)
+        emit({"phase": "K4", "fan": name, "shape": list(img.shape), "angles": angles.tolist(),
+              "quarter_turns": sr.fan_params(angles, 584, 565).qm.tolist(),
+              "max_abs_err": err, "bit_equal": bool(torch.equal(out, ref))})
+    for name, (img, angles) in fans.items():
+        ms = device_ms(lambda: sr.rotate_fan(img, angles))
+        call_ms = time_ms(lambda: sr.rotate_fan(img, angles), 20)
+        plain = time_ms(lambda: sr.rotate_fan_plain(img, angles), 3, 1)
+        on_card = angles.to(DEV)  # as the engine holds them for the gather warp
+        gather = time_ms(lambda: rotate_bilinear(img, on_card), 5)
+        # each input read once, each output written once, and the (K, 5) scalars
+        bound, by = bound_ms(4 * (img.numel() + len(angles) * 584 * 565 + 5 * len(angles)))
+        timing = {"shape": list(img.shape), "angles": len(angles), "ms": ms,
+                  "call_ms": call_ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                  "library_ms": None, "gather_ms": gather}
+        emit({"phase": "K4-time", "fan": name, **timing})
+        if row is None:
+            row = {"name": "rotate_fan", "route": "cuda",
+                   "source": "unet_research_tpu_torch/ops/cuda/csrc/shear_rotate.cu",
+                   "replaces": "unet_research_tpu/ops/pallas/shear_rotate.py:147", **timing}
+        else:
+            row["inverse_fan"] = timing
+    row["max_abs_err"] = worst
+    return row
+
+
 def synthetic_image():
     rng = np.random.default_rng(0)
     h, w = 584, 565
@@ -246,7 +315,7 @@ def synthetic_image():
 
 
 def model_for(state, **overrides):
-    db = tunet.DropBlockConfig(kind="dependent", block_size=BLOCK,
+    db = tunet.DropBlockConfig(kind=overrides.pop("kind", "dependent"), block_size=BLOCK,
                                mask_impl=overrides.pop("mask_impl", "fused"))
     cfg = tunet.canonical_config(dropblock=db, **{"dtype": torch.bfloat16,
                                                   "conv_impl": "pair", **overrides})
@@ -255,10 +324,24 @@ def model_for(state, **overrides):
     return model.eval()
 
 
-def run_slice() -> dict:
+def base_state() -> dict:
     base = tunet.UNet(tunet.canonical_config(), device=DEV,
                       generator=torch.Generator().manual_seed(0))
-    state = base.state_dict()
+    return base.state_dict()
+
+
+def check_outputs(mean, std, saved, ret) -> None:
+    if not (mean.shape == std.shape == (1, 584, 565, 1) and saved.shape == (ret, 1, 584, 565, 1)):
+        raise AssertionError(f"shapes {mean.shape} {std.shape} {saved.shape}")
+    for t in (mean, std, saved):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError("non-finite output")
+    if not (0.0 <= float(mean.min()) and float(mean.max()) <= 1.0 and float(saved.min()) >= 0.0
+            and float(saved.max()) <= 1.0 and float(std.max()) > 0.0):
+        raise AssertionError("outputs out of range or std == 0 everywhere")
+
+
+def run_slice(state) -> dict:
     model = model_for(state)
     im, gt, mask = synthetic_image()
     iters, ret = 48, 4
@@ -275,16 +358,9 @@ def run_slice() -> dict:
     seconds = time.perf_counter() - t0
     main = counts()
     if main != {"dropblock_fused_apply": 22 * forwards, "dropblock_mask": 0,
-                "conv3x3_pair": 3 * forwards}:
+                "conv3x3_pair": 3 * forwards, "rotate_fan": 0}:
         raise AssertionError(f"main path launches {main} over {forwards} forwards")
-    if not (mean.shape == std.shape == (1, 584, 565, 1) and saved.shape == (ret, 1, 584, 565, 1)):
-        raise AssertionError(f"shapes {mean.shape} {std.shape} {saved.shape}")
-    for t in (mean, std, saved):
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError("non-finite output")
-    if not (0.0 <= float(mean.min()) and float(mean.max()) <= 1.0 and float(saved.max()) <= 1.0
-            and float(std.max()) > 0.0):
-        raise AssertionError("outputs out of range or std == 0 everywhere")
+    check_outputs(mean, std, saved, ret)
     emit({"phase": "slice", "config": "canonical 31M, bf16, dependent b=7 p=0.15, pair+fused",
           "input": [584, 565], "iterations": iters, "chunk": CHUNK, "return_num": ret,
           "forwards": forwards, "seconds": seconds, "passes_per_s": iters / seconds,
@@ -301,7 +377,8 @@ def run_slice() -> dict:
         variant(x, drop_prob=P_DROP, site_keys=site_keys)
     torch.cuda.synchronize()
     kernel_variant = counts()
-    if kernel_variant != {"dropblock_fused_apply": 0, "dropblock_mask": 22, "conv3x3_pair": 3}:
+    if kernel_variant != {"dropblock_fused_apply": 0, "dropblock_mask": 22, "conv3x3_pair": 3,
+                          "rotate_fan": 0}:
         raise AssertionError(f"mask_impl='kernel' launches {kernel_variant}")
     emit({"phase": "kernel-variant", "launches": kernel_variant})
 
@@ -326,17 +403,73 @@ def run_slice() -> dict:
     return {"main": main, "kernel_variant": kernel_variant}
 
 
+def run_rotational(state) -> dict:
+    model = model_for(state, kind=None)
+    im, gt, mask = synthetic_image()
+    iters, ret = 359, 25
+    forwards = 1 + (iters - ret) // CHUNK + (1 if (iters - ret) % CHUNK else 0)
+    launches = {}
+    for warp, per_forward in (("shear", {"rotate_fan": 2, "conv3x3_pair": 3}),
+                              ("gather", {"rotate_fan": 0, "conv3x3_pair": 3})):
+        engine = RotationalEngine(model, num_iterations=iters, return_num=ret, chunk=CHUNK,
+                                  warp=warp, device=DEV)
+        engine.predict(im, gt, mask)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        mean, std, saved, *_ = engine.predict(im, gt, mask)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = counts()
+        want = {"dropblock_fused_apply": 0, "dropblock_mask": 0,
+                **{name: n * forwards for name, n in per_forward.items()}}
+        if got != want:
+            raise AssertionError(f"rotational {warp} launches {got}, expected {want}")
+        check_outputs(mean, std, saved, ret)
+        launches[warp] = got
+        emit({"phase": "rotational-slice", "warp": warp,
+              "config": "canonical 31M, bf16, DropBlock off, conv_impl='pair'",
+              "input": [584, 565], "iterations": iters, "chunk": CHUNK, "return_num": ret,
+              "forwards": forwards, "seconds": seconds, "passes_per_s": iters / seconds,
+              "launches": got, "mean_range": [float(mean.min()), float(mean.max())],
+              "std_max": float(std.max())})
+
+    # one chunk of angles: kernel route vs the plain routes
+    routes = {"kernels": (model, sr.rotate_fan),
+              "plain_bf16": (model_for(state, kind=None, conv_impl="torch"), sr.rotate_fan_plain),
+              "plain_f32": (model_for(state, kind=None, conv_impl="torch", dtype=torch.float32),
+                            sr.rotate_fan_plain)}
+    x = torch.as_tensor(im, device=DEV)
+    fov = torch.as_tensor(mask, device=DEV)
+    with torch.inference_mode():
+        outs = {name: warp(m(warp(x, FAN)).contiguous(), -FAN) * fov
+                for name, (m, warp) in routes.items()}
+    d_kernel = float((outs["kernels"] - outs["plain_bf16"]).abs().max())
+    d_bf16 = float((outs["plain_bf16"] - outs["plain_f32"]).abs().max())
+    emit({"phase": "rotational-routes", "angles": FAN.tolist(),
+          "max_abs_kernel_vs_plain_bf16": d_kernel, "max_abs_plain_bf16_vs_f32": d_bf16,
+          "max_abs_kernel_vs_f32": float((outs["kernels"] - outs["plain_f32"]).abs().max()),
+          "mean_abs_kernel_vs_plain_bf16":
+              float((outs["kernels"] - outs["plain_bf16"]).abs().mean())})
+    if not d_kernel <= 2.0 * d_bf16:
+        raise AssertionError(f"rotational kernel route {d_kernel} vs plain bf16 noise {d_bf16}")
+    return launches
+
+
 def main() -> None:
     # float32 references run in full float32, not TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     header()
     build_kernels()
-    rows = [check_k1(), check_k2(), check_k3()]
-    launches = run_slice()
+    rows = [check_k1(), check_k2(), check_k3(), check_k4()]
+    state = base_state()
+    launches = run_slice(state)
+    rotational = run_rotational(state)
     rows[0]["launches"] = launches["main"]["dropblock_fused_apply"]
     rows[1]["launches"] = launches["kernel_variant"]["dropblock_mask"]
     rows[2]["launches"] = launches["main"]["conv3x3_pair"]
+    rows[3]["launches"] = rotational["shear"]["rotate_fan"]
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

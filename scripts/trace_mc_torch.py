@@ -1,10 +1,14 @@
-"""Where one MC-DropBlock chunk forward of the PyTorch port spends its time.
+"""Where one chunk forward of the PyTorch port's ensembles spends its time.
 
-    python3 scripts/trace_mc_torch.py [--chunk 16] [--out _runs/trace_mc_torch.json]
+    python3 scripts/trace_mc_torch.py [--chunk 16] [--warp shear|gather]
+                                      [--out _runs/trace_mc_torch.json]
 
 Runs the canonical 31M U-Net (bf16, dependent DropBlock b=7 p=0.15,
 conv_impl='pair' + mask_impl='fused', random seeded weights) on a 584x565
-input, warms up, then profiles one chunk forward with torch.profiler. Prints
+input, warms up, then profiles one chunk forward with torch.profiler. With
+--warp, one chunk of the rotational ensemble instead: DropBlock off, the
+chunk's angles warped in, the forward, the segmentations warped back by
+their -angles (`shear`: kernel K4; `gather`: rotate_bilinear). Prints
 the wall time of the forward, the summed device time, the device's idle
 share of the wall time, and the device time by kernel, largest first.
 Needs one CUDA card.
@@ -23,25 +27,36 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from unet_research_tpu_torch.models import unet as tunet  # noqa: E402
+from unet_research_tpu_torch.ops.cuda.shear_rotate import rotate_fan  # noqa: E402
+from unet_research_tpu_torch.ops.image import rotate_bilinear  # noqa: E402
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--chunk", type=int, default=16)
+    p.add_argument("--warp", choices=("shear", "gather"), default=None)
     p.add_argument("--out", default="_runs/trace_mc_torch.json")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     dev = torch.device("cuda")
-    cfg = tunet.canonical_config(dtype=torch.bfloat16,
-                                 dropblock=tunet.DropBlockConfig(kind="dependent"))
+    kind = "dependent" if a.warp is None else None
+    cfg = tunet.canonical_config(dtype=torch.bfloat16, dropblock=tunet.DropBlockConfig(kind=kind))
     model = tunet.UNet(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
-    x = torch.rand((1, 584, 565, 1), generator=g).to(dev).expand(a.chunk, -1, -1, -1)
+    im = torch.rand((1, 584, 565, 1), generator=g).to(dev)
+    x = im.expand(a.chunk, -1, -1, -1)
+    # on the host for rotate_fan, on the card for rotate_bilinear, as the engine holds them
+    angles = torch.arange(1, a.chunk + 1, dtype=torch.float32)
+    if a.warp == "gather":
+        angles = angles.to(dev)
+    warp = {"shear": rotate_fan, "gather": rotate_bilinear}.get(a.warp)
 
     def forward():
-        keys = tunet.draw_site_keys(model.num_mask_sites(), g).to(dev)
         with torch.inference_mode():
+            if warp is not None:
+                return warp(model(warp(im, angles)).contiguous(), -angles)
+            keys = tunet.draw_site_keys(model.num_mask_sites(), g).to(dev)
             return model(x, drop_prob=0.15, site_keys=keys)
 
     for _ in range(3):
@@ -62,7 +77,7 @@ def main(argv=None) -> None:
     device_ms = sum(ms for ms, _ in kernels.values())
     rows = sorted(([name, ms, n] for name, (ms, n) in kernels.items()),
                   key=lambda r: -r[1])
-    summary = {"device": torch.cuda.get_device_name(0), "chunk": a.chunk,
+    summary = {"device": torch.cuda.get_device_name(0), "chunk": a.chunk, "warp": a.warp,
                "wall_ms": wall_ms, "device_ms": device_ms,
                "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
                "kernels": [{"name": n[:160], "ms": ms, "count": c} for n, ms, c in rows]}

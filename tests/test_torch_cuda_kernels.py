@@ -10,7 +10,10 @@ one with
 machine need not have). Tolerances: masks, keep counts and K1 outputs exact
 (same hash, same rounding steps); K3 max |y - plain| / max |plain| <= 1e-2 in
 bf16 and 1e-5 in float32, sums 1e-5 relative to their largest magnitude
-against the plain version in float32 (TF32 off)."""
+against the plain version in float32 (TF32 off); K4 (the shear fan warp) at
+odd, non-square sizes, K = 1, 5 and 130 (two launch groups), single-image
+and batched, max abs 1e-6 (the same float32 operations in the same order:
+bit-equal expected)."""
 
 import pytest
 import torch
@@ -77,3 +80,24 @@ def test_conv3x3_pair_matches_plain(dev, shape, cout, dtype, tensor_cores):
     assert float((y.float() - ry.float()).abs().max() / ry.float().abs().max()) <= tol
     for s, r in ((s1, r1), (s2, r2)):
         assert float((s - r).abs().max() / r.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("n,h,w,angles", [
+    (1, 37, 53, [135.0]),
+    (1, 61, 40, [45.0, -135.0, 7.5, 225.0, 359.0]),
+    (5, 40, 61, [-45.0, 135.0, -7.5, -225.0, -359.0]),
+    (1, 130, 129, [0.0, 90.0, 180.0, 270.0, 33.0]),
+    (130, 20, 17, [2.75 * i - 179.0 for i in range(130)]),  # two launch groups
+])
+def test_rotate_fan_matches_plain(dev, n, h, w, angles):
+    from unet_research_tpu_torch.ops.cuda import shear_rotate as sr
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    img = torch.rand((n, h, w, 1), device=dev, generator=g)
+    a = torch.tensor(angles)
+    before = sr.rotate_fan.launches
+    out = sr.rotate_fan(img, a)
+    assert sr.rotate_fan.launches == before + 1
+    ref = sr.rotate_fan_plain(img, a)
+    assert out.shape == (len(angles), h, w, 1)
+    assert float((out - ref).abs().max()) <= 1e-6

@@ -68,6 +68,7 @@ def test_entry_points_default_to_the_card():
     from unet_research_tpu_torch.device import resolve_device
     from unet_research_tpu_torch.models.unet import UNet, canonical_config
     from unet_research_tpu_torch.uncertainty.mc_dropblock import MCDropBlockEngine
+    from unet_research_tpu_torch.uncertainty.rotational import RotationalEngine
 
     cfg = canonical_config(filters=4, model_depth=2, group_norm_groups=2)
     cpu_model = UNet(cfg, device="cpu")
@@ -75,6 +76,7 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         return
-    for call in (resolve_device, lambda: UNet(cfg), lambda: MCDropBlockEngine(cpu_model)):
+    for call in (resolve_device, lambda: UNet(cfg), lambda: MCDropBlockEngine(cpu_model),
+                 lambda: RotationalEngine(cpu_model)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -4,12 +4,13 @@ Same subpackage layout as the JAX package, one twin per module:
 
 - `models/`       the configurable U-Net as an `nn.Module` (reference torch
                   state_dict layout), DropBlock mask sites and fold_rescale.
-- `ops/`          image geometry and the plain DropBlock ops (counter hash).
+- `ops/`          image geometry (with the bilinear rotation) and the plain
+                  DropBlock ops (counter hash).
 - `ops/cuda/`     hand-written Hopper kernels (CUDA C++, sm_90a) with their
                   plain PyTorch versions and launch counters; twin of
                   `ops/pallas/`.
-- `uncertainty/`  the streaming Chan-merge ensemble and the MC-DropBlock
-                  engine.
+- `uncertainty/`  the streaming Chan-merge ensemble, the MC-DropBlock engine
+                  and the rotational TTA engine.
 - `utils/`        JAX-params / reference-checkpoint conversion.
 
 Public functions keep JAX's NHWC layout. Entry points run on the card

@@ -1,0 +1,197 @@
+"""Rotation of a fan of angles as three shears, kernel K4 and its plain version.
+
+Replaces unet_research_tpu/ops/pallas/shear_rotate.py::rotate_fan (kernel
+`_row_resample_kernel`, called through `_row_resample`, shear_rotate.py:79-166):
+each member is an exact quarter turn (rot90) on a square S x S canvas, then
+three 1-D per-line fractional shifts with linear taps and zero fill (an
+x-shear, a y-shear, an x-shear), then a crop back to (H, W). The result is
+the rotation CCW about ((W-1)/2, (H-1)/2) with zero fill, up to the
+shear-vs-bilinear interpolation difference of the JAX function.
+
+Source: csrc/shear_rotate.cu. Bound: memory. At the rotational engine's
+chunk (K = 16 members of 584x565, float32) the forward fan reads the one
+image (1.3 MB) and writes 21.1 MB, 6.7 us at 3.35 TB/s on an H100 SXM; the
+inverse fan reads and writes 21.1 MB each, 12.6 us. The kernel makes three
+launches, one per pass; passes 1 and 2 each write a (K, S, S) float32
+intermediate (51.4 MB at S = 896) that the next pass reads, about 200 MB
+moved per fan in all, so it runs at many times its bound. The TPU kernel's
+8-row strips, its per-strip roll base and pltpu.roll exist because Mosaic
+has no per-lane gather; here each thread computes its own source index.
+
+The canvas keeps the JAX package's 128-aligned size. The kernel does not
+need the alignment, but S sets the canvas centre (S-1)/2 and the content
+offsets (py, px), and every per-line shift depends on them: only the same S
+gives the same shift tables, and so the same numbers, as JAX.
+
+`fan_params` computes every per-member scalar on the host in float32 torch
+ops in JAX's order; the kernel and the plain version read the same values,
+form each shift as slope * line + offset and each blend as
+t1 * (1 - f) + t2 * f in round-to-nearest float32 without contraction, so
+the two agree bit for bit on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from unet_research_tpu_torch.ops.cuda.build import check, load_library
+
+_DEG2RAD = np.float32(np.pi / 180)
+_HALF_PI = np.float32(np.pi / 2)
+# Under jit, XLA folds deg2rad(a) / (pi/2) into a * (f32(pi/180) / f32(pi/2)):
+# at 135 degrees that gives 1.4999999 where the unfolded quotient gives 1.5,
+# so the JAX function turns by q = 1 and phi = +45 there (q = -1 at -135),
+# where an eager computation would take q = 2 and phi = -45. Both are valid
+# rotations, but their interpolation differs by up to 0.28 on noise. The
+# folded constant reproduces the jitted choice at every tie 45 + 90k.
+_QUARTERS_PER_DEG = np.float32(_DEG2RAD / _HALF_PI)
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = load_library("shear_rotate")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.shear_rotate_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.shear_rotate_launch.restype = i
+        _lib = lib
+    return _lib
+
+
+def canvas_size(h: int, w: int) -> int:
+    """The JAX package's square canvas: (1 + tan(pi/8)) * max(H, W) + 2,
+    rounded up to a multiple of 128 (see the module note for why)."""
+    s = int(math.ceil((1.0 + math.tan(math.pi / 8)) * max(h, w))) + 2
+    return s + (-s) % 128
+
+
+class FanParams(NamedTuple):
+    """Per-member scalars, (K,) float32 on the CPU (qm int64). The three
+    per-line shifts are A1(y) = r*y + t1 (pass 1, by row), B(x) = q*x + s
+    (pass 2, by column) and A2(y) = r*y + t2 (pass 3, by row)."""
+
+    qm: torch.Tensor
+    phi: torch.Tensor
+    r: torch.Tensor
+    t1: torch.Tensor
+    q: torch.Tensor
+    s: torch.Tensor
+    t2: torch.Tensor
+
+
+def fan_params(angles_deg, h: int, w: int) -> FanParams:
+    """The scalars of rotate_fan (JAX shear_rotate.py:169-208 and
+    `_pass_params` :135-143), in float32 in the same order."""
+    a = torch.as_tensor(angles_deg).detach().to("cpu", torch.float32)
+    S = canvas_size(h, w)
+    py, px = (S - h) // 2, (S - w) // 2
+    theta = a * _DEG2RAD
+    qi = torch.round(a * _QUARTERS_PER_DEG)  # half to even, as jnp.round
+    phi = theta - qi * _HALF_PI
+    qm = torch.remainder(qi.to(torch.int64), 4)
+    cc = (S - 1) / 2.0
+    cly = py + (h - 1) / 2.0
+    clx = px + (w - 1) / 2.0
+    dy, dx = cly - cc, clx - cc
+    quarter = qm.to(torch.float32) * _HALF_PI
+    cosq, sinq = torch.cos(quarter), torch.sin(quarter)
+    c2x = cc + cosq * dx + sinq * dy
+    c2y = cc - sinq * dx + cosq * dy
+    cosp, sinp = torch.cos(phi), torch.sin(phi)
+    e_x = c2x - (cosp * clx - sinp * cly)
+    e_y = c2y - (sinp * clx + cosp * cly)
+    r = -torch.tan(phi / 2)
+    q = torch.sin(phi)
+    t1 = -r * cly
+    t2 = e_x - r * e_y - t1
+    s = e_y - q * t2
+    return FanParams(qm, phi, r, t1, q, s, t2)
+
+
+def _check(img, angles_deg):
+    n, h, w, c = img.shape
+    if c != 1:
+        raise ValueError("rotate_fan expects single-channel NHWC")
+    k = int(torch.as_tensor(angles_deg).shape[0])
+    if n not in (1, k):
+        raise ValueError("img batch must be 1 or len(angles)")
+    return k, h, w
+
+
+def _resample_rows(img, delta):
+    """out[k, y, x] = (1-f) * img[k, y, x+d] + f * img[k, y, x+d+1] with
+    d = floor(delta[k, y]), f = delta[k, y] - d, zeros outside [0, S)."""
+    K, rows, S = img.shape
+    d = torch.floor(delta)
+    f = (delta - d)[:, :, None]
+    src = torch.arange(S, device=img.device)[None, None, :] + d.to(torch.int64)[:, :, None]
+
+    def tap(idx):
+        valid = (idx >= 0) & (idx < S)
+        vals = torch.gather(img, 2, idx.clamp(0, S - 1))
+        return torch.where(valid, vals, torch.zeros((), dtype=img.dtype, device=img.device))
+
+    return tap(src) * (1 - f) + tap(src + 1) * f
+
+
+def rotate_fan_plain(img: torch.Tensor, angles_deg) -> torch.Tensor:
+    """K4's plain version: the canvas, a per-member torch.rot90, three
+    gathers along lines (x, then y on the transpose, then x) and the crop."""
+    K, h, w = _check(img, angles_deg)
+    S = canvas_size(h, w)
+    py, px = (S - h) // 2, (S - w) // 2
+    p = fan_params(angles_deg, h, w)
+    dev = img.device
+    canvas = torch.zeros((K, S, S), dtype=img.dtype, device=dev)
+    canvas[:, py:py + h, px:px + w] = img[:, :, :, 0]
+    canvas = torch.stack([torch.rot90(canvas[i], int(p.qm[i]), dims=(0, 1))
+                          for i in range(K)])
+    lines = torch.arange(S, dtype=torch.float32, device=dev)[None, :]
+
+    def shifts(slope, offset):
+        return slope.to(dev)[:, None] * lines + offset.to(dev)[:, None]
+
+    out = _resample_rows(canvas, shifts(p.r, p.t1))
+    out = _resample_rows(out.transpose(1, 2), shifts(p.q, p.s)).transpose(1, 2)
+    out = _resample_rows(out, shifts(p.r, p.t2))
+    return out[:, py:py + h, px:px + w, None]
+
+
+def rotate_fan(img: torch.Tensor, angles_deg) -> torch.Tensor:
+    """Rotate a float32 (1 or K, H, W, 1) image by K angles in degrees (CCW,
+    zero fill) -> (K, H, W, 1). A batch of K rotates member k by angle k
+    (the inverse warp of a segmentation fan). The angles may lie on any
+    device; their per-member scalars are computed on the host (angles on the
+    card cost a synchronisation) and reach the kernel as launch parameters,
+    with no copy. CPU tensors take the plain version."""
+    K, h, w = _check(img, angles_deg)
+    if not img.is_cuda:
+        return rotate_fan_plain(img, angles_deg)
+    if img.dtype != torch.float32 or not img.is_contiguous():
+        raise ValueError("rotate_fan: img must be contiguous float32 NHWC")
+    S = canvas_size(h, w)
+    p = fan_params(angles_deg, h, w)
+    dev = img.device
+    # (K, 6) int32 host rows, the kernel's Member: the float32 bits of
+    # r, t1, q, s, t2, then qm
+    members = torch.cat([torch.stack([p.r, p.t1, p.q, p.s, p.t2], dim=1).view(torch.int32),
+                         p.qm.to(torch.int32)[:, None]], dim=1)
+    buf1 = torch.empty((K, S, S), dtype=torch.float32, device=dev)
+    buf2 = torch.empty((K, S, S), dtype=torch.float32, device=dev)
+    out = torch.empty((K, h, w, 1), dtype=torch.float32, device=dev)
+    status = _library().shear_rotate_launch(
+        img.data_ptr(), members.data_ptr(), buf1.data_ptr(), buf2.data_ptr(),
+        out.data_ptr(), K, img.shape[0], h, w, S, (S - h) // 2, (S - w) // 2,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(status, "rotate_fan")
+    rotate_fan.launches += 1
+    return out
+
+
+rotate_fan.launches = 0

@@ -16,7 +16,7 @@ import torch
 
 from unet_research_tpu_torch.device import resolve_device
 from unet_research_tpu_torch.models.unet import UNet, draw_site_keys
-from unet_research_tpu_torch.ops.image import resize_bilinear, square_pad
+from unet_research_tpu_torch.ops.image import engine_input
 from unet_research_tpu_torch.uncertainty.ensemble import streaming_ensemble_batched
 
 
@@ -39,17 +39,11 @@ class MCDropBlockEngine:
             generator = torch.Generator().manual_seed(0)
         self.generator = generator
 
-    def _prep(self, img):
-        img = torch.as_tensor(img, dtype=torch.float32).to(self.device)
-        if self.resize != -1:
-            img = resize_bilinear(square_pad(img), (self.resize, self.resize))
-        return img
-
     def predict(self, im, gt, mask, drop_prob: float):
         """im, gt, mask: NHWC (1, H, W, C) arrays or tensors. Returns
         (mean, std, saved, im, gt, mask): mean/std are (1, H, W, 1), saved is
         (return_num, 1, H, W, 1), the reference's tensor layout."""
-        im, gt, mask = self._prep(im), self._prep(gt), self._prep(mask)
+        im, gt, mask = (engine_input(t, self.device, self.resize) for t in (im, gt, mask))
         num_sites = self.model.num_mask_sites()
 
         def batch(size: int):
