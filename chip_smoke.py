@@ -9,7 +9,13 @@ main path, then runs the MC-DropBlock ensemble of the canonical 31M U-Net
 on a seeded synthetic 584x565 image and checks its outputs and launch
 counts, then the rotational TTA ensemble of the same model (bf16, DropBlock
 off, conv_impl='pair', all 359 angles) under both warps, 'shear' (kernel K4)
-and 'gather'. Every phase prints one JSON line; the last line is
+and 'gather', then training: K3's backward against the plain route's
+autograd at the train shapes (bf16 and float32), one train step through the
+kernel route against the plain routes, Trainer.fit of the canonical model
+(bf16, remat, dependent DropBlock b=7 ramped 0 -> 0.15 over 8 steps,
+pair + kernel masks, SGD lr 1e-3 momentum 0.99 clip 0.5) for 3 epochs of 8
+synthetic 584x565 images with its launch counts, and one lr_find sweep.
+Every phase prints one JSON line; the last line is
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit). Needs
 one CUDA card; exits non-zero without one.
 
@@ -21,13 +27,20 @@ order; TF32 is off for every float32 reference); K4 within 1e-6 max abs of
 its plain version (the same float32 operations in the same order: bit-equal
 expected); for each ensemble, the kernel route's probability map within
 twice the plain bf16 route's distance from the plain float32 route, on the
-same chunk (and site keys).
+same chunk (and site keys). K3 backward: dx and dK within 1e-2 (bf16) and
+1e-3 (float32, TF32 off) of the plain route's, relative to their largest
+magnitude, with nonzero cotangents on the sums; the bf16 dK within 4e-3 of
+the float32 correlation of the same x and folded cotangent (one rounding
+to bf16 is at most 2^-9 of the largest magnitude). One train step: the kernel
+route's loss and gradient (global relative L2 over all parameters) within
+twice the plain bf16 route's distance from the plain float32 route.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -45,12 +58,16 @@ from unet_research_tpu_torch.ops.cuda import build  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import pair_conv as pc  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import shear_rotate as sr  # noqa: E402
+from unet_research_tpu_torch.data import ArrayDataset  # noqa: E402
+from unet_research_tpu_torch.ops.losses import masked_rescaled_bce  # noqa: E402
+from unet_research_tpu_torch.train import POLICIES, Trainer, TrainerConfig, lr_find  # noqa: E402
 from unet_research_tpu_torch.ops.dropblock import dropblock_gamma_dependent  # noqa: E402
 from unet_research_tpu_torch.ops.image import rotate_bilinear  # noqa: E402
 from unet_research_tpu_torch.uncertainty.mc_dropblock import MCDropBlockEngine  # noqa: E402
 from unet_research_tpu_torch.uncertainty.rotational import RotationalEngine  # noqa: E402
 
 DEV = torch.device("cuda")
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 H, W = 592, 576                # 584x565 autopadded to a multiple of 16
@@ -60,6 +77,7 @@ GAMMA = dropblock_gamma_dependent(H, W, BLOCK, P_DROP)
 COUNTERS = {"dropblock_fused_apply": dbk.dropblock_fused_apply,
             "dropblock_mask": dbk.dropblock_mask,
             "conv3x3_pair": pc.conv3x3_pair,
+            "conv3x3_pair_dx": pc.conv3x3_pair_dx,
             "rotate_fan": sr.rotate_fan}
 # one chunk of the rotational fan, the four ties 45 + 90k included
 FAN = torch.tensor([45.0, 135.0, 225.0, 315.0, 1.0, 17.0, 33.0, 60.0, 90.0, 101.0, 180.0,
@@ -358,7 +376,7 @@ def run_slice(state) -> dict:
     seconds = time.perf_counter() - t0
     main = counts()
     if main != {"dropblock_fused_apply": 22 * forwards, "dropblock_mask": 0,
-                "conv3x3_pair": 3 * forwards, "rotate_fan": 0}:
+                "conv3x3_pair": 3 * forwards, "conv3x3_pair_dx": 0, "rotate_fan": 0}:
         raise AssertionError(f"main path launches {main} over {forwards} forwards")
     check_outputs(mean, std, saved, ret)
     emit({"phase": "slice", "config": "canonical 31M, bf16, dependent b=7 p=0.15, pair+fused",
@@ -378,7 +396,7 @@ def run_slice(state) -> dict:
     torch.cuda.synchronize()
     kernel_variant = counts()
     if kernel_variant != {"dropblock_fused_apply": 0, "dropblock_mask": 22, "conv3x3_pair": 3,
-                          "rotate_fan": 0}:
+                          "conv3x3_pair_dx": 0, "rotate_fan": 0}:
         raise AssertionError(f"mask_impl='kernel' launches {kernel_variant}")
     emit({"phase": "kernel-variant", "launches": kernel_variant})
 
@@ -421,7 +439,7 @@ def run_rotational(state) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         got = counts()
-        want = {"dropblock_fused_apply": 0, "dropblock_mask": 0,
+        want = {"dropblock_fused_apply": 0, "dropblock_mask": 0, "conv3x3_pair_dx": 0,
                 **{name: n * forwards for name, n in per_forward.items()}}
         if got != want:
             raise AssertionError(f"rotational {warp} launches {got}, expected {want}")
@@ -455,21 +473,248 @@ def run_rotational(state) -> dict:
         raise AssertionError(f"rotational kernel route {d_kernel} vs plain bf16 noise {d_bf16}")
     return launches
 
+# --- training ---------------------------------------------------------------
+
+TRAIN_SITES = 22        # mask sites of the canonical model, one step forward
+REMAT_SITES = 18        # the ConvBlock sites that remat runs again in the backward
+
+
+def k3_grads(fn, x, w, cots):
+    """(dx, dK) of fn(x, w, stats=True) for the cotangents (dy, ds1, ds2)."""
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    return torch.autograd.grad(fn(xr, wr, stats=True), (xr, wr), cots)
+
+
+def check_k3_backward() -> dict:
+    """K3's backward (fold + dx on K3 + dK) against autograd of the plain
+    version, at the train shapes (1, 592, 576, C_in) -> 64, with nonzero
+    cotangents on the sums, in bf16 and float32; in bf16 also its dK
+    against the float32 correlation; times in bf16."""
+    row = None
+    worst = 0.0
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-3)):
+        for cin in (64, 128):
+            g = torch.Generator(device=DEV).manual_seed(cin + 5)
+            x = torch.randn((1, H, W, cin), device=DEV, generator=g).to(dtype)
+            w = conv_weights(cin, 64).to(dtype)
+            cots = (torch.randn((1, H, W, 64), device=DEV, generator=g).to(dtype),
+                    0.5 * torch.randn((1, 64), device=DEV, generator=g),
+                    0.5 * torch.randn((1, 64), device=DEV, generator=g))
+            before = pc.conv3x3_pair_dx.launches
+            kdx, kdk = k3_grads(pc.conv3x3_pair, x, w, cots)
+            if pc.conv3x3_pair_dx.launches != before + 1:
+                raise AssertionError("K3 backward did not launch K3 for dx")
+            pdx, pdk = k3_grads(pc.conv3x3_pair_plain, x, w, cots)
+            torch.cuda.synchronize()
+            rel = {name: float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                   for name, a, b in (("dx", kdx, pdx), ("dK", kdk, pdk))}
+            if max(rel.values()) > tol:
+                raise AssertionError(f"K3 backward {cin}->64 {dtype}: {rel} > {tol}")
+            emit({"phase": "K3-bwd", "shape": list(x.shape), "cout": 64, "dtype": str(dtype),
+                  "dx_max_rel": rel["dx"], "dK_max_rel": rel["dK"], "limit": tol})
+            if dtype != torch.bfloat16:
+                continue
+            worst = max(worst, float((kdx.float() - pdx.float()).abs().max()))
+            # dK in bf16 is cuDNN's wgrad with float32 accumulation: hold it
+            # against the float32 correlation of x and the same folded g
+            y = pc.conv3x3_pair(x, w, stats=True)[0]
+            fold = (cots[0].float() + cots[1][:, None, None, :]
+                    + 2.0 * y.float() * cots[2][:, None, None, :]).to(dtype)
+            x_nchw, fold_nchw = x.permute(0, 3, 1, 2), fold.permute(0, 3, 1, 2)
+            dk32 = torch.nn.grad.conv2d_weight(x_nchw.float(), (64, cin, 3, 3), fold_nchw.float(),
+                                               padding=1).permute(2, 3, 1, 0)
+            dk_rel = float((kdk.float() - dk32).abs().max() / dk32.abs().max())
+            if dk_rel > 4e-3:
+                raise AssertionError(f"K3 backward {cin}->64: bf16 dK {dk_rel} from float32 > 4e-3")
+            routes = {}
+            for name, fn in (("kernel", pc.conv3x3_pair), ("plain", pc.conv3x3_pair_plain)):
+                xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+                outs = fn(xr, wr, stats=True)
+                routes[name] = time_ms(lambda: torch.autograd.grad(
+                    outs, (xr, wr), cots, retain_graph=True), 10)
+            g_nchw = cots[0].permute(0, 3, 1, 2)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            lib = time_ms(lambda: (torch.nn.grad.conv2d_input(x_nchw.shape, w_oihw, g_nchw, padding=1),
+                                   torch.nn.grad.conv2d_weight(x_nchw, w_oihw.shape, g_nchw, padding=1)), 10)
+            dx_ms = time_ms(lambda: pc.conv3x3_pair_dx(cots[0], w), 10)
+            # the backward's dK alone, in bf16 as it runs, and as the float32
+            # correlation of float32 copies of x and g that it replaced
+            dk_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
+                x_nchw, (64, cin, 3, 3), fold_nchw, padding=1), 10)
+            dk32_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
+                x_nchw.float(), (64, cin, 3, 3), fold_nchw.float(), padding=1), 10)
+            npix = H * W
+            # reads dy, y, x and K once, writes dx and dK once; dx and dK
+            # are one 3x3 conv each
+            bound, by = bound_ms(2 * npix * (64 + 64 + cin + cin) + 4 * 9 * cin * 64,
+                                 2 * 2.0 * 9 * cin * 64 * npix)
+            timing = {"shape": [1, H, W, cin], "cout": 64, "ms": routes["kernel"],
+                      "dx_ms": dx_ms, "dK_ms": dk_ms, "dK_f32_ms": dk32_ms,
+                      "dK_vs_f32_max_rel": dk_rel, "plain_ms": routes["plain"], "bound_ms": bound,
+                      "bound_by": by, "library_ms": lib}
+            emit({"phase": "K3-bwd-time", **timing})
+            if cin == 64:
+                row = {"name": "conv3x3_pair backward (conv3x3_pair_dx)", "route": "cuda",
+                       "source": "unet_research_tpu_torch/ops/cuda/csrc/pair_conv.cu",
+                       "replaces": "unet_research_tpu/ops/pallas/pair_conv.py:393", **timing}
+    row["max_abs_err"] = worst
+    return row
+
+
+def check_k3_valid() -> dict:
+    """conv3x3_pair_valid (K3 + interior crop) against F.conv2d VALID."""
+    x, w = activation(1, 64, seed=9), conv_weights(64, 64)
+    y = pc.conv3x3_pair_valid(x, w)
+    ref = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    rel = float((y.float() - ref.float()).abs().max() / ref.float().abs().max())
+    if y.shape != ref.shape or rel > 1e-2:
+        raise AssertionError(f"K3 valid: shape {tuple(y.shape)}, rel {rel}")
+    w_lib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    out = {"phase": "K3-valid", "shape": list(x.shape), "cout": 64, "y_max_rel": rel,
+           "ms": time_ms(lambda: pc.conv3x3_pair_valid(x, w), 10),
+           "plain_ms": time_ms(lambda: torch.nn.functional.conv2d(
+               x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)), 10),
+           "library_ms": time_ms(lambda: torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w_lib), 10)}
+    out["bound_ms"], out["bound_by"] = bound_ms(2 * (H * W * 64 + (H - 2) * (W - 2) * 64) + 2 * 9 * 64 * 64,
+                                                2.0 * 9 * 64 * 64 * (H - 2) * (W - 2))
+    emit(out)
+    return out
+
+
+def train_dataset(n: int, seed: int) -> ArrayDataset:
+    """n seeded variants of the synthetic 584x565 image, uint8 NHWC."""
+    im, gt, fov = synthetic_image()
+    rng = np.random.default_rng(seed)
+    ims = np.clip(im + 0.05 * rng.standard_normal((n,) + im.shape[1:]), 0, 1)
+    gts = np.repeat(gt, n, axis=0)
+    fovs = np.repeat(fov, n, axis=0)
+    return ArrayDataset(*((a * 255).round().astype(np.uint8) for a in (ims, gts, fovs)))
+
+
+def train_model(state, **overrides):
+    db = tunet.DropBlockConfig(kind="dependent", block_size=BLOCK, use_scheduler=True,
+                               start_drop_prob=0.0, max_drop_prob=P_DROP, nr_steps=8,
+                               mask_impl=overrides.pop("mask_impl", "kernel"))
+    cfg = tunet.canonical_config(dropblock=db, **{"dtype": torch.bfloat16, "remat": True,
+                                                  "conv_impl": "pair", **overrides})
+    model = tunet.UNet(cfg, device=DEV)
+    model.load_state_dict(state)
+    return model
+
+
+def run_train_routes(state) -> None:
+    """One train step from the same weights, batch and site keys through the
+    kernel route and the two plain routes."""
+    ds = train_dataset(1, seed=3)
+    im, gt, fov = (torch.as_tensor(a, device=DEV) for a in ds[np.arange(1)])
+    keys = tunet.draw_site_keys(TRAIN_SITES, torch.Generator().manual_seed(4)).to(DEV)
+    routes = {"kernels": {},
+              "plain_bf16": {"conv_impl": "torch", "mask_impl": "elementwise"},
+              "plain_f32": {"conv_impl": "torch", "mask_impl": "elementwise",
+                            "dtype": torch.float32}}
+    out = {}
+    for name, kw in routes.items():
+        model = train_model(state, **kw)
+        loss = masked_rescaled_bce(model(im, drop_prob=P_DROP, site_keys=keys, train=True),
+                                   gt, fov)
+        loss.backward()
+        grad = torch.cat([p.grad.reshape(-1).float() for p in model.parameters()])
+        out[name] = (float(loss.detach()), grad)
+        del model
+    def gdist(a, b):
+        return float((out[a][1] - out[b][1]).norm() / out[b][1].norm())
+    d = {"loss_kernel_vs_plain_bf16": abs(out["kernels"][0] - out["plain_bf16"][0]),
+         "loss_plain_bf16_vs_f32": abs(out["plain_bf16"][0] - out["plain_f32"][0]),
+         "loss_kernel_vs_f32": abs(out["kernels"][0] - out["plain_f32"][0]),
+         "grad_rel_l2_kernel_vs_plain_bf16": gdist("kernels", "plain_bf16"),
+         "grad_rel_l2_plain_bf16_vs_f32": gdist("plain_bf16", "plain_f32"),
+         "grad_rel_l2_kernel_vs_f32": gdist("kernels", "plain_f32")}
+    emit({"phase": "train-routes", "losses": {k: v[0] for k, v in out.items()}, **d})
+    if not (d["loss_kernel_vs_plain_bf16"] <= 2.0 * d["loss_plain_bf16_vs_f32"]
+            and d["grad_rel_l2_kernel_vs_plain_bf16"] <= 2.0 * d["grad_rel_l2_plain_bf16_vs_f32"]):
+        raise AssertionError(f"train routes: kernel route beyond twice the bf16 noise: {d}")
+
+
+def run_train_slice(state) -> dict:
+    """Trainer.fit of the canonical model on the card, its launch counts,
+    the time of a train step, and one lr_find sweep. Returns the fit's
+    launch counts and its number of steps."""
+    train_ds, val_ds = train_dataset(8, seed=1), train_dataset(2, seed=2)
+    model = train_model(state)
+    cfg = TrainerConfig(max_epochs=3, lr=1e-3, momentum=0.99, clip_norm=0.5, auto_lr_find=False,
+                        seed=0, verbose=False)
+    trainer = Trainer(model, POLICIES["none"], cfg, device=DEV)
+    out_dir = os.path.join(ROOT, "_runs", "chip_smoke_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    steps, val_forwards = 3 * len(train_ds), 3 * len(val_ds)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    fit_state, history, keeper = trainer.fit(train_ds, val_ds, os.path.join(out_dir, "model_info"),
+                                             params=state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = counts()
+    want = {"dropblock_fused_apply": 0, "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
+            "conv3x3_pair": 6 * steps + 3 * val_forwards, "conv3x3_pair_dx": 3 * steps,
+            "rotate_fan": 0}
+    if got != want:
+        raise AssertionError(f"train launches {got}, expected {want}")
+    losses = history["train_loss_epoch"] + history["val_loss_epoch"]
+    if not (len(history["val_loss_epoch"]) == 3 and all(np.isfinite(losses))):
+        raise AssertionError(f"train history {history}")
+    files = os.listdir(os.path.join(out_dir, "model_info"))
+    if len(files) != 1 or fit_state.step != steps:
+        raise AssertionError(f"kept files {files}, step {fit_state.step}")
+
+    # the time of one step alone (the fit above includes validation and saves)
+    data = tuple(torch.as_tensor(a, device=DEV)
+                 for a in (train_ds.images, train_ds.targets, train_ds.masks))
+    step_ms = time_ms(lambda: trainer.train_step_indexed(fit_state, data, 0, 1e-3), 5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    emit({"phase": "train-slice", "config": "canonical 31M, bf16, remat, dependent b=7 ramp "
+          "0->0.15 over 8 steps, pair + kernel masks, SGD 1e-3 momentum 0.99 clip 0.5",
+          "input": [584, 565], "train_images": len(train_ds), "val_images": len(val_ds),
+          "epochs": 3, "steps": steps, "seconds": seconds, "steps_per_s": steps / seconds,
+          "train_step_ms": step_ms, "peak_gib": peak, "launches": got, "history": history,
+          "kept": files})
+
+    t0 = time.perf_counter()
+    suggestion = lr_find(trainer, state, train_ds, None, 0, num_training=20)
+    emit({"phase": "lr-find", "num_training": 20, "suggestion": suggestion,
+          "seconds": time.perf_counter() - t0})
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return got, steps
+
+
 
 def main() -> None:
     # float32 references run in full float32, not TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
     header()
     build_kernels()
-    rows = [check_k1(), check_k2(), check_k3(), check_k4()]
+    rows = [check_k1(), check_k2(), check_k3(), check_k4(), check_k3_backward()]
+    check_k3_valid()
     state = base_state()
     launches = run_slice(state)
     rotational = run_rotational(state)
-    rows[0]["launches"] = launches["main"]["dropblock_fused_apply"]
-    rows[1]["launches"] = launches["kernel_variant"]["dropblock_mask"]
-    rows[2]["launches"] = launches["main"]["conv3x3_pair"]
-    rows[3]["launches"] = rotational["shear"]["rotate_fan"]
+    run_train_routes(state)
+    train, steps = run_train_slice(state)
+    # each path's counts, read right after it ran; `launches` is the path
+    # that runs the kernel by default (K2: training, K3: the MC ensemble)
+    paths = {"mc": launches["main"], "mc_kernel_variant": launches["kernel_variant"],
+             "rotational_shear": rotational["shear"], "train": train}
+    for row, name, main_path in zip(rows, ("dropblock_fused_apply", "dropblock_mask",
+                                           "conv3x3_pair", "rotate_fan", "conv3x3_pair_dx"),
+                                    ("mc", "train", "mc", "rotational_shear", "train")):
+        row["launches"] = paths[main_path][name]
+        row["launches_by_path"] = {p: c[name] for p, c in paths.items() if c[name]}
+    rows[4]["launches_per_train_step"] = train["conv3x3_pair_dx"] / steps
+    emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

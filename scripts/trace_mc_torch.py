@@ -1,6 +1,6 @@
 """Where one chunk forward of the PyTorch port's ensembles spends its time.
 
-    python3 scripts/trace_mc_torch.py [--chunk 16] [--warp shear|gather]
+    python3 scripts/trace_mc_torch.py [--chunk 16] [--warp shear|gather] [--train]
                                       [--out _runs/trace_mc_torch.json]
 
 Runs the canonical 31M U-Net (bf16, dependent DropBlock b=7 p=0.15,
@@ -8,7 +8,10 @@ conv_impl='pair' + mask_impl='fused', random seeded weights) on a 584x565
 input, warms up, then profiles one chunk forward with torch.profiler. With
 --warp, one chunk of the rotational ensemble instead: DropBlock off, the
 chunk's angles warped in, the forward, the segmentations warped back by
-their -angles (`shear`: kernel K4; `gather`: rotate_bilinear). Prints
+their -angles (`shear`: kernel K4; `gather`: rotate_bilinear). With
+--train, one train step of batch 1 instead (Trainer.train_step: bf16,
+remat, DropBlock p=0.15 through the mask producer K2, conv_impl='pair' with
+K3's backward, the masked BCE, SGD + momentum with clip 0.5). Prints
 the wall time of the forward, the summed device time, the device's idle
 share of the wall time, and the device time by kernel, largest first.
 Needs one CUDA card.
@@ -29,19 +32,42 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from unet_research_tpu_torch.models import unet as tunet  # noqa: E402
 from unet_research_tpu_torch.ops.cuda.shear_rotate import rotate_fan  # noqa: E402
 from unet_research_tpu_torch.ops.image import rotate_bilinear  # noqa: E402
+from unet_research_tpu_torch.train import POLICIES, Trainer, TrainerConfig  # noqa: E402
+
+
+KINDS = (("K1 fused DropBlock", ("dropblock_kernel<bf16, 1>", "dropblock_kernel<float, 1>")),
+         ("K2 mask producer", ("dropblock_kernel<float, 0>", "dropblock_kernel<bf16, 0>")),
+         ("K3 conv3x3", ("conv3x3_mma_kernel", "conv3x3_kernel")),
+         ("K4 shear fan", ("shear_",)),
+         ("cuDNN/cuBLAS convs and GEMMs", ("xmma", "cudnn", "cutlass", "wgrad", "dgrad", "gemm")),
+         ("reductions (GroupNorm statistics, sums, norms)", ("reduce_kernel",)),
+         ("copies and dtype casts", ("copy",)),
+         ("max-pool", ("max_pool",)),
+         ("optimizer (multi-tensor)", ("multi_tensor",)))
+
+
+def kind_of(name: str) -> str:
+    """The row of the by-kind table a kernel name belongs to."""
+    for kind, marks in KINDS:
+        if any(m in name for m in marks):
+            return kind
+    return "other elementwise"
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--chunk", type=int, default=16)
     p.add_argument("--warp", choices=("shear", "gather"), default=None)
+    p.add_argument("--train", action="store_true")
     p.add_argument("--out", default="_runs/trace_mc_torch.json")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     dev = torch.device("cuda")
     kind = "dependent" if a.warp is None else None
-    cfg = tunet.canonical_config(dtype=torch.bfloat16, dropblock=tunet.DropBlockConfig(kind=kind))
+    db = tunet.DropBlockConfig(kind=kind, use_scheduler=False, drop_prob=0.15,
+                               mask_impl="kernel" if a.train else "fused")
+    cfg = tunet.canonical_config(dtype=torch.bfloat16, dropblock=db, remat=a.train)
     model = tunet.UNet(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
     im = torch.rand((1, 584, 565, 1), generator=g).to(dev)
@@ -52,7 +78,16 @@ def main(argv=None) -> None:
         angles = angles.to(dev)
     warp = {"shear": rotate_fan, "gather": rotate_bilinear}.get(a.warp)
 
+    if a.train:
+        trainer = Trainer(model, POLICIES["none"],
+                          TrainerConfig(lr=1e-3, clip_norm=0.5, seed=0, verbose=False), device=dev)
+        state = trainer.create_state()
+        gt = (torch.rand((1, 584, 565, 1), generator=g) > 0.9).float().to(dev)
+        fov = torch.ones_like(gt)
+
     def forward():
+        if a.train:
+            return trainer.train_step(state, im, gt, fov, 1e-3)
         with torch.inference_mode():
             if warp is not None:
                 return warp(model(warp(im, angles)).contiguous(), -angles)
@@ -70,21 +105,34 @@ def main(argv=None) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # user annotations (e.g. the optimizer's step range) are spans, not kernels
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
             kernels.setdefault(ev.name, [0.0, 0])
             kernels[ev.name][0] += ev.device_time / 1e3
             kernels[ev.name][1] += 1
     device_ms = sum(ms for ms, _ in kernels.values())
     rows = sorted(([name, ms, n] for name, (ms, n) in kernels.items()),
                   key=lambda r: -r[1])
-    summary = {"device": torch.cuda.get_device_name(0), "chunk": a.chunk, "warp": a.warp,
+    by_kind = {}
+    for name, ms, n in rows:
+        acc = by_kind.setdefault(kind_of(name), [0.0, 0])
+        acc[0] += ms
+        acc[1] += n
+    summary = {"device": torch.cuda.get_device_name(0), "chunk": 1 if a.train else a.chunk,
+               "warp": a.warp, "train": a.train,
                "wall_ms": wall_ms, "device_ms": device_ms,
                "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+               "launches": sum(n for _, _, n in rows),
+               "by_kind": {k: {"ms": ms, "count": n} for k, (ms, n) in
+                           sorted(by_kind.items(), key=lambda kv: -kv[1][0])},
                "kernels": [{"name": n[:160], "ms": ms, "count": c} for n, ms, c in rows]}
     os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
     with open(a.out, "w") as f:
         json.dump(summary, f, indent=1)
-    print(json.dumps({k: v for k, v in summary.items() if k != "kernels"}))
+    print(json.dumps({k: v for k, v in summary.items() if k not in ("kernels", "by_kind")}))
+    for kind, row in summary["by_kind"].items():
+        print(f"{row['ms']:9.3f} ms {row['count']:5d}x  [{kind}]")
     for r in summary["kernels"][:30]:
         print(f"{r['ms']:9.3f} ms {r['count']:4d}x  {r['name'][:110]}")
 

@@ -13,7 +13,14 @@ bf16 and 1e-5 in float32, sums 1e-5 relative to their largest magnitude
 against the plain version in float32 (TF32 off); K4 (the shear fan warp) at
 odd, non-square sizes, K = 1, 5 and 130 (two launch groups), single-image
 and batched, max abs 1e-6 (the same float32 operations in the same order:
-bit-equal expected)."""
+bit-equal expected). K3's backward (dx on K3, dK by cuDNN) against autograd
+of the plain version at odd H/W, C_in 16/64/128 and C_out 64/128, with
+nonzero cotangents on the sums: max |d - plain| / max |plain| <= 1e-2 in
+bf16 and 1e-3 in float32; one train step of a small model, kernel route
+against plain route in float32: gradients within 1e-3 of the plain ones
+relative to the largest magnitude of each."""
+
+import dataclasses
 
 import pytest
 import torch
@@ -101,3 +108,60 @@ def test_rotate_fan_matches_plain(dev, n, h, w, angles):
     ref = sr.rotate_fan_plain(img, a)
     assert out.shape == (len(angles), h, w, 1)
     assert float((out - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("cin", [16, 64, 128])
+@pytest.mark.parametrize("cout", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3x3_pair_backward_matches_plain(dev, cin, cout, dtype):
+    from unet_research_tpu_torch.ops.cuda import pair_conv as pc
+
+    g = torch.Generator(device=dev).manual_seed(cin + cout)
+    x = torch.randn((2, 37, 29, cin), device=dev, generator=g).to(dtype)
+    k = (0.1 * torch.randn((3, 3, cin, cout), device=dev, generator=g)).to(dtype)
+    cots = (torch.randn((2, 37, 29, cout), device=dev, generator=g).to(dtype),
+            0.5 * torch.randn((2, cout), device=dev, generator=g),
+            0.5 * torch.randn((2, cout), device=dev, generator=g))
+
+    def grads(fn):
+        xr, kr = x.clone().requires_grad_(), k.clone().requires_grad_()
+        return torch.autograd.grad(fn(xr, kr, stats=True), (xr, kr), cots)
+
+    before = pc.conv3x3_pair_dx.launches
+    got = grads(pc.conv3x3_pair)
+    assert pc.conv3x3_pair_dx.launches == before + 1
+    ref = grads(pc.conv3x3_pair_plain)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-3
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max() / b.float().abs().max()) <= tol
+
+
+def test_train_step_kernel_route_matches_plain(dev):
+    """One train step of a 64-filter depth-1 U-Net (the three pair sites, K2
+    masks, remat) in float32: kernel route against the plain route."""
+    from unet_research_tpu_torch.models import unet as tunet
+    from unet_research_tpu_torch.ops.cuda import pair_conv as pc
+    from unet_research_tpu_torch.ops.losses import masked_rescaled_bce
+
+    base = tunet.canonical_config(filters=64, model_depth=1, group_norm_groups=8, remat=True,
+                                  dropblock=tunet.DropBlockConfig(kind="dependent", block_size=3))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((2, 48, 64, 1), device=dev, generator=gen)
+    gt = (torch.rand((2, 48, 64, 1), device=dev, generator=gen) > 0.8).float()
+    keys = tunet.draw_site_keys(7, torch.Generator().manual_seed(4)).to(dev)
+    state = tunet.UNet(base, device="cpu", generator=torch.Generator().manual_seed(5)).state_dict()
+    grads = {}
+    for name, conv, mask in (("kernel", "pair", "kernel"), ("plain", "torch", "elementwise")):
+        cfg = dataclasses.replace(base, conv_impl=conv,
+                                  dropblock=dataclasses.replace(base.dropblock, mask_impl=mask))
+        model = tunet.UNet(cfg, device=dev)
+        model.load_state_dict(state)
+        before = pc.conv3x3_pair_dx.launches
+        masked_rescaled_bce(model(x, drop_prob=0.2, site_keys=keys, train=True), gt,
+                            torch.ones_like(gt)).backward()
+        assert pc.conv3x3_pair_dx.launches - before == (3 if name == "kernel" else 0)
+        grads[name] = {n: p.grad for n, p in model.named_parameters()}
+    for n, ref in grads["plain"].items():
+        err = float((grads["kernel"][n] - ref).abs().max() / ref.abs().max())
+        assert err <= 1e-3, (n, err)

@@ -6,6 +6,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,6 +27,12 @@ def _blocked(name: str) -> bool:
 
 
 def test_imports_with_jax_blocked():
+    names = list(_modules())
+    for required in ("unet_research_tpu_torch.train.loop", "unet_research_tpu_torch.train.state",
+                     "unet_research_tpu_torch.train.policies",
+                     "unet_research_tpu_torch.train.checkpoint",
+                     "unet_research_tpu_torch.data.loading", "unet_research_tpu_torch.ops.losses"):
+        assert required in names
     code = f"""
 import importlib, sys
 BLOCKED = {BLOCKED!r}
@@ -65,8 +72,10 @@ def test_no_jax_imports_in_source(path):
 
 
 def test_entry_points_default_to_the_card():
+    from unet_research_tpu_torch.data import ArrayDataset, batch_iterator
     from unet_research_tpu_torch.device import resolve_device
     from unet_research_tpu_torch.models.unet import UNet, canonical_config
+    from unet_research_tpu_torch.train import POLICIES, Trainer, TrainerConfig
     from unet_research_tpu_torch.uncertainty.mc_dropblock import MCDropBlockEngine
     from unet_research_tpu_torch.uncertainty.rotational import RotationalEngine
 
@@ -76,7 +85,10 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         return
+    ds = ArrayDataset(*(np.zeros((1, 8, 8, 1), np.uint8) for _ in range(3)))
     for call in (resolve_device, lambda: UNet(cfg), lambda: MCDropBlockEngine(cpu_model),
-                 lambda: RotationalEngine(cpu_model)):
+                 lambda: RotationalEngine(cpu_model),
+                 lambda: Trainer(cpu_model, POLICIES["none"], TrainerConfig()),
+                 lambda: next(batch_iterator(ds, 1, False))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

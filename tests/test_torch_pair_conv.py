@@ -1,15 +1,29 @@
 """Kernel K3's plain version (unet_research_tpu_torch/ops/cuda/pair_conv.py)
 against the JAX pair-view conv run in interpret mode, as
 tests/test_pair_conv.py runs it. float32; y atol 1e-4, sums rtol 1e-4 (the
-two sum in different orders)."""
+two sum in different orders). Gradients (the autograd Function against the
+JAX custom VJP, with cotangents on the sums): rtol 2e-4, atol 2e-5 for dx
+and 2e-4 for dK, the limits of tests/test_pair_conv.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from unet_research_tpu.ops.pallas.pair_conv import conv3x3_pair as jax_conv3x3_pair
+from unet_research_tpu.ops.pallas.pair_conv import conv3x3_pair_valid as jax_conv3x3_pair_valid
 from unet_research_tpu_torch.ops.cuda import pair_conv as tpc
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny tensors: one intra-op thread is faster here, and the suite runs
+    several test processes side by side."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("shape,f", [((2, 16, 12, 5), 4), ((1, 24, 20, 8), 8),
@@ -38,3 +52,100 @@ def test_cpu_wrapper_takes_the_plain_version(rng):
 def test_kernel_shape_mismatch_raises():
     with pytest.raises(ValueError):
         tpc.conv3x3_pair(torch.zeros((1, 8, 8, 3)), torch.zeros((3, 3, 4, 2)))
+
+
+def _grad_inputs(rng, shape, f):
+    x = rng.standard_normal(shape).astype(np.float32)
+    k = (0.1 * rng.standard_normal((3, 3, shape[-1], f))).astype(np.float32)
+    w = rng.standard_normal(shape[:3] + (f,)).astype(np.float32)
+    return x, k, w
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("shape,f", [((2, 16, 12, 8), 4), ((1, 10, 14, 5), 6)])
+def test_grads_match_jax_vjp_interpret(rng, stats, shape, f):
+    """dx and dK of the port's Function equal jax.grad through the JAX
+    conv3x3_pair's custom VJP (interpret mode), the sums' cotangents ds1 =
+    cos(s1) and ds2 = 1e-2 folded in when stats are on."""
+    x, k, w = _grad_inputs(rng, shape, f)
+
+    def jloss(x, k):
+        if stats:
+            y, s1, s2 = jax_conv3x3_pair(x, k, stats=True, interpret=True)
+            return jnp.sum(y * w) + jnp.sum(jnp.sin(s1)) + jnp.sum(s2 * 1e-2)
+        return jnp.sum(jax_conv3x3_pair(x, k, interpret=True) * w)
+
+    jdx, jdk = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(k))
+    tx = torch.from_numpy(x).requires_grad_()
+    tk = torch.from_numpy(k).requires_grad_()
+    tw = torch.from_numpy(w)
+    if stats:
+        y, s1, s2 = tpc.conv3x3_pair(tx, tk, stats=True)
+        loss = (y * tw).sum() + torch.sin(s1).sum() + (s2 * 1e-2).sum()
+    else:
+        loss = (tpc.conv3x3_pair(tx, tk) * tw).sum()
+    loss.backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(tk.grad.numpy(), np.asarray(jdk), rtol=2e-4, atol=2e-4)
+
+
+def test_backward_runs_dx_through_conv3x3_pair(rng, monkeypatch):
+    """The backward's dx is conv3x3_pair on rot_transpose(kernel) (K3 on the
+    card), not autograd of F.conv2d; only the sums' cotangent reaching the
+    Function (dy None) is folded in as well."""
+    x, k, _ = _grad_inputs(rng, (1, 8, 6, 3), 4)
+    tx = torch.from_numpy(x).requires_grad_()
+    tk = torch.from_numpy(k)
+    calls = []
+    real = tpc.conv3x3_pair
+
+    def spy(xin, kernel, stats=False, dx=False):
+        calls.append((tuple(xin.shape), kernel.clone(), stats, dx, torch.is_grad_enabled()))
+        return real(xin, kernel, stats, dx)
+
+    _, s1, s2 = tpc.conv3x3_pair(tx, tk, stats=True)
+    monkeypatch.setattr(tpc, "conv3x3_pair", spy)
+    (s1.sum() + s2.sum()).backward()
+    assert len(calls) == 1
+    shape, kernel, stats, dx, grad_mode = calls[0]
+    assert shape == (1, 8, 6, 4) and not stats and dx and not grad_mode
+    expect = torch.from_numpy(np.ascontiguousarray(np.transpose(k[::-1, ::-1], (0, 1, 3, 2))))
+    assert torch.equal(kernel, expect)
+    assert torch.equal(tpc.rot_transpose(tk), expect)
+    # the dx of sum(s1) + sum(s2) = sum(y) + sum(y^2): conv of (1 + 2y)
+    y = tpc.conv3x3_pair_plain(torch.from_numpy(x), tk)
+    ref = tpc.conv3x3_pair_plain((1.0 + 2.0 * y).contiguous(), expect)
+    torch.testing.assert_close(tx.grad, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_kernel_gradient_only_when_asked(rng):
+    x, k, _ = _grad_inputs(rng, (1, 6, 6, 2), 2)
+    tx = torch.from_numpy(x)
+    tk = torch.from_numpy(k).requires_grad_()
+    tpc.conv3x3_pair(tx, tk).sum().backward()
+    assert tk.grad is not None and tk.grad.shape == tk.shape and tx.grad is None
+
+
+@pytest.mark.parametrize("shape,f", [((2, 16, 12, 8), 4), ((1, 11, 9, 3), 5)])
+def test_valid_matches_jax_in_value_and_gradient(rng, shape, f):
+    x, k, _ = _grad_inputs(rng, shape, f)
+    w = rng.standard_normal((shape[0], shape[1] - 2, shape[2] - 2, f)).astype(np.float32)
+    if shape[2] % 2 == 0:  # the JAX pair kernel needs even W
+        jy = jax_conv3x3_pair_valid(jnp.asarray(x), jnp.asarray(k), interpret=True)
+        jdx, jdk = jax.grad(
+            lambda x, k: jnp.sum(jax_conv3x3_pair_valid(x, k, interpret=True) * w),
+            argnums=(0, 1))(jnp.asarray(x), jnp.asarray(k))
+    else:  # odd W: the XLA VALID conv the JAX model takes there
+        def conv(x, k):
+            return jax.lax.conv_general_dilated(x, k, (1, 1), "VALID",
+                                                dimension_numbers=("NHWC", "HWIO", "NHWC"))
+        jy = conv(jnp.asarray(x), jnp.asarray(k))
+        jdx, jdk = jax.grad(lambda x, k: jnp.sum(conv(x, k) * w), argnums=(0, 1))(
+            jnp.asarray(x), jnp.asarray(k))
+    tx = torch.from_numpy(x).requires_grad_()
+    tk = torch.from_numpy(k).requires_grad_()
+    y = tpc.conv3x3_pair_valid(tx, tk)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), atol=1e-4)
+    (y * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(tk.grad.numpy(), np.asarray(jdk), rtol=2e-4, atol=2e-4)

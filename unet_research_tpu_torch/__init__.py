@@ -4,13 +4,17 @@ Same subpackage layout as the JAX package, one twin per module:
 
 - `models/`       the configurable U-Net as an `nn.Module` (reference torch
                   state_dict layout), DropBlock mask sites and fold_rescale.
-- `ops/`          image geometry (with the bilinear rotation) and the plain
-                  DropBlock ops (counter hash).
+- `ops/`          image geometry (with the bilinear rotation), the plain
+                  DropBlock ops (counter hash) and the masked BCE loss.
 - `ops/cuda/`     hand-written Hopper kernels (CUDA C++, sm_90a) with their
                   plain PyTorch versions and launch counters; twin of
                   `ops/pallas/`.
 - `uncertainty/`  the streaming Chan-merge ensemble, the MC-DropBlock engine
                   and the rotational TTA engine.
+- `train/`        the trainer (SGD + momentum, clipping, plateau LR, early
+                  stopping, best-checkpoint keeping, lr_find) and the eight
+                  resize policies.
+- `data/`         the in-memory uint8 split and the batch feed.
 - `utils/`        JAX-params / reference-checkpoint conversion.
 
 Public functions keep JAX's NHWC layout. Entry points run on the card

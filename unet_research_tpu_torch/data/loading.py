@@ -1,0 +1,55 @@
+"""Host -> device batch feeding (twin of unet_research_tpu/data/loading.py).
+
+The reference leans on DataLoader worker processes
+(base_model_tests/training.py:166-169). The split already sits in host
+memory as uint8, so a batch is a numpy slice normalised to float32, copied
+from pinned memory with `non_blocking=True`, one batch ahead of the one the
+caller is using: the copy overlaps the previous step's device work.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from unet_research_tpu_torch.data.dataset import ArrayDataset
+from unet_research_tpu_torch.device import resolve_device
+
+
+def to_device(arrays, device: torch.device) -> tuple:
+    """numpy arrays -> tensors on `device`; through pinned memory and
+    asynchronous copies on the card."""
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out.append(t.to(device, non_blocking=True))
+    return tuple(out)
+
+
+def batch_iterator(ds: ArrayDataset, batch_size: int, shuffle: bool,
+                   rng: Optional[np.random.Generator] = None,
+                   device=None) -> Iterator[tuple]:
+    """Yield (image, target, mask) float32 NHWC batches on `device` (the
+    card unless the caller asks for the CPU).
+
+    shuffle=True reshuffles per call (per epoch) with `rng`, as the JAX
+    package does, so one seed gives one order in both; shuffle=False keeps
+    the order so batch_idx can index the MF size plans."""
+    device = resolve_device(device)
+    n = len(ds)
+    order = np.arange(n)
+    if shuffle:
+        if rng is None:
+            rng = np.random.default_rng()
+        rng.shuffle(order)
+    starts = range(0, n, batch_size)
+    ahead = to_device(ds[order[:batch_size]], device) if n else None
+    for s in starts:
+        out = ahead
+        if s + batch_size < n:
+            ahead = to_device(ds[order[s + batch_size:s + 2 * batch_size]], device)
+        yield out

@@ -18,7 +18,7 @@ carries one more (bare) DropBlock site. Norm modules hold parameters only:
 GroupNorm is computed by `group_norm_affine` (float32 statistics, the apply
 in the storage dtype), as in the JAX model.
 
-`forward(x, drop_prob=None, site_keys=None)` takes and returns NHWC.
+`forward(x, drop_prob=None, site_keys=None, train=False)` takes and returns NHWC.
 `drop_prob=None` switches DropBlock off; otherwise `site_keys` is an (S, 2)
 int64 tensor of uint32 key words, one row per mask site in call order (see
 `num_mask_sites`), the keys the JAX model draws with `make_rng`. Activations
@@ -29,8 +29,14 @@ through the fused kernel (ops/cuda/dropblock_kernel.py::dropblock_fused_apply)
 when the norm is GroupNorm or None and the activation relu/leaky_relu;
 'kernel' draws masks with the mask producer; 'elementwise' is the plain op.
 `conv_impl='pair'` runs the eligible 3x3 convs through
-ops/cuda/pair_conv.py::conv3x3_pair, whose moment sums feed GroupNorm.
-Forward only: training is not part of this package yet.
+ops/cuda/pair_conv.py::conv3x3_pair (VALID ones through conv3x3_pair_valid),
+whose moment sums feed GroupNorm.
+
+Training (`train=True`, train/loop.py) differentiates through every route:
+conv3x3_pair is an autograd Function whose input gradient runs K3 again,
+and the mask sites take the mask producer, since the fused kernel has no
+backward (a fused pass under autograd raises). `cfg.remat` re-runs the conv,
+pool and up blocks in the backward (torch.utils.checkpoint).
 """
 
 from __future__ import annotations
@@ -42,13 +48,14 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from unet_research_tpu_torch.device import resolve_device
 from unet_research_tpu_torch.ops.cuda.dropblock_kernel import (
     dropblock_fused_apply,
     dropblock_kernel_supported,
 )
-from unet_research_tpu_torch.ops.cuda.pair_conv import conv3x3_pair
+from unet_research_tpu_torch.ops.cuda.pair_conv import conv3x3_pair, conv3x3_pair_valid
 from unet_research_tpu_torch.ops.dropblock import (
     dropblock_dependent,
     dropblock_gamma_dependent,
@@ -85,8 +92,9 @@ class DropBlockConfig:
 class UNetConfig:
     """Constructor-arg parity with the reference UNet (utils_unet.py:14-26)
     and the JAX UNetConfig. conv_impl: 'pair' (the eligible 3x3 convs run
-    through conv3x3_pair) or 'torch' (F.conv2d everywhere). remat is kept for
-    config parity; it applies to training, which this package has not yet."""
+    through conv3x3_pair) or 'torch' (F.conv2d everywhere). remat: the conv,
+    pool and up blocks keep no activations for the backward and run again
+    in it (training only)."""
 
     init_channels: int = 3
     filters: int = 64
@@ -277,9 +285,14 @@ class UNet(nn.Module):
         merges = cfg.model_depth if cfg.connection != "none" else 0
         return convs + merges
 
-    def forward(self, x, drop_prob=None, site_keys=None):
-        """x: NHWC float batch -> (N, H, W, output_channels) float32 in [0, 1]."""
-        return _Pass(self, drop_prob, site_keys).run(x)
+    def forward(self, x, drop_prob=None, site_keys=None, train: bool = False):
+        """x: NHWC float batch -> (N, H, W, output_channels) float32 in [0, 1].
+
+        train: the JAX model's static `train` (models/unet.py:720-724):
+        BatchNorm normalises with batch statistics and updates its running
+        ones, and the mask sites take the mask producer instead of the
+        forward-only fused kernel. DropBlock is switched by drop_prob."""
+        return _Pass(self, drop_prob, site_keys, train).run(x)
 
 
 def draw_site_keys(num_sites: int, generator: torch.Generator) -> torch.Tensor:
@@ -288,29 +301,61 @@ def draw_site_keys(num_sites: int, generator: torch.Generator) -> torch.Tensor:
 
 
 class _Pass:
-    """One forward pass: the DropBlock state (drop_prob, the site-key
-    iterator, fold_rescale, the fused route) and the layer helpers."""
+    """One forward pass: the DropBlock state (drop_prob, the site keys,
+    fold_rescale, the fused route), train mode and the layer helpers.
 
-    def __init__(self, model: UNet, drop_prob, site_keys):
+    Site keys are handed out by block, in call order, before the block
+    runs (`take`), so a block that remat runs again in the backward draws
+    the same masks."""
+
+    def __init__(self, model: UNet, drop_prob, site_keys, train: bool):
         cfg = model.cfg
         db = cfg.dropblock
         self.model, self.cfg, self.db = model, cfg, db
         self.dtype = cfg.dtype
         self.drop_prob = drop_prob
+        self.train = train
+        # set when the forward is done: a block that runs after that is a
+        # remat re-run, which must not update BatchNorm's running statistics
+        self.recomputing = False
         self.active = db.kind is not None and drop_prob is not None
-        self.keys = None
+        self.site_keys = None
+        self.cursor = 0
         if self.active:
             want = (model.num_mask_sites(), 2)
             if site_keys is None or tuple(site_keys.shape) != want:
                 raise ValueError(f"DropBlock is active: site_keys must have shape {want}")
             device = model.output_conv[0].weight.device
-            self.keys = iter(site_keys.to(device=device, dtype=torch.int64))
+            self.site_keys = site_keys.to(device=device, dtype=torch.int64)
         # fold_rescale (JAX UNetConfig): needs GroupNorm and live DropBlock
         self.fold = cfg.fold_rescale and cfg.norm == "group" and self.active
-        self.fused = (self.active and db.mask_impl == "fused"
+        # the fused kernel K1 has no backward: under train=True the mask
+        # sites take the mask producer K2 ('kernel'), as the JAX op level
+        # degrades 'fused' (ops/dropblock.py:190-194); the masks are the same
+        self.fused = (self.active and db.mask_impl == "fused" and not train
                       and cfg.norm in (None, "group")
                       and cfg.activation in ("relu", "leaky_relu")
                       and dropblock_kernel_supported(db.block_size))
+        if self.fused and torch.is_grad_enabled() and any(
+                p.requires_grad for p in model.parameters()):
+            raise RuntimeError(
+                "mask_impl='fused' runs a forward-only kernel: call the model "
+                "with train=True to train, or under torch.no_grad()")
+
+    def take(self, count: int) -> list:
+        """The next `count` site-key rows (None each when DropBlock is off)."""
+        if not self.active:
+            return [None] * count
+        rows = list(self.site_keys[self.cursor:self.cursor + count])
+        self.cursor += count
+        return rows
+
+    def block(self, fn, x):
+        """fn(x), rematerialised in the backward under cfg.remat (JAX
+        `_maybe_remat`, models/unet.py:729-742)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, x, use_reentrant=False)
+        return fn(x)
 
     # -- layers ----------------------------------------------------------------
 
@@ -319,12 +364,14 @@ class _Pass:
         GroupNorm moment sums when conv3x3_pair produced them, else None."""
         cfg = self.cfg
         n, h, w, c = x.shape
-        if (cfg.conv_impl == "pair" and cfg.norm is not None and cfg.same_padding
+        if (cfg.conv_impl == "pair" and cfg.norm is not None
                 and mod.kernel_size == (3, 3) and mod.out_channels <= 64
                 and h % 2 == 0 and w % 2 == 0 and c % 64 == 0 and (w // 2) % 8 == 0):
             # the JAX model's compiled-path gate (models/unet.py:461-494)
             kernel = mod.weight.permute(2, 3, 1, 0).to(self.dtype).contiguous()
             xin = x.to(self.dtype).contiguous()
+            if not cfg.same_padding:
+                return conv3x3_pair_valid(xin, kernel), None
             if cfg.norm == "group":
                 y, s1, s2 = conv3x3_pair(xin, kernel, stats=True)
                 return y, (s1, s2)
@@ -343,8 +390,21 @@ class _Pass:
             return group_norm_affine(x, mod.weight, mod.bias, cfg.group_norm_groups,
                                      1e-5, self.dtype, sums=sums)
         if cfg.norm == "batch":
-            y = F.batch_norm(_nchw(x.to(torch.float32)), mod.running_mean, mod.running_var,
-                             mod.weight, mod.bias, False, 0.0, 1e-5)
+            # torch BatchNorm2d: eps 1e-5, momentum 0.1. In train mode the
+            # batch statistics normalise and the running ones update (torch's
+            # unbiased variance; flax's is biased), once: a remat re-run
+            # updates throw-away copies
+            x32 = _nchw(x.to(torch.float32))
+            if self.train:
+                mean, var = mod.running_mean, mod.running_var
+                if self.recomputing:
+                    mean, var = mean.clone(), var.clone()
+                else:
+                    mod.num_batches_tracked.add_(1)
+                y = F.batch_norm(x32, mean, var, mod.weight, mod.bias, True, 0.1, 1e-5)
+            else:
+                y = F.batch_norm(x32, mod.running_mean, mod.running_var,
+                                 mod.weight, mod.bias, False, 0.0, 1e-5)
             return _nhwc(y).to(self.dtype)
         return x
 
@@ -368,7 +428,7 @@ class _Pass:
 
     # -- DropBlock sites -------------------------------------------------------
 
-    def fused_site(self, x, norm_mod, rescale: str, with_act: bool, sums=None):
+    def fused_site(self, x, key, norm_mod, rescale: str, with_act: bool, sums=None):
         """One mask site through the fused kernel: act((x*a + b) * mask), the
         GroupNorm coefficients computed outside (from `sums` if given)."""
         cfg, db = self.cfg, self.db
@@ -382,7 +442,6 @@ class _Pass:
                 a, b = group_norm_coeffs(x, norm_mod.weight, norm_mod.bias,
                                          cfg.group_norm_groups, 1e-5)
             ab = torch.stack([a, b]).contiguous()
-        key = next(self.keys)
         gamma_fn = (dropblock_gamma_dependent if db.kind == "dependent"
                     else dropblock_gamma_independent)
         out, keep = dropblock_fused_apply(
@@ -405,45 +464,55 @@ class _Pass:
             return out, per
         return out * whole.to(out.dtype)
 
-    def dropblock(self, x, rescale: str = "apply"):
-        """A bare mask site (the skip merge, or after a norm)."""
+    def dropblock(self, x, key, rescale: str = "apply"):
+        """A bare mask site (the skip merge, or after a norm). Under autograd
+        the mask is a constant: x * mask needs no backward of its own."""
         if not self.active:
             return (x, None) if rescale == "defer" else x
         if self.fused:
-            return self.fused_site(x, None, rescale, with_act=False)
+            return self.fused_site(x, key, None, rescale, with_act=False)
         fn = dropblock_dependent if self.db.kind == "dependent" else dropblock_independent
-        return fn(x, next(self.keys), self.drop_prob, self.db.block_size,
+        return fn(x, key, self.drop_prob, self.db.block_size,
                   mask_impl=self.db.mask_impl, rescale=rescale)
 
-    def norm_db_act(self, x, norm_mod, rescale: str, sums=None):
+    def norm_db_act(self, x, key, norm_mod, rescale: str, sums=None):
         """The conv epilogue norm -> DropBlock -> activation."""
         if self.fused:
-            return self.fused_site(x, norm_mod, rescale, with_act=True, sums=sums)
+            return self.fused_site(x, key, norm_mod, rescale, with_act=True, sums=sums)
         x = self.norm(x, norm_mod, sums)
         if rescale == "defer":
-            x, scale = self.dropblock(x, rescale="defer")
+            x, scale = self.dropblock(x, key, rescale="defer")
             return self.act(x), scale
-        return self.act(self.dropblock(x, rescale))
+        return self.act(self.dropblock(x, key, rescale))
 
     # -- blocks ----------------------------------------------------------------
 
     def conv_block(self, x, stack, want_scale: bool):
         """conv -> norm -> DropBlock -> act, conv_layers_per_block times. Under
         fold_rescale the last site of a block that feeds a skip merge or the
-        head defers its per-sample scale; every other site skips its count."""
+        head defers its per-sample scale; every other site skips its count.
+        Runs through `block` (remat) with its site keys bound now."""
         last = self.cfg.conv_layers_per_block - 1
-        scale = None
-        for i in range(last + 1):
-            x, sums = self.conv(x, stack[4 * i])
-            if not self.fold:
-                x = self.norm_db_act(x, stack[4 * i + 1], "apply", sums)
-            elif want_scale and i == last:
-                x, scale = self.norm_db_act(x, stack[4 * i + 1], "defer", sums)
-            else:
-                x = self.norm_db_act(x, stack[4 * i + 1], "skip", sums)
-        return (x, scale) if want_scale else x
+        keys = self.take(last + 1)
+
+        def run(x):
+            scale = None
+            for i in range(last + 1):
+                x, sums = self.conv(x, stack[4 * i])
+                if not self.fold:
+                    x = self.norm_db_act(x, keys[i], stack[4 * i + 1], "apply", sums)
+                elif want_scale and i == last:
+                    x, scale = self.norm_db_act(x, keys[i], stack[4 * i + 1], "defer", sums)
+                else:
+                    x = self.norm_db_act(x, keys[i], stack[4 * i + 1], "skip", sums)
+            return (x, scale) if want_scale else x
+
+        return self.block(run, x)
 
     def pool(self, x, seq):
+        return self.block(lambda x: self._pool(x, seq), x)
+
+    def _pool(self, x, seq):
         mode = self.cfg.pool_mode
         if mode == "max":
             x = _nhwc(F.max_pool2d(_nchw(x), 2, 2))
@@ -455,6 +524,9 @@ class _Pass:
         return self.act(x) if mode == "conv" else x
 
     def up(self, x, seq):
+        return self.block(lambda x: self._up(x, seq), x)
+
+    def _up(self, x, seq):
         if self.cfg.up_mode == "upconv":
             mod = seq[0]
             bias = None if mod.bias is None else mod.bias.to(self.dtype)
@@ -465,6 +537,8 @@ class _Pass:
         return self.act(self.norm(x, seq[2], sums))
 
     def merge(self, x, skip, skip_scale):
+        """The skip merge and its bare mask site; not rematerialised (JAX
+        models/unet.py:786)."""
         conn = self.cfg.connection
         if conn == "none":
             return x
@@ -473,7 +547,7 @@ class _Pass:
             skip = skip * skip_scale.to(skip.dtype)[:, None, None, None]
         skip = center_crop(skip, (x.shape[1], x.shape[2]))
         x = torch.cat([x, skip], dim=-1) if conn == "cat" else x + skip
-        return self.dropblock(x, "skip" if self.fold else "apply")
+        return self.dropblock(x, self.take(1)[0], "skip" if self.fold else "apply")
 
     def run(self, x):
         cfg = self.cfg
@@ -505,4 +579,5 @@ class _Pass:
             # head to just before the sigmoid
             x = x * head_scale[:, None, None, None]
         x = crop_to(torch.sigmoid(x), orig_hw)
+        self.recomputing = True  # what runs from here on is a remat re-run
         return torch.nan_to_num(torch.clamp(x, 0.0, 1.0), nan=0.0)

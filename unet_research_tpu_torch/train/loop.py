@@ -1,0 +1,335 @@
+"""The training engine (twin of unet_research_tpu/train/loop.py).
+
+Replaces the reference's PyTorch-Lightning assembly (Trainer + callbacks +
+LightningModule overrides, base_model_tests/training.py:198-231):
+
+- one train step: the resize policy's train_io around the model in train
+  mode (DropBlock at the ramped drop probability, masks from the mask
+  producer K2, the 3x3 convs through K3 and its backward under
+  conv_impl='pair'), the masked rescaled BCE, backward, then the clipped
+  SGD + momentum update (train/state.py);
+- host-side per-epoch control: ReduceLROnPlateau, EarlyStopping,
+  best-checkpoint keeping and the PL-style history, including the
+  reference's `if batch_idx % 10:` train-loss logging gate
+  (utils_training.py:36);
+- an LR finder reproducing PL's trainer.tune(auto_lr_find=True) exponential
+  sweep and steepest-gradient suggestion (training.py:217-220).
+
+Differences from the JAX trainer: there is no one-program-per-epoch scan
+(its step math is the per-step math) and no mesh yet. The DropBlock site
+keys of each step are drawn from a torch.Generator seeded with the run's
+seed, where JAX folds the step into a PRNG key, so the two packages draw
+different masks from one seed; `train_step` takes explicit `site_keys`.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from unet_research_tpu_torch.data.dataset import ArrayDataset
+from unet_research_tpu_torch.data.loading import batch_iterator, to_device
+from unet_research_tpu_torch.device import resolve_device
+from unet_research_tpu_torch.models.unet import UNet, draw_site_keys
+from unet_research_tpu_torch.ops.losses import masked_rescaled_bce
+from unet_research_tpu_torch.train.checkpoint import BestCheckpointKeeper, load_checkpoint
+from unet_research_tpu_torch.train.policies import ResizePolicy
+from unet_research_tpu_torch.train.schedule import EarlyStopping, ReduceLROnPlateau
+from unet_research_tpu_torch.train.state import TrainState
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    max_epochs: int = 50
+    lr: float = 1e-3
+    momentum: float = 0.99
+    clip_norm: Optional[float] = None  # --gradient_clip_val
+    auto_lr_find: bool = True
+    early_stop_patience: int = 10
+    check_val_every_n_epoch: int = 1
+    train_batch: int = 1
+    val_batch: int = 1
+    seed: int = -1
+    log_gate: int = 10  # the reference logs the train loss when batch_idx % 10 != 0
+    verbose: bool = True
+    profiler: Optional[str] = None  # 'simple' | 'trace'
+    detect_anomaly: bool = False  # per-step finite check (waits for the card each step)
+
+
+def drop_prob_at(step: int, db) -> np.float32:
+    """The step's DropBlock drop probability in float32 arithmetic, as the
+    JAX step computes it from its traced step (ops/dropblock.py
+    linear_drop_prob, or the fixed drop_prob without the scheduler)."""
+    if not db.use_scheduler:
+        return np.float32(db.drop_prob)
+    if db.nr_steps <= 1:
+        return np.float32(db.max_drop_prob)
+    i = np.float32(min(step, db.nr_steps - 1))
+    return (np.float32(db.start_drop_prob)
+            + np.float32(db.max_drop_prob - db.start_drop_prob) * i / np.float32(db.nr_steps - 1))
+
+
+class Trainer:
+    """Drives one model and one resize policy end to end, on `device` (the
+    card unless the caller asks for the CPU; the model must live there)."""
+
+    def __init__(self, model: UNet, policy: ResizePolicy, cfg: TrainerConfig, mesh=None,
+                 device=None):
+        if mesh is not None:
+            raise NotImplementedError("data-parallel training is not ported yet")
+        self.model = model
+        self.policy = policy
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        where = model.output_conv[0].weight.device
+        if where.type != self.device.type:
+            raise ValueError(f"the model lives on {where}, the trainer runs on {self.device}")
+        self.has_dropblock = model.cfg.dropblock.kind is not None
+        self.key_generator = torch.Generator().manual_seed(max(cfg.seed, 0))
+
+    # ------------------------------------------------------------------
+    def init_params(self, seed: int = 0) -> dict:
+        """A seeded torch-style initialisation of the model's configuration,
+        as a CPU state_dict; the model itself is left as it is."""
+        fresh = UNet(self.model.cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+        return fresh.state_dict()
+
+    def create_state(self, params: Optional[dict] = None, lr: Optional[float] = None) -> TrainState:
+        """Load `params` (a state_dict) into the model, if given, and start a
+        fresh optimizer on its parameters."""
+        if params is not None:
+            self.model.load_state_dict(params)
+        return TrainState(self.model, lr or self.cfg.lr, self.cfg.momentum, self.cfg.clip_norm)
+
+    # ------------------------------------------------------------------
+    def train_step(self, state: TrainState, im, gt, mask, lr: float, size: int = -1,
+                   site_keys: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One update; returns the loss (float32, on the device, detached).
+        site_keys: the (S, 2) DropBlock keys, drawn from `key_generator`
+        when None."""
+        kwargs = {}
+        if self.has_dropblock:
+            if site_keys is None:
+                site_keys = draw_site_keys(self.model.num_mask_sites(), self.key_generator)
+            kwargs = dict(drop_prob=drop_prob_at(state.step, self.model.cfg.dropblock),
+                          site_keys=site_keys)
+
+        def forward(x):
+            return self.model(x, train=True, **kwargs)
+
+        seg, gt2, mask2 = self.policy.train_io(forward, im, gt, mask, size)
+        loss = masked_rescaled_bce(seg, gt2, mask2)
+        loss.backward()
+        state.apply_gradients(lr)
+        return loss.detach()
+
+    def train_step_indexed(self, state: TrainState, data, oi: int, lr: float,
+                           size: int = -1) -> torch.Tensor:
+        """train_step on item `oi` of the device-resident uint8 split `data`
+        (images, targets, masks), normalised as ArrayDataset.__getitem__."""
+        im, gt, mask = ((t[oi].to(torch.float32) / 255.0)[None] for t in data)
+        return self.train_step(state, im, gt, mask, lr, size)
+
+    @torch.no_grad()
+    def eval_step(self, im, gt, mask) -> torch.Tensor:
+        seg, gt2, mask2 = self.policy.val_io(self.model, im, gt, mask)
+        return masked_rescaled_bce(seg, gt2, mask2)
+
+    # ------------------------------------------------------------------
+    def fit(self, train_ds: ArrayDataset, val_ds: ArrayDataset, model_info_dir: str,
+            size_plan: Optional[np.ndarray] = None, params: Optional[dict] = None,
+            ckpt_meta: Optional[dict] = None, resume_from: Optional[str] = None):
+        """Train with early stopping, plateau LR and best-checkpoint keeping.
+
+        params: a state_dict to start from (a seeded initialisation when
+        None). resume_from: a checkpoint written by this trainer; training
+        continues after its epoch with its weights, momentum, LR and step.
+
+        Returns (state, history, keeper); `history` holds per-epoch lists
+        'train_loss_epoch' / 'val_loss_epoch' / 'lr', as PL logs them."""
+        cfg = self.cfg
+        seed = cfg.seed if cfg.seed != -1 else int(time.time()) % (2**31)
+        np_rng = np.random.default_rng(seed)
+        self.key_generator = torch.Generator().manual_seed(seed)
+
+        start_epoch = 0
+        if resume_from is not None:
+            sd, meta, opt = load_checkpoint(resume_from)
+            lr = float(meta.get("lr", cfg.lr))
+            state = self.create_state(sd, lr)
+            if opt is not None:
+                state.optimizer.load_state_dict(opt)
+            state.step = int(meta.get("step", 0))
+            start_epoch = int(meta.get("epoch", -1)) + 1
+        else:
+            self.model.load_state_dict(self.init_params(seed) if params is None else params)
+            lr = cfg.lr
+            if cfg.auto_lr_find:
+                lr = lr_find(self, None, train_ds, size_plan, seed)
+                if cfg.verbose:
+                    print(f"LR finder suggestion: {lr:.3e}")
+            state = self.create_state(None, lr)
+        plateau = ReduceLROnPlateau(lr)
+        early = EarlyStopping(patience=cfg.early_stop_patience)
+        keeper = BestCheckpointKeeper(model_info_dir)
+        history = {"train_loss_epoch": [], "val_loss_epoch": [], "lr": []}
+
+        prof = None
+        if cfg.profiler == "trace":
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+
+        t_fit = time.time()
+        shuffle = not self.policy.uses_size_plan  # MF plans index by batch_idx
+        dev_data = None
+        for epoch in range(start_epoch, cfg.max_epochs):
+            t0 = time.time()
+            if cfg.train_batch == 1:
+                # the uint8 split uploaded once; each step indexes one item
+                if dev_data is None:
+                    dev_data = to_device((train_ds.images, train_ds.targets, train_ds.masks),
+                                         self.device)
+                order = np.arange(len(train_ds))
+                if shuffle:
+                    np_rng.shuffle(order)
+                batches = ((i, int(oi)) for i, oi in enumerate(order))
+            else:
+                batches = enumerate(batch_iterator(train_ds, cfg.train_batch, shuffle, np_rng,
+                                                   device=self.device))
+            step_losses = []
+            for batch_idx, item in batches:
+                size = int(size_plan[batch_idx]) if size_plan is not None else -1
+                if cfg.train_batch == 1:
+                    loss = self.train_step_indexed(state, dev_data, item, lr, size)
+                else:
+                    loss = self.train_step(state, *item, lr, size)
+                if cfg.detect_anomaly and not np.isfinite(float(loss)):
+                    raise FloatingPointError(
+                        f"non-finite train loss at epoch {epoch} batch {batch_idx}"
+                        " (--detect_anomaly)")
+                if batch_idx % cfg.log_gate:  # the reference's gate quirk
+                    step_losses.append(loss)
+            train_loss = (float(np.mean(torch.stack(step_losses).cpu().numpy()))
+                          if step_losses else float("nan"))
+            history["train_loss_epoch"].append(train_loss)
+            history["lr"].append(lr)
+
+            if (epoch + 1) % cfg.check_val_every_n_epoch == 0:
+                val_loss = self._mean_val_loss(val_ds, cfg.val_batch)
+                history["val_loss_epoch"].append(val_loss)
+                keeper.update(epoch, val_loss, self.model.state_dict(),
+                              meta={**(ckpt_meta or {}), "lr": lr, "step": state.step},
+                              optimizer=state.optimizer.state_dict())
+                lr = plateau.step(val_loss)
+                stop = early.step(val_loss)
+                if cfg.verbose:
+                    print(f"epoch {epoch:3d} train_loss {train_loss:.4f} "
+                          f"val_loss {val_loss:.4f} lr {lr:.2e} ({time.time() - t0:.1f}s)")
+                if stop:
+                    if cfg.verbose:
+                        print(f"early stopping at epoch {epoch}")
+                    break
+        if prof is not None:
+            prof.stop()
+            trace_dir = os.path.join(model_info_dir, "..", "profile")
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        if cfg.profiler == "simple" and cfg.verbose:
+            n_epochs = len(history["train_loss_epoch"])
+            total = time.time() - t_fit
+            print(f"[profiler simple] {n_epochs} epochs in {total:.1f}s "
+                  f"({total / max(1, n_epochs):.1f}s/epoch)")
+        return state, history, keeper
+
+    def _mean_val_loss(self, ds: ArrayDataset, batch: int) -> float:
+        losses = [self.eval_step(im, gt, mask)
+                  for im, gt, mask in batch_iterator(ds, batch, False, device=self.device)]
+        return float(np.mean(torch.stack(losses).cpu().numpy()))
+
+    # ------------------------------------------------------------------
+    def validate(self, params: Optional[dict], val_ds: ArrayDataset) -> float:
+        """Mean validation loss; `params` (a state_dict) is loaded into the
+        model first when given."""
+        if params is not None:
+            self.model.load_state_dict(params)
+        return self._mean_val_loss(val_ds, 1)
+
+    def predict(self, params: Optional[dict], ds: ArrayDataset):
+        """Batch-1 predictions as trainer.predict over a re-wrapped loader
+        (utils_metrics.py:52-56,87-90). Yields (idx, seg, im, gt, mask) as
+        numpy NHWC; `params` is loaded into the model first when given."""
+        if params is not None:
+            self.model.load_state_dict(params)
+        for i, (im, gt, mask) in enumerate(batch_iterator(ds, 1, False, device=self.device)):
+            with torch.no_grad():
+                out = self.policy.predict_io(self.model, im, gt, mask)
+            yield (i, *(t.cpu().numpy() for t in out))
+
+
+def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,
+            size_plan: Optional[np.ndarray], seed: int, num_training: int = 100,
+            min_lr: float = 1e-8, max_lr: float = 1.0, beta: float = 0.98) -> float:
+    """PL 1.5 lr_find: exponential LR sweep over `num_training` steps,
+    EWMA-smoothed losses, divergence stop at 4x the best, steepest-negative-
+    gradient suggestion skipping the first 10 and the last point. The probe
+    starts from `params` (the model's current weights when None) and the
+    model's weights are put back afterwards, as PL restores them."""
+    saved = copy.deepcopy(trainer.model.state_dict())
+    lrs = min_lr * (max_lr / min_lr) ** (np.arange(num_training) / (num_training - 1))
+    state = trainer.create_state(params, float(lrs[0]))
+    np_rng = np.random.default_rng(seed)
+    losses = []
+    avg, best = 0.0, float("inf")
+    i = 0
+    shuffle = not trainer.policy.uses_size_plan
+    indexed = trainer.cfg.train_batch == 1
+    if indexed:
+        data = to_device((train_ds.images, train_ds.targets, train_ds.masks), trainer.device)
+    try:
+        while i < num_training:
+            if indexed:
+                order = np.arange(len(train_ds))
+                if shuffle:
+                    np_rng.shuffle(order)
+                batches = enumerate(order)
+            else:
+                batches = enumerate(batch_iterator(train_ds, trainer.cfg.train_batch, shuffle,
+                                                   np_rng, device=trainer.device))
+            for batch_idx, item in batches:
+                if i >= num_training:
+                    break
+                size = int(size_plan[batch_idx]) if size_plan is not None else -1
+                if indexed:
+                    loss = trainer.train_step_indexed(state, data, int(item), float(lrs[i]), size)
+                else:
+                    loss = trainer.train_step(state, *item, float(lrs[i]), size)
+                loss = float(loss)
+                if not np.isfinite(loss):
+                    i = num_training
+                    break
+                avg = beta * avg + (1 - beta) * loss
+                smoothed = avg / (1 - beta ** (len(losses) + 1))
+                if losses and smoothed > 4 * best:
+                    i = num_training
+                    break
+                best = min(best, smoothed)
+                losses.append(smoothed)
+                i += 1
+    finally:
+        trainer.model.load_state_dict(saved)
+
+    skip_begin, skip_end = 10, 1
+    if len(losses) < skip_begin + skip_end + 2:
+        return float(trainer.cfg.lr)
+    seg_losses = np.array(losses[skip_begin:-skip_end])
+    idx = int(np.gradient(seg_losses).argmin()) + skip_begin
+    return float(lrs[idx])
