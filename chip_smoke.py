@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from unet_research_tpu_torch/ops/cuda/csrc,
-holds each kernel against its plain PyTorch version at the shapes of the
-main path, then runs the MC-DropBlock ensemble of the canonical 31M U-Net
+Builds the hand-written kernels from unet_research_tpu_torch/ops/cuda/csrc
+(and checks that K3's library holds Hopper's warpgroup MMA and TMA loads and
+no mma.sync), holds each kernel against its plain PyTorch version at the
+shapes of the main path (K3 forward at batch 16 and 1, every main-path K3
+launch asserted to run the wgmma kernel), then runs the MC-DropBlock ensemble of the canonical 31M U-Net
 (bf16, dependent DropBlock b=7 p=0.15, conv_impl='pair' + mask_impl='fused')
 on a seeded synthetic 584x565 image and checks its outputs and launch
 counts, then the rotational TTA ensemble of the same model (bf16, DropBlock
@@ -29,9 +31,10 @@ expected); for each ensemble, the kernel route's probability map within
 twice the plain bf16 route's distance from the plain float32 route, on the
 same chunk (and site keys). K3 backward: dx and dK within 1e-2 (bf16) and
 1e-3 (float32, TF32 off) of the plain route's, relative to their largest
-magnitude, with nonzero cotangents on the sums; the bf16 dK within 4e-3 of
-the float32 correlation of the same x and folded cotangent (one rounding
-to bf16 is at most 2^-9 of the largest magnitude). One train step: the kernel
+magnitude, with nonzero cotangents on the sums; the fold kernel's g within
+one bf16 rounding of its plain version (bit-equal expected); the bf16
+dK within 4e-3 of the float32 correlation of the same x and folded
+cotangent (one rounding to bf16 is at most 2^-9 of the largest magnitude). One train step: the kernel
 route's loss and gradient (global relative L2 over all parameters) within
 twice the plain bf16 route's distance from the plain float32 route.
 """
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -78,6 +82,7 @@ COUNTERS = {"dropblock_fused_apply": dbk.dropblock_fused_apply,
             "dropblock_mask": dbk.dropblock_mask,
             "conv3x3_pair": pc.conv3x3_pair,
             "conv3x3_pair_dx": pc.conv3x3_pair_dx,
+            "conv3x3_pair_fold": pc.conv3x3_pair_fold,
             "rotate_fan": sr.rotate_fan}
 # one chunk of the rotational fan, the four ties 45 + 90k included
 FAN = torch.tensor([45.0, 135.0, 225.0, 315.0, 1.0, 17.0, 33.0, 60.0, 90.0, 101.0, 180.0,
@@ -91,6 +96,16 @@ def emit(obj) -> None:
 def reset_counts() -> None:
     for fn in COUNTERS.values():
         fn.launches = 0
+    for path in pc.path_launches:
+        pc.path_launches[path] = 0
+
+
+def assert_wgmma(where: str) -> None:
+    """Every K3 launch since the last reset, forward and dx, ran the
+    warpgroup-MMA kernel."""
+    k3 = pc.conv3x3_pair.launches + pc.conv3x3_pair_dx.launches
+    if pc.path_launches != {"wgmma": k3, "cuda_cores": 0}:
+        raise AssertionError(f"{where}: K3 launches by kernel {pc.path_launches} of {k3}")
 
 
 def counts() -> dict:
@@ -151,13 +166,21 @@ def header() -> None:
 
 
 def build_kernels() -> None:
+    """nvcc of every source, in parallel; ptxas's register, spill and
+    warning lines; the counts of Hopper's warpgroup MMA (HGMMA), the older
+    mma.sync (HMMA) and TMA loads (UTMALDG) in K3's SASS."""
     t0 = time.perf_counter()
     done = build.build()
+    seconds = time.perf_counter() - t0
     usage = {name: [line.strip() for line in info["log"].splitlines()
-                    if "registers" in line or "spill" in line]
+                    if "registers" in line or "spill" in line or "arning" in line]
              for name, info in done.items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "compiled": sorted(done), "ptxas": usage})
+    code = build.sass("pair_conv")
+    ops = {op: len(re.findall(rf"\b{op}\b", code)) for op in ("HGMMA", "HMMA", "UTMALDG")}
+    emit({"phase": "build", "seconds": seconds, "compiled": sorted(done), "ptxas": usage,
+          "pair_conv_sass": ops})
+    if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"]:
+        raise AssertionError(f"libpair_conv SASS {ops}: expected HGMMA and UTMALDG, no HMMA")
 
 
 def keys(seed: int) -> torch.Tensor:
@@ -196,6 +219,15 @@ def check_k1() -> dict:
               "max_ulps": ulps, "keep_exact": True})
     x = activation(CHUNK, 64, seed=3)
     ab, key = gn_ab(x), keys(3)
+    out, keep = dbk.dropblock_fused_apply(x, ab, key, GAMMA, BLOCK)
+    ref, ref_keep = dbk.dropblock_fused_apply_plain(x, ab, key, GAMMA, BLOCK)
+    ulps = bf16_ulps(out, ref)
+    if not torch.equal(keep, ref_keep) or ulps > 2:
+        raise AssertionError(f"K1 {tuple(x.shape)}: keep differs or {ulps} ulps")
+    emit({"phase": "K1", "shape": list(x.shape), "affine": True, "act": "relu",
+          "max_ulps": ulps, "keep_exact": True})
+    worst = max(worst, float((out.float() - ref.float()).abs().max()))
+    del out, ref
     ms = time_ms(lambda: dbk.dropblock_fused_apply(x, ab, key, GAMMA, BLOCK), 10)
     plain = time_ms(lambda: dbk.dropblock_fused_apply_plain(x, ab, key, GAMMA, BLOCK), 3, 1)
     bound, by = bound_ms(2 * x.numel() * x.element_size() + ab.numel() * 4)
@@ -219,6 +251,12 @@ def check_k2() -> dict:
     emit({"phase": "K2", "shape": list(shape), "mask_exact": True, "keep_exact": True,
           "keep_fraction": (keep / (H * W * 64)).tolist()})
     shape = (CHUNK, H, W, 64)
+    mask, keep = dbk.dropblock_mask(shape, key, GAMMA, BLOCK)
+    ref, ref_keep = dbk.dropblock_mask_plain(shape, key, GAMMA, BLOCK)
+    if not (torch.equal(mask, ref) and torch.equal(keep, ref_keep)):
+        raise AssertionError(f"K2 {shape}: mask or keep counts differ from the plain version")
+    emit({"phase": "K2", "shape": list(shape), "mask_exact": True, "keep_exact": True})
+    del mask, ref
     ms = time_ms(lambda: dbk.dropblock_mask(shape, key, GAMMA, BLOCK), 10)
     plain = time_ms(lambda: dbk.dropblock_mask_plain(shape, key, GAMMA, BLOCK), 3, 1)
     bound, by = bound_ms(float(np.prod(shape)))
@@ -238,45 +276,60 @@ def conv_weights(cin: int, cout: int) -> torch.Tensor:
 
 
 def library_conv(x, w):
-    """F.conv2d + the two float32 sums: the yardstick, not used by the port."""
+    """F.conv2d + the two float32 sums: a yardstick, not used by the port."""
     y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w, padding=1)
     y32 = y.float()
     return y, y32.sum(dim=(2, 3)), (y32 * y32).sum(dim=(2, 3))
 
 
 def check_k3() -> dict:
+    """K3 forward at the main-path shapes, batch 16 (an ensemble chunk) and
+    batch 1 (training), against the plain version; timed beside one cuDNN
+    conv in bf16 with channels-last weights (library_ms) and that conv with
+    the float32 sums (library_with_sums_ms); batch 1 also in device time."""
     worst, row = 0.0, None
     for cin in (64, 128):
-        x, w = activation(2, cin, seed=cin + 1), conv_weights(cin, 64)
-        y, s1, s2 = pc.conv3x3_pair(x, w, stats=True)
-        if not pc.conv3x3_pair.tensor_cores:
-            raise AssertionError("K3 took the CUDA-core kernel at a main-path shape")
-        ry = pc.conv3x3_pair_plain(x, w)
-        # the kernel's sums come from its float32 accumulator: hold them
-        # against the plain version run in float32 on the same values
-        _, r1, r2 = pc.conv3x3_pair_plain(x.float(), w.float(), stats=True)
-        torch.cuda.synchronize()
-        y_rel = float((y.float() - ry.float()).abs().max() / ry.float().abs().max())
-        s_rel = max(float((s - r).abs().max() / r.abs().max()) for s, r in ((s1, r1), (s2, r2)))
-        if y_rel > 1e-2 or s_rel > 1e-3:
-            raise AssertionError(f"K3 {cin}->64: y rel {y_rel}, sums rel {s_rel}")
-        emit({"phase": "K3", "shape": list(x.shape), "cout": 64, "y_max_rel": y_rel,
-              "sums_max_rel": s_rel})
-        worst = max(worst, float((y.float() - ry.float()).abs().max()))
-        xb, wb = activation(CHUNK, cin, seed=cin + 2), w
-        w_lib = wb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        ms = time_ms(lambda: pc.conv3x3_pair(xb, wb, stats=True), 5)
-        plain = time_ms(lambda: pc.conv3x3_pair_plain(xb, wb, stats=True), 5)
-        lib = time_ms(lambda: library_conv(xb, w_lib), 5)
-        bound, by = bound_ms(xb.numel() * 2 + CHUNK * H * W * 64 * 2 + wb.numel() * 2,
-                             2.0 * 9 * cin * 64 * CHUNK * H * W)
-        timing = {"shape": list(xb.shape), "cout": 64, "ms": ms, "plain_ms": plain,
-                  "bound_ms": bound, "bound_by": by, "library_ms": lib}
-        emit({"phase": "K3-time", **timing})
-        if cin == 64:
-            row = {"name": "conv3x3_pair", "route": "cuda",
-                   "source": "unet_research_tpu_torch/ops/cuda/csrc/pair_conv.cu",
-                   "replaces": "unet_research_tpu/ops/pallas/pair_conv.py:234", **timing}
+        w = conv_weights(cin, 64)
+        w_lib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        for n in (CHUNK, 1):
+            x = activation(n, cin, seed=cin + n)
+            y, s1, s2 = pc.conv3x3_pair(x, w, stats=True)
+            if pc.conv3x3_pair.path != "wgmma":
+                raise AssertionError(f"K3 took {pc.conv3x3_pair.path} at a main-path shape")
+            ry = pc.conv3x3_pair_plain(x, w)
+            # the kernel's sums come from its float32 accumulator: hold them
+            # against the plain version run in float32 on the same values
+            _, r1, r2 = pc.conv3x3_pair_plain(x.float(), w.float(), stats=True)
+            torch.cuda.synchronize()
+            y_rel = float((y.float() - ry.float()).abs().max() / ry.float().abs().max())
+            s_rel = max(float((s - r).abs().max() / r.abs().max()) for s, r in ((s1, r1), (s2, r2)))
+            if y_rel > 1e-2 or s_rel > 1e-3:
+                raise AssertionError(f"K3 {tuple(x.shape)}->64: y rel {y_rel}, sums rel {s_rel}")
+            emit({"phase": "K3", "shape": list(x.shape), "cout": 64, "path": "wgmma",
+                  "y_max_rel": y_rel, "sums_max_rel": s_rel})
+            worst = max(worst, float((y.float() - ry.float()).abs().max()))
+            del y, ry, r1, r2
+            x_nchw = x.permute(0, 3, 1, 2)
+            iters = 5 if n > 1 else 20
+            timing = {"shape": list(x.shape), "cout": 64,
+                      "ms": time_ms(lambda: pc.conv3x3_pair(x, w, stats=True), iters),
+                      "plain_ms": time_ms(lambda: pc.conv3x3_pair_plain(x, w, stats=True), iters)}
+            timing["bound_ms"], timing["bound_by"] = bound_ms(
+                x.numel() * 2 + n * H * W * 64 * 2 + w.numel() * 2, 2.0 * 9 * cin * 64 * n * H * W)
+            timing["library_ms"] = time_ms(
+                lambda: torch.nn.functional.conv2d(x_nchw, w_lib, padding=1), iters)
+            timing["library_with_sums_ms"] = time_ms(lambda: library_conv(x, w_lib), iters)
+            if n == 1:
+                timing["device_ms"] = device_ms(lambda: pc.conv3x3_pair(x, w, stats=True), 20)
+                timing["library_device_ms"] = device_ms(
+                    lambda: torch.nn.functional.conv2d(x_nchw, w_lib, padding=1), 20)
+            emit({"phase": "K3-time", **timing})
+            if cin == 64 and n == CHUNK:
+                row = {"name": "conv3x3_pair", "route": "cuda",
+                       "source": "unet_research_tpu_torch/ops/cuda/csrc/pair_conv.cu",
+                       "replaces": "unet_research_tpu/ops/pallas/pair_conv.py:234", **timing}
+            else:
+                row[f"{cin}_to_64_batch_{n}"] = timing
     row["max_abs_err"] = worst
     return row
 
@@ -376,8 +429,10 @@ def run_slice(state) -> dict:
     seconds = time.perf_counter() - t0
     main = counts()
     if main != {"dropblock_fused_apply": 22 * forwards, "dropblock_mask": 0,
-                "conv3x3_pair": 3 * forwards, "conv3x3_pair_dx": 0, "rotate_fan": 0}:
+                "conv3x3_pair": 3 * forwards, "conv3x3_pair_dx": 0, "conv3x3_pair_fold": 0,
+                "rotate_fan": 0}:
         raise AssertionError(f"main path launches {main} over {forwards} forwards")
+    assert_wgmma("MC slice")
     check_outputs(mean, std, saved, ret)
     emit({"phase": "slice", "config": "canonical 31M, bf16, dependent b=7 p=0.15, pair+fused",
           "input": [584, 565], "iterations": iters, "chunk": CHUNK, "return_num": ret,
@@ -396,8 +451,9 @@ def run_slice(state) -> dict:
     torch.cuda.synchronize()
     kernel_variant = counts()
     if kernel_variant != {"dropblock_fused_apply": 0, "dropblock_mask": 22, "conv3x3_pair": 3,
-                          "conv3x3_pair_dx": 0, "rotate_fan": 0}:
+                          "conv3x3_pair_dx": 0, "conv3x3_pair_fold": 0, "rotate_fan": 0}:
         raise AssertionError(f"mask_impl='kernel' launches {kernel_variant}")
+    assert_wgmma("MC kernel variant")
     emit({"phase": "kernel-variant", "launches": kernel_variant})
 
     # one chunk, same site keys: kernel route vs the plain routes
@@ -440,9 +496,10 @@ def run_rotational(state) -> dict:
         seconds = time.perf_counter() - t0
         got = counts()
         want = {"dropblock_fused_apply": 0, "dropblock_mask": 0, "conv3x3_pair_dx": 0,
-                **{name: n * forwards for name, n in per_forward.items()}}
+                "conv3x3_pair_fold": 0, **{name: n * forwards for name, n in per_forward.items()}}
         if got != want:
             raise AssertionError(f"rotational {warp} launches {got}, expected {want}")
+        assert_wgmma(f"rotational {warp}")
         check_outputs(mean, std, saved, ret)
         launches[warp] = got
         emit({"phase": "rotational-slice", "warp": warp,
@@ -485,12 +542,14 @@ def k3_grads(fn, x, w, cots):
     return torch.autograd.grad(fn(xr, wr, stats=True), (xr, wr), cots)
 
 
-def check_k3_backward() -> dict:
-    """K3's backward (fold + dx on K3 + dK) against autograd of the plain
-    version, at the train shapes (1, 592, 576, C_in) -> 64, with nonzero
-    cotangents on the sums, in bf16 and float32; in bf16 also its dK
-    against the float32 correlation; times in bf16."""
-    row = None
+def check_k3_backward() -> tuple[dict, dict]:
+    """K3's backward (the fold kernel, one dx launch, dK by cuDNN's wgrad)
+    against autograd of the plain version, at the train shapes (1, 592,
+    576, C_in) -> 64, with nonzero cotangents on the sums, in bf16 and
+    float32; in bf16 also the fold against its plain version and dK against
+    the float32 correlation; times in bf16. Returns the rows of K3's
+    backward and of the fold."""
+    row = fold_row = None
     worst = 0.0
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-3)):
         for cin in (64, 128):
@@ -503,7 +562,9 @@ def check_k3_backward() -> dict:
             before = pc.conv3x3_pair_dx.launches
             kdx, kdk = k3_grads(pc.conv3x3_pair, x, w, cots)
             if pc.conv3x3_pair_dx.launches != before + 1:
-                raise AssertionError("K3 backward did not launch K3 for dx")
+                raise AssertionError("K3 backward did not launch K3 once for dx")
+            if dtype == torch.bfloat16 and pc.conv3x3_pair_dx.path != "wgmma":
+                raise AssertionError(f"K3 dx took {pc.conv3x3_pair_dx.path} at a main-path shape")
             pdx, pdk = k3_grads(pc.conv3x3_pair_plain, x, w, cots)
             torch.cuda.synchronize()
             rel = {name: float((a.float() - b.float()).abs().max() / b.float().abs().max())
@@ -511,15 +572,22 @@ def check_k3_backward() -> dict:
             if max(rel.values()) > tol:
                 raise AssertionError(f"K3 backward {cin}->64 {dtype}: {rel} > {tol}")
             emit({"phase": "K3-bwd", "shape": list(x.shape), "cout": 64, "dtype": str(dtype),
-                  "dx_max_rel": rel["dx"], "dK_max_rel": rel["dK"], "limit": tol})
+                  "dx_path": pc.conv3x3_pair_dx.path, "dx_max_rel": rel["dx"],
+                  "dK_max_rel": rel["dK"], "limit": tol})
             if dtype != torch.bfloat16:
                 continue
             worst = max(worst, float((kdx.float() - pdx.float()).abs().max()))
-            # dK in bf16 is cuDNN's wgrad with float32 accumulation: hold it
-            # against the float32 correlation of x and the same folded g
+            # the fold against its plain version; dK in bf16 is cuDNN's
+            # wgrad with float32 accumulation: hold it against the float32
+            # correlation of x and the same folded g
             y = pc.conv3x3_pair(x, w, stats=True)[0]
-            fold = (cots[0].float() + cots[1][:, None, None, :]
-                    + 2.0 * y.float() * cots[2][:, None, None, :]).to(dtype)
+            dx_args = (cots[0], w, y, cots[1], cots[2])
+            fold_args = (cots[0], y, cots[1], cots[2])
+            fold = pc.conv3x3_pair_fold_plain(*fold_args)
+            g = pc.conv3x3_pair_fold(*fold_args)
+            g_ulps = bf16_ulps(g, fold)
+            if g_ulps > 1 or not torch.equal(pc.conv3x3_pair_dx(*dx_args)[1], g):
+                raise AssertionError(f"K3 fold {cin}->64: g {g_ulps} bf16 ulps from the plain fold")
             x_nchw, fold_nchw = x.permute(0, 3, 1, 2), fold.permute(0, 3, 1, 2)
             dk32 = torch.nn.grad.conv2d_weight(x_nchw.float(), (64, cin, 3, 3), fold_nchw.float(),
                                                padding=1).permute(2, 3, 1, 0)
@@ -530,35 +598,51 @@ def check_k3_backward() -> dict:
             for name, fn in (("kernel", pc.conv3x3_pair), ("plain", pc.conv3x3_pair_plain)):
                 xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
                 outs = fn(xr, wr, stats=True)
-                routes[name] = time_ms(lambda: torch.autograd.grad(
-                    outs, (xr, wr), cots, retain_graph=True), 10)
+                def backward(outs=outs, xr=xr, wr=wr):
+                    return torch.autograd.grad(outs, (xr, wr), cots, retain_graph=True)
+                routes[name] = (time_ms(backward, 10), device_ms(backward, 10))
             g_nchw = cots[0].permute(0, 3, 1, 2)
             w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             lib = time_ms(lambda: (torch.nn.grad.conv2d_input(x_nchw.shape, w_oihw, g_nchw, padding=1),
                                    torch.nn.grad.conv2d_weight(x_nchw, w_oihw.shape, g_nchw, padding=1)), 10)
-            dx_ms = time_ms(lambda: pc.conv3x3_pair_dx(cots[0], w), 10)
-            # the backward's dK alone, in bf16 as it runs, and as the float32
-            # correlation of float32 copies of x and g that it replaced
-            dk_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
-                x_nchw, (64, cin, 3, 3), fold_nchw, padding=1), 10)
-            dk32_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
-                x_nchw.float(), (64, cin, 3, 3), fold_nchw.float(), padding=1), 10)
+            def dx_call():
+                return pc.conv3x3_pair_dx(*dx_args)
+            def dk_call():
+                return torch.nn.grad.conv2d_weight(x_nchw, (64, cin, 3, 3), fold_nchw, padding=1)
             npix = H * W
             # reads dy, y, x and K once, writes dx and dK once; dx and dK
             # are one 3x3 conv each
             bound, by = bound_ms(2 * npix * (64 + 64 + cin + cin) + 4 * 9 * cin * 64,
                                  2 * 2.0 * 9 * cin * 64 * npix)
-            timing = {"shape": [1, H, W, cin], "cout": 64, "ms": routes["kernel"],
-                      "dx_ms": dx_ms, "dK_ms": dk_ms, "dK_f32_ms": dk32_ms,
-                      "dK_vs_f32_max_rel": dk_rel, "plain_ms": routes["plain"], "bound_ms": bound,
+            timing = {"shape": [1, H, W, cin], "cout": 64, "ms": routes["kernel"][0],
+                      "device_ms": routes["kernel"][1], "dx_ms": time_ms(dx_call, 20),
+                      "dx_device_ms": device_ms(dx_call, 20), "dK_ms": time_ms(dk_call, 20),
+                      "dK_device_ms": device_ms(dk_call, 20), "g_max_ulps": g_ulps,
+                      "dK_vs_f32_max_rel": dk_rel, "plain_ms": routes["plain"][0],
+                      "plain_device_ms": routes["plain"][1], "bound_ms": bound,
                       "bound_by": by, "library_ms": lib}
             emit({"phase": "K3-bwd-time", **timing})
             if cin == 64:
                 row = {"name": "conv3x3_pair backward (conv3x3_pair_dx)", "route": "cuda",
                        "source": "unet_research_tpu_torch/ops/cuda/csrc/pair_conv.cu",
                        "replaces": "unet_research_tpu/ops/pallas/pair_conv.py:393", **timing}
+                def fold_call():
+                    return pc.conv3x3_pair_fold(*fold_args)
+                fold_row = {"name": "conv3x3_pair_fold", "route": "cuda",
+                            "source": "unet_research_tpu_torch/ops/cuda/csrc/pair_conv.cu",
+                            "replaces": "unet_research_tpu/ops/pallas/pair_conv.py:399",
+                            "shape": list(g.shape),
+                            "max_abs_err": float((g.float() - fold.float()).abs().max()),
+                            "ms": time_ms(fold_call, 20), "device_ms": device_ms(fold_call, 20),
+                            "plain_ms": time_ms(lambda: pc.conv3x3_pair_fold_plain(*fold_args), 20),
+                            "library_ms": None}
+                # reads dy and y, writes g, each once
+                fold_row["bound_ms"], fold_row["bound_by"] = bound_ms(3 * g.numel() * 2)
+                emit({"phase": "fold-time", **fold_row})
+            else:
+                row["128_to_64"] = timing
     row["max_abs_err"] = worst
-    return row
+    return row, fold_row
 
 
 def check_k3_valid() -> dict:
@@ -568,14 +652,17 @@ def check_k3_valid() -> dict:
     ref = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
     torch.cuda.synchronize()
     rel = float((y.float() - ref.float()).abs().max() / ref.float().abs().max())
-    if y.shape != ref.shape or rel > 1e-2:
-        raise AssertionError(f"K3 valid: shape {tuple(y.shape)}, rel {rel}")
+    if y.shape != ref.shape or rel > 1e-2 or pc.conv3x3_pair.path != "wgmma":
+        raise AssertionError(f"K3 valid: shape {tuple(y.shape)}, rel {rel}, {pc.conv3x3_pair.path}")
     w_lib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     out = {"phase": "K3-valid", "shape": list(x.shape), "cout": 64, "y_max_rel": rel,
-           "ms": time_ms(lambda: pc.conv3x3_pair_valid(x, w), 10),
+           "ms": time_ms(lambda: pc.conv3x3_pair_valid(x, w), 20),
+           "device_ms": device_ms(lambda: pc.conv3x3_pair_valid(x, w), 20),
            "plain_ms": time_ms(lambda: torch.nn.functional.conv2d(
-               x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)), 10),
-           "library_ms": time_ms(lambda: torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w_lib), 10)}
+               x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)), 20),
+           "library_ms": time_ms(lambda: torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w_lib), 20),
+           "library_device_ms": device_ms(
+               lambda: torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w_lib), 20)}
     out["bound_ms"], out["bound_by"] = bound_ms(2 * (H * W * 64 + (H - 2) * (W - 2) * 64) + 2 * 9 * 64 * 64,
                                                 2.0 * 9 * 64 * 64 * (H - 2) * (W - 2))
     emit(out)
@@ -659,9 +746,10 @@ def run_train_slice(state) -> dict:
     got = counts()
     want = {"dropblock_fused_apply": 0, "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
             "conv3x3_pair": 6 * steps + 3 * val_forwards, "conv3x3_pair_dx": 3 * steps,
-            "rotate_fan": 0}
+            "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0}
     if got != want:
         raise AssertionError(f"train launches {got}, expected {want}")
+    assert_wgmma("train fit")
     losses = history["train_loss_epoch"] + history["val_loss_epoch"]
     if not (len(history["val_loss_epoch"]) == 3 and all(np.isfinite(losses))):
         raise AssertionError(f"train history {history}")
@@ -697,7 +785,7 @@ def main() -> None:
     t0 = time.perf_counter()
     header()
     build_kernels()
-    rows = [check_k1(), check_k2(), check_k3(), check_k4(), check_k3_backward()]
+    rows = [check_k1(), check_k2(), check_k3(), check_k4(), *check_k3_backward()]
     check_k3_valid()
     state = base_state()
     launches = run_slice(state)
@@ -709,8 +797,9 @@ def main() -> None:
     paths = {"mc": launches["main"], "mc_kernel_variant": launches["kernel_variant"],
              "rotational_shear": rotational["shear"], "train": train}
     for row, name, main_path in zip(rows, ("dropblock_fused_apply", "dropblock_mask",
-                                           "conv3x3_pair", "rotate_fan", "conv3x3_pair_dx"),
-                                    ("mc", "train", "mc", "rotational_shear", "train")):
+                                           "conv3x3_pair", "rotate_fan", "conv3x3_pair_dx",
+                                           "conv3x3_pair_fold"),
+                                    ("mc", "train", "mc", "rotational_shear", "train", "train")):
         row["launches"] = paths[main_path][name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items() if c[name]}
     rows[4]["launches_per_train_step"] = train["conv3x3_pair_dx"] / steps

@@ -1,0 +1,140 @@
+"""Times of the port's K1, K2 and K3 kernels at the main-path shapes, for the
+package in a given source tree, so that two trees can be compared on one
+card in turns.
+
+    python3 scripts/kernel_times_torch.py [--root DIR] [--tag NAME]
+
+Imports `unet_research_tpu_torch` from DIR (default: this checkout), builds
+its kernels, and prints one JSON line: the card's name and power limit, and
+per kernel the event time per call (ms) and, at batch 1, the device time per
+call from torch.profiler (device_ms):
+
+- K1 `dropblock_fused_apply` and K2 `dropblock_mask` at (16, 592, 576, 64),
+  bf16, b = 7 at the canonical drop probability, and in device time at
+  batch 1 (the training shape);
+- K3 forward with the sums at (16|1, 592, 576, 64|128) -> 64, bf16;
+- K3's backward route at (1, 592, 576, 64|128) -> 64 (autograd of
+  conv3x3_pair with cotangents on y and both sums), and its dx call alone:
+  in a tree whose `conv3x3_pair_dx(dy, K, y, ds1, ds2)` folds, that call;
+  in an older one, `conv3x3_pair_dx(g, K)` on the folded g (the fold ran as
+  plain ops there), named `dx_ms` in both;
+- `conv3x3_pair_valid` at (1, 592, 576, 64) -> 64.
+Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+H, W, CHUNK, BLOCK, P_DROP = 592, 576, 16, 7, 0.15
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(ev.device_time for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / iters
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    p.add_argument("--tag", default="")
+    a = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    sys.path.insert(0, os.path.abspath(a.root))
+    from unet_research_tpu_torch.models import unet as tunet
+    from unet_research_tpu_torch.ops.cuda import build
+    from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk
+    from unet_research_tpu_torch.ops.cuda import pair_conv as pc
+    from unet_research_tpu_torch.ops.dropblock import dropblock_gamma_dependent
+
+    build.build()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    def weights(cin):
+        return (0.05 * randn(3, 3, cin, 64, dtype=torch.float32)).to(torch.bfloat16)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    out = {"tag": a.tag, "root": a.root, "card": smi}
+    gamma = dropblock_gamma_dependent(H, W, BLOCK, P_DROP)
+    key = tunet.draw_site_keys(1, torch.Generator().manual_seed(3))[0].to(dev)
+    x = randn(CHUNK, H, W, 64)
+    ab = torch.stack([1.0 + 0.1 * randn(CHUNK, 64, dtype=torch.float32),
+                      0.1 * randn(CHUNK, 64, dtype=torch.float32)]).contiguous()
+    out["K1_ms"] = time_ms(lambda: dbk.dropblock_fused_apply(x, ab, key, gamma, BLOCK), 20)
+    out["K2_ms"] = time_ms(lambda: dbk.dropblock_mask(tuple(x.shape), key, gamma, BLOCK), 20)
+    # batch 1, as training runs K2 (and K1 would)
+    x1, ab1 = x[:1].contiguous(), ab[:, :1].contiguous()
+    out["K1_b1_device_ms"] = device_ms(
+        lambda: dbk.dropblock_fused_apply(x1, ab1, key, gamma, BLOCK))
+    out["K2_b1_device_ms"] = device_ms(
+        lambda: dbk.dropblock_mask(tuple(x1.shape), key, gamma, BLOCK))
+    del x, ab
+
+    folds = "y" in inspect.signature(pc.conv3x3_pair_dx).parameters
+    for cin in (64, 128):
+        w = weights(cin)
+        for n in (CHUNK, 1):
+            x = randn(n, H, W, cin)
+            fwd = lambda: pc.conv3x3_pair(x, w, stats=True)  # noqa: E731
+            out[f"K3_fwd_{cin}_b{n}_ms"] = time_ms(fwd, 10 if n > 1 else 50)
+            if n == 1:
+                out[f"K3_fwd_{cin}_b1_device_ms"] = device_ms(fwd)
+        cots = (randn(1, H, W, 64), 0.5 * randn(1, 64, dtype=torch.float32),
+                0.5 * randn(1, 64, dtype=torch.float32))
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        outs = pc.conv3x3_pair(xr, wr, stats=True)
+        route = lambda: torch.autograd.grad(outs, (xr, wr), cots, retain_graph=True)  # noqa: E731
+        out[f"K3_bwd_{cin}_ms"] = time_ms(route, 20)
+        out[f"K3_bwd_{cin}_device_ms"] = device_ms(route)
+        y = outs[0].detach()
+        if folds:
+            dx = lambda: pc.conv3x3_pair_dx(cots[0], w, y, cots[1], cots[2])  # noqa: E731
+        else:
+            g = (cots[0].float() + cots[1][:, None, None, :]
+                 + 2.0 * y.float() * cots[2][:, None, None, :]).to(torch.bfloat16)
+            dx = lambda: pc.conv3x3_pair_dx(g, w)  # noqa: E731
+        out[f"K3_dx_{cin}_ms"] = time_ms(dx, 50)
+        out[f"K3_dx_{cin}_device_ms"] = device_ms(dx)
+    x, w = randn(1, H, W, 64), weights(64)
+    valid = lambda: pc.conv3x3_pair_valid(x, w)  # noqa: E731
+    out["K3_valid_ms"] = time_ms(valid, 50)
+    out["K3_valid_device_ms"] = device_ms(valid)
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -35,9 +35,10 @@ from unet_research_tpu_torch.ops.image import rotate_bilinear  # noqa: E402
 from unet_research_tpu_torch.train import POLICIES, Trainer, TrainerConfig  # noqa: E402
 
 
-KINDS = (("K1 fused DropBlock", ("dropblock_kernel<bf16, 1>", "dropblock_kernel<float, 1>")),
-         ("K2 mask producer", ("dropblock_kernel<float, 0>", "dropblock_kernel<bf16, 0>")),
-         ("K3 conv3x3", ("conv3x3_mma_kernel", "conv3x3_kernel")),
+KINDS = (("K1 fused DropBlock", ("dropblock_apply_kernel",)),
+         ("K2 mask producer", ("dropblock_mask_kernel",)),
+         ("K3 conv3x3 (forward and dx)", ("conv3x3_wgmma_kernel", "conv3x3_kernel")),
+         ("K3 backward's fold", ("conv3x3_fold_kernel",)),
          ("K4 shear fan", ("shear_",)),
          ("cuDNN/cuBLAS convs and GEMMs", ("xmma", "cudnn", "cutlass", "wgrad", "dgrad", "gemm")),
          ("reductions (GroupNorm statistics, sums, norms)", ("reduce_kernel",)),

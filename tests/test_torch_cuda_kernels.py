@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain versions on the card, at
 edge shapes the main path does not reach (ragged tiles, channel counts that
-are not multiples of 32 or 16, float32, the smallest and largest block
+are not multiples of 64, 32 or 16, float32, the smallest and largest block
 sizes, more than 64 output channels). They skip without a card; run them on
 one with
 
@@ -10,15 +10,22 @@ one with
 machine need not have). Tolerances: masks, keep counts and K1 outputs exact
 (same hash, same rounding steps); K3 max |y - plain| / max |plain| <= 1e-2 in
 bf16 and 1e-5 in float32, sums 1e-5 relative to their largest magnitude
-against the plain version in float32 (TF32 off); K4 (the shear fan warp) at
+against the plain version in float32 (TF32 off); K3's tiling is stressed at
+H not a multiple of its 2-row tile, W = 46, 70 and 576 (64-column tiles),
+batch 1 and 3, C_in 16/64/128, C_out 40/64/128, and each case names the
+kernel it must take ('wgmma' or 'cuda_cores'). K4 (the shear fan warp) at
 odd, non-square sizes, K = 1, 5 and 130 (two launch groups), single-image
 and batched, max abs 1e-6 (the same float32 operations in the same order:
-bit-equal expected). K3's backward (dx on K3, dK by cuDNN) against autograd
-of the plain version at odd H/W, C_in 16/64/128 and C_out 64/128, with
+bit-equal expected). The fold kernel bit-equal to its plain version. K3's
+backward (the fold, dx in one K3 launch, dK by cuDNN) against autograd of
+the plain version at odd H/W, C_in 16/64/128 and C_out 64/128, with
 nonzero cotangents on the sums: max |d - plain| / max |plain| <= 1e-2 in
-bf16 and 1e-3 in float32; one train step of a small model, kernel route
-against plain route in float32: gradients within 1e-3 of the plain ones
-relative to the largest magnitude of each."""
+bf16 and 1e-3 in float32; the dx call alone with the fold at the new
+tiling's edge shapes: dx within 1e-2, the folded g within one bf16
+rounding of the plain fold, and with a zero dy and large ds1/ds2, where a
+padding ring of g at ds1 would be the whole error; one train step of a small model, kernel route against plain route in
+float32: gradients within 1e-3 of the plain ones relative to the largest
+magnitude of each."""
 
 import dataclasses
 
@@ -46,6 +53,13 @@ def _key(dev, words=(0xFFFFFFF0, 0x80000001)):
     ((3, 40, 33, 70), torch.float32, 3, "relu", True),
     ((1, 50, 70, 33), torch.bfloat16, 17, "none", False),
     ((2, 31, 64, 96), torch.bfloat16, 5, "relu", True),
+    ((2, 70, 131, 64), torch.bfloat16, 7, "relu", True),
+    ((1, 45, 70, 20), torch.bfloat16, 3, "leaky_relu", True),
+    ((2, 33, 66, 70), torch.bfloat16, 7, "relu", True),
+    ((1, 40, 50, 128), torch.bfloat16, 17, "none", True),
+    ((3, 20, 29, 96), torch.bfloat16, 7, "leaky_relu", False),
+    ((1, 36, 72, 128), torch.bfloat16, 3, "relu", False),
+    ((2, 40, 70, 64), torch.float32, 17, "relu", True),
 ])
 def test_dropblock_kernels_match_plain(dev, shape, dtype, b, act, affine):
     from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk
@@ -67,20 +81,28 @@ def test_dropblock_kernels_match_plain(dev, shape, dtype, b, act, affine):
     assert 0 < float(keep.min()) < h * w * c
 
 
-@pytest.mark.parametrize("shape,cout,dtype,tensor_cores", [
-    ((2, 37, 46, 32), 40, torch.bfloat16, True),
-    ((1, 20, 16, 64), 130, torch.bfloat16, True),
-    ((2, 37, 46, 24), 40, torch.bfloat16, False),
-    ((2, 19, 30, 5), 8, torch.float32, False),
+@pytest.mark.parametrize("shape,cout,dtype,path", [
+    ((2, 37, 46, 32), 40, torch.bfloat16, "wgmma"),
+    ((1, 20, 16, 64), 130, torch.bfloat16, "cuda_cores"),
+    ((2, 37, 46, 24), 40, torch.bfloat16, "cuda_cores"),
+    ((2, 19, 30, 5), 8, torch.float32, "cuda_cores"),
+    ((1, 37, 70, 16), 64, torch.bfloat16, "wgmma"),
+    ((3, 21, 576, 64), 64, torch.bfloat16, "wgmma"),
+    ((1, 9, 46, 128), 40, torch.bfloat16, "wgmma"),
+    ((3, 11, 70, 128), 128, torch.bfloat16, "wgmma"),
+    ((1, 7, 576, 64), 128, torch.bfloat16, "wgmma"),
+    ((3, 5, 46, 16), 128, torch.bfloat16, "wgmma"),
+    ((1, 13, 576, 128), 64, torch.bfloat16, "wgmma"),
+    ((1, 4, 70, 64), 256, torch.bfloat16, "wgmma"),
 ])
-def test_conv3x3_pair_matches_plain(dev, shape, cout, dtype, tensor_cores):
+def test_conv3x3_pair_matches_plain(dev, shape, cout, dtype, path):
     from unet_research_tpu_torch.ops.cuda import pair_conv as pc
 
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(shape, device=dev, generator=g).to(dtype)
     k = (0.1 * torch.randn((3, 3, shape[-1], cout), device=dev, generator=g)).to(dtype)
     y, s1, s2 = pc.conv3x3_pair(x, k, stats=True)
-    assert pc.conv3x3_pair.tensor_cores == tensor_cores
+    assert pc.conv3x3_pair.path == path
     ry = pc.conv3x3_pair_plain(x, k)
     _, r1, r2 = pc.conv3x3_pair_plain(x.float(), k.float(), stats=True)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
@@ -135,6 +157,80 @@ def test_conv3x3_pair_backward_matches_plain(dev, cin, cout, dtype):
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert float((a.float() - b.float()).abs().max() / b.float().abs().max()) <= tol
+
+
+def _ulps(a, b):
+    """Largest distance in bf16 units in the last place between a and b."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+@pytest.mark.parametrize("shape,cin,zero_dy", [
+    ((1, 37, 70, 64), 64, False),
+    ((3, 21, 576, 64), 128, False),
+    ((1, 9, 46, 16), 40, False),
+    ((2, 11, 70, 128), 64, False),
+    ((1, 37, 70, 64), 64, True),
+    ((2, 9, 46, 64), 128, True),
+])
+def test_conv3x3_pair_dx_fold_matches_plain(dev, shape, cin, zero_dy):
+    """dx with the sums' cotangents folded in (the fold kernel, then one K3
+    launch): dx and the folded g against the plain fold + conv. A zero dy
+    with large ds1/ds2 makes the dx conv's padding ring (zero for g, not
+    ds1) the whole error."""
+    from unet_research_tpu_torch.ops.cuda import pair_conv as pc
+
+    gen = torch.Generator(device=dev).manual_seed(shape[2] + cin)
+    n, cout = shape[0], shape[-1]
+    dy = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+    if zero_dy:
+        dy = torch.zeros_like(dy)
+    y = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+    ds1 = 50.0 * torch.randn((n, cout), device=dev, generator=gen)
+    ds2 = 20.0 * torch.randn((n, cout), device=dev, generator=gen)
+    k = (0.1 * torch.randn((3, 3, cin, cout), device=dev, generator=gen)).to(torch.bfloat16)
+    before = (pc.conv3x3_pair_dx.launches, pc.conv3x3_pair_fold.launches)
+    dx, g = pc.conv3x3_pair_dx(dy, k, y, ds1, ds2)
+    assert (pc.conv3x3_pair_dx.launches, pc.conv3x3_pair_fold.launches) == (before[0] + 1,
+                                                                            before[1] + 1)
+    assert pc.conv3x3_pair_dx.path == "wgmma"
+    rdx, rg = pc.conv3x3_pair_dx_plain(dy, k, y, ds1, ds2)
+    assert dx.shape == rdx.shape and g.shape == rg.shape
+    assert _ulps(g, rg) <= 1
+    assert float((dx.float() - rdx.float()).abs().max() / rdx.float().abs().max()) <= 1e-2
+    # and without the fold: g is dy, dx its conv
+    dx0, g0 = pc.conv3x3_pair_dx(dy, k)
+    assert g0.data_ptr() == dy.data_ptr() or torch.equal(g0, dy)
+    rdx0, _ = pc.conv3x3_pair_dx_plain(dy, k)
+    err0 = float((dx0.float() - rdx0.float()).abs().max())
+    assert err0 <= 1e-2 * max(float(rdx0.float().abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 37, 29, 64), torch.bfloat16),
+    ((1, 11, 70, 128), torch.bfloat16),
+    ((2, 9, 13, 20), torch.bfloat16),
+    ((1, 7, 9, 33), torch.float32),
+])
+def test_conv3x3_pair_fold_matches_plain(dev, shape, dtype):
+    """The fold kernel against its plain version: bit-equal (the same
+    float32 operations in the same order, rounded once), with and without
+    ds2, at 16-byte vector and scalar channel counts."""
+    from unet_research_tpu_torch.ops.cuda import pair_conv as pc
+
+    gen = torch.Generator(device=dev).manual_seed(shape[-1])
+    n, c = shape[0], shape[-1]
+    dy = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    y = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    ds1 = 3.0 * torch.randn((n, c), device=dev, generator=gen)
+    ds2 = 2.0 * torch.randn((n, c), device=dev, generator=gen)
+    for d2 in (ds2, None):
+        before = pc.conv3x3_pair_fold.launches
+        g = pc.conv3x3_pair_fold(dy, y, ds1, d2)
+        assert pc.conv3x3_pair_fold.launches == before + 1
+        assert torch.equal(g, pc.conv3x3_pair_fold_plain(dy, y, ds1, d2))
 
 
 def test_train_step_kernel_route_matches_plain(dev):

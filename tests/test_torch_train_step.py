@@ -190,16 +190,18 @@ def test_dropblock_step_with_jax_keys_matches_jax(rng, monkeypatch, kind):
 
 def test_pair_route_step_matches_jax(rng, monkeypatch):
     """conv_impl='pair' at 64 filters: the three eligible convs run the K3
-    Function, whose backward sends each dx through conv3x3_pair_dx; the step
-    equals the JAX step on its XLA convs."""
+    Function, whose backward sends each dx through conv3x3_pair_dx with the
+    GroupNorm sums' cotangents to fold; the step equals the JAX step on its
+    XLA convs."""
     jcfg, tcfg = _configs(filters=64, model_depth=1, group_norm_groups=8)
     both = _Both(jcfg, tcfg, JPOLICIES["none"], POLICIES["none"])
     calls = []
     real = tpc.conv3x3_pair_dx
 
-    def spy(g, kernel):
-        calls.append((tuple(g.shape), tuple(kernel.shape)))
-        return real(g, kernel)
+    def spy(dy, kernel, *fold):
+        assert len(fold) == 3
+        calls.append((tuple(dy.shape), tuple(kernel.shape)))
+        return real(dy, kernel, *fold)
 
     monkeypatch.setattr(tpc, "conv3x3_pair_dx", spy)
     im, gt, mask = _batch(rng, 16, 16)

@@ -82,6 +82,13 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def sass(name: str) -> str:
+    """The SASS of the built library for csrc/<name>.cu (`cuobjdump -sass`)."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(library_path(name))], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def check(status: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error (a refused launch):
     a non-zero cudaError_t, or its negation."""

@@ -16,21 +16,33 @@
 //   K2: mask = !dropped as int8;
 //   both: keep[n] += number of kept positions (exact, 64-bit).
 //
-// Design. One block owns a 32x32 spatial tile of one sample and a slice of
-// 32 channels. A warp walks one halo row; at each position its 32 lanes hash
-// the 32 channels and __ballot_sync packs the seeds into one word, so the tile
-// plus its p = b//2 halo is a small array of words in shared memory and the
-// b x b expansion is 2(2p+1) ORs per word (rows, then columns) for all 32
-// channels at once. The apply is lane = channel, so each warp touches 32
-// consecutive NHWC elements per position. The TPU kernel's bit planes along
-// sublanes, its 8-row PRNG strips and its 16-bit gamma are TPU devices and
-// are not carried over: the hash is counter-based, so halo seeds are simply
-// recomputed by the neighbouring tile.
-//
 // Bound: memory. K1 reads x once and writes out once (2 x 698 MB at the top
 // site (16,592,576,64) bf16: 0.42 ms at 3.35 TB/s); K2 writes 1 B/element
-// (0.10 ms). In practice both are held up by the seed phase, one hash per
-// element and halo position (1.41x the elements at b=7), not by the bytes.
+// (0.10 ms). Instruction issue comes close behind the bytes: the seeds take
+// a hash per element of the tile and its halo, about ten integer
+// instructions each. The design spends as few instructions per element as
+// the function allows:
+// - A block owns a 32 x TW spatial tile (TW = 64 for b = 7, the main path;
+//   32 for any other odd b <= 17) of one sample and a 64-channel slice: one
+//   position's 64 bf16 channels are one 128-byte line, and its seeds are
+//   two 32-bit words (bit = channel). The halo recompute is (32+6)(64+6) /
+//   (32*64) = 1.30x the elements at b = 7.
+// - Seeds: one thread per halo position hashes its 64 channels, unrolled,
+//   so 64 independent hashes are in flight per lane; the interior test is
+//   made once per position, and the two words are plain coalesced stores
+//   (no ballot, no lane-0 store). gamma's threshold is compared on the whole
+//   32-bit hash (h <= threshold*256 - 1, the same as (h >> 8) < threshold);
+//   a zero threshold (drop probability 0) skips the hashing.
+// - The b x b OR over words, rows then columns; with p = b // 2 a template
+//   parameter (3 on the main path) the index arithmetic is by constants.
+// - Apply: a thread takes 8 consecutive channels of a position (one 16-byte
+//   load and store in bf16, so a warp touches 4 whole lines); its 8 drop bits
+//   are one byte of a seed word; GN-affine, rounding and ReLU run on packed
+//   bf16 pairs. K2 writes its 8 mask bytes with one 8-byte store.
+// The TPU kernel's bit planes along sublanes, its 8-row PRNG strips and its
+// 16-bit gamma are TPU devices and are not carried over: the hash is
+// counter-based, so halo seeds are simply recomputed by the neighbouring
+// tile.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -38,21 +50,11 @@
 
 namespace {
 
-constexpr int TILE = 32;          // spatial tile edge
-constexpr int MAX_P = 8;          // b <= 17
-constexpr int HALO = TILE + 2 * MAX_P;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-
-__device__ __forceinline__ uint32_t hash_bits(uint32_t idx, uint32_t k0, uint32_t k1) {
-    uint32_t x = (idx * 2654435761u) ^ k0;
-    x = x ^ (x >> 16);
-    x = x * 0x7FEB352Du;
-    x = x ^ (x >> 15) ^ k1;
-    x = x * 0x846CA68Bu;
-    x = x ^ (x >> 16);
-    return x;
-}
+constexpr int TH = 32;            // spatial tile rows
+constexpr int CS = 64;            // channels per block (two seed words)
+constexpr uint32_t HASH_K = 2654435761u;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -66,108 +68,274 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // round to the storage type and back: one rounding step of the plain version
 template <typename T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
 
-// MODE 0: int8 keep-mask only (K2). MODE 1: fused apply (K1).
-template <typename T, int MODE>
-__global__ void __launch_bounds__(THREADS)
-dropblock_kernel(const T* __restrict__ x, T* __restrict__ out, int8_t* __restrict__ mask,
-                 const float* __restrict__ ab, unsigned long long* __restrict__ keep,
-                 const long long* __restrict__ key, int N, int H, int W, int C,
-                 uint32_t threshold, int p, int act, float slope) {
-    __shared__ uint32_t s_seed[HALO * HALO];
-    __shared__ uint32_t s_vert[TILE * HALO];
-    __shared__ uint32_t s_drop[TILE * TILE];
+// the counter hash of ops/dropblock.py::hash_uniform, from idx * HASH_K
+__device__ __forceinline__ uint32_t hash_from(uint32_t idx_k, uint32_t k0, uint32_t k1) {
+    uint32_t x = idx_k ^ k0;
+    x = x ^ (x >> 16);
+    x = x * 0x7FEB352Du;
+    x = x ^ (x >> 15) ^ k1;
+    x = x * 0x846CA68Bu;
+    return x ^ (x >> 16);
+}
+
+// 32 seed bits of channels c0 .. c0+31 of one position
+__device__ __forceinline__ uint32_t seed_word(uint32_t base_k, int c0, uint32_t k0, uint32_t k1,
+                                              uint32_t lim) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int c = 0; c < 32; ++c)
+        if (hash_from(base_k + (uint32_t)(c0 + c) * HASH_K, k0, k1) <= lim) word |= 1u << c;
+    return word;
+}
+
+// bf16 pair <-> two floats
+__device__ __forceinline__ float lo_f(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float hi_f(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// keep mask of a bf16 pair from two drop bits
+__device__ __forceinline__ uint32_t keep_pair(uint32_t bits2) {
+    return ((bits2 & 1u) ? 0u : 0x0000FFFFu) | ((bits2 & 2u) ? 0u : 0xFFFF0000u);
+}
+
+// K1 on 8 bf16 channels: x*a, +b (each rounded to bf16), drop, act
+__device__ __forceinline__ uint4 apply8(uint4 v, uint32_t bits, bool affine, const float* a,
+                                        const float* b, int act, float slope) {
+    uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        uint32_t pr = w[i];
+        if (affine) {
+            pr = pack2(__fmul_rn(lo_f(pr), a[2 * i]), __fmul_rn(hi_f(pr), a[2 * i + 1]));
+            pr = pack2(__fadd_rn(lo_f(pr), b[2 * i]), __fadd_rn(hi_f(pr), b[2 * i + 1]));
+        }
+        pr &= keep_pair(bits >> (2 * i));
+        if (act == 1) {
+            // y > 0 ? y : 0 on the bits: a set sign bit (negative or -0) gives 0
+            pr &= ~(((pr >> 15) & 0x00010001u) * 0xFFFFu);
+        } else if (act == 2) {
+            float lo = lo_f(pr), hi = hi_f(pr);
+            lo = lo > 0.0f ? lo : rnd<__nv_bfloat16>(__fmul_rn(lo, slope));
+            hi = hi > 0.0f ? hi : rnd<__nv_bfloat16>(__fmul_rn(hi, slope));
+            pr = pack2(lo, hi);
+        }
+        w[i] = pr;
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// the same on one element of either type
+template <typename T>
+__device__ __forceinline__ T apply1(T xv, bool dropped, bool affine, float a, float b, int act,
+                                    float slope) {
+    float y = to_f(xv);
+    if (affine) y = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(y, a)), b));
+    if (dropped) y = 0.0f;
+    if (act == 1) y = y > 0.0f ? y : 0.0f;
+    else if (act == 2) y = y > 0.0f ? y : rnd<T>(__fmul_rn(y, slope));
+    return from_f<T>(y);
+}
+
+// 8 keep bytes (1 kept, 0 dropped) from 8 drop bits
+__device__ __forceinline__ uint2 mask_bytes(uint32_t bits) {
+    const uint32_t keep = ~bits & 0xFFu;
+    return make_uint2(((keep & 0xFu) * 0x00204081u) & 0x01010101u,
+                      ((keep >> 4) * 0x00204081u) & 0x01010101u);
+}
+
+// MODE 0: int8 keep-mask (K2). MODE 1: fused apply (K1). P: p = b // 2 as a
+// constant, or 0 for a runtime p <= 8. TW: tile columns.
+template <typename T, int MODE, int P, int TW>
+__device__ __forceinline__ void dropblock_tile(
+        const T* __restrict__ x, T* __restrict__ out, int8_t* __restrict__ mask,
+        const float* __restrict__ ab, unsigned long long* __restrict__ keep,
+        const long long* __restrict__ key, int N, int H, int W, int C, uint32_t threshold,
+        int p_rt, int act, float slope) {
+    constexpr int MAXP = P > 0 ? P : 8;
+    constexpr int SH = TH + 2 * MAXP;
+    constexpr int SWM = TW + 2 * MAXP;
+    // seeds [2][sh*sw], reused as the drop words [2][TH*TW]; row ORs [2][TH*sw]
+    __shared__ uint32_t s_seed[2 * SH * SWM];
+    __shared__ uint32_t s_vert[2 * TH * SWM];
     __shared__ unsigned long long s_cnt[WARPS];
 
-    const int tiles_w = (W + TILE - 1) / TILE;
-    const int h0 = (blockIdx.x / tiles_w) * TILE;
-    const int w0 = (blockIdx.x % tiles_w) * TILE;
-    const int c0 = blockIdx.y * 32;
+    const int p = P > 0 ? P : p_rt;
+    const int sw = TW + 2 * p;
+    const int sh = TH + 2 * p;
+    const int tiles_w = (W + TW - 1) / TW;
+    const int h0 = (blockIdx.x / tiles_w) * TH;
+    const int w0 = (blockIdx.x % tiles_w) * TW;
+    const int cs = blockIdx.y * CS;
     const int n = blockIdx.z;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int c = c0 + lane;
-    const bool c_ok = c < C;
+    const int tid = threadIdx.x;
+    const int nch = min(CS, C - cs);
+    const uint32_t cm0 = nch >= 32 ? 0xFFFFFFFFu : ((1u << nch) - 1u);
+    const uint32_t cm1 = nch >= 64 ? 0xFFFFFFFFu : (nch > 32 ? ((1u << (nch - 32)) - 1u) : 0u);
     const uint32_t k0 = (uint32_t)key[0];
     const uint32_t k1 = (uint32_t)key[1];
-    const int sw = TILE + 2 * p;   // halo tile edge for this block size
+    // (h >> 8) < threshold  <=>  h <= threshold * 256 - 1, for threshold >= 1
+    const uint32_t lim = (threshold << 8) - 1u;
 
-    // 1. seed words of the tile and its halo: one warp per halo row, one
-    //    ballot per position. The flat index runs in uint32: it is < 2^32
-    //    wherever a seed can sit, so wrapping intermediates do no harm.
-    for (int r = warp; r < sw; r += WARPS) {
+    // 1. seed words of the tile and its halo, one position per thread. The
+    //    flat index runs in uint32: it is < 2^32 wherever a seed can sit.
+    const int plane_s = sh * sw;
+    for (int q = tid; q < plane_s; q += THREADS) {
+        const int r = q / sw;
+        const int col = q - r * sw;
         const int hh = h0 - p + r;
-        const bool row_ok = c_ok && hh >= p && hh <= H - 1 - p;
-        uint32_t idx = (((uint32_t)n * H + (uint32_t)hh) * W + (uint32_t)(w0 - p)) * C + c;
-        for (int col = 0; col < sw; ++col, idx += (uint32_t)C) {
-            const int ww = w0 - p + col;
-            // u < gamma on the 24-bit uniform, as the integer (bits >> 8) < threshold
-            const bool seed = row_ok && ww >= p && ww <= W - 1 - p
-                              && (hash_bits(idx, k0, k1) >> 8) < threshold;
-            const uint32_t word = __ballot_sync(0xffffffffu, seed);
-            if (lane == 0) s_seed[r * sw + col] = word;
+        const int ww = w0 - p + col;
+        uint32_t word0 = 0, word1 = 0;
+        if (threshold != 0 && hh >= p && hh <= H - 1 - p && ww >= p && ww <= W - 1 - p) {
+            const uint32_t base_k =
+                ((((uint32_t)n * H + (uint32_t)hh) * W + (uint32_t)ww) * C + cs) * HASH_K;
+            word0 = seed_word(base_k, 0, k0, k1, lim) & cm0;
+            if (nch > 32) word1 = seed_word(base_k, 32, k0, k1, lim) & cm1;
         }
+        s_seed[q] = word0;
+        s_seed[plane_s + q] = word1;
     }
     __syncthreads();
 
     // 2. OR over the 2p+1 rows of each window
-    for (int i = threadIdx.x; i < TILE * sw; i += THREADS) {
-        const int r = i / sw;
-        const int col = i % sw;
+    const int plane_v = TH * sw;
+    for (int i = tid; i < 2 * plane_v; i += THREADS) {
+        const int plane = i >= plane_v;
+        const int rem = i - plane * plane_v;
+        const int r = rem / sw;
+        const int col = rem - r * sw;
+        const uint32_t* src = s_seed + plane * plane_s + r * sw + col;
         uint32_t v = 0;
-        for (int d = 0; d <= 2 * p; ++d) v |= s_seed[(r + d) * sw + col];
+#pragma unroll
+        for (int d = 0; d <= 2 * MAXP; ++d)
+            if (P > 0 || d <= 2 * p) v |= src[d * sw];
         s_vert[i] = v;
     }
     __syncthreads();
 
-    // 3. OR over the 2p+1 columns; count the kept positions of the tile
-    const uint32_t cmask = (C - c0 >= 32) ? 0xffffffffu : ((1u << (C - c0)) - 1u);
+    // 3. OR over the 2p+1 columns into the drop words [2][TH][TW]; count the
+    //    kept positions of the tile
+    constexpr int PLANE_D = TH * TW;
     unsigned long long kept = 0;
-    for (int i = threadIdx.x; i < TILE * TILE; i += THREADS) {
-        const int r = i / TILE;
-        const int col = i % TILE;
+    for (int i = tid; i < 2 * PLANE_D; i += THREADS) {
+        const int plane = i / PLANE_D;
+        const int rem = i - plane * PLANE_D;
+        const int r = rem / TW;
+        const int col = rem - r * TW;
+        const uint32_t* src = s_vert + plane * plane_v + r * sw + col;
         uint32_t v = 0;
-        for (int d = 0; d <= 2 * p; ++d) v |= s_vert[r * sw + col + d];
-        s_drop[i] = v;
-        if (h0 + r < H && w0 + col < W) kept += __popc(cmask & ~v);
+#pragma unroll
+        for (int d = 0; d <= 2 * MAXP; ++d)
+            if (P > 0 || d <= 2 * p) v |= src[d];
+        s_seed[i] = v;
+        if (h0 + r < H && w0 + col < W) kept += __popc((plane ? cm1 : cm0) & ~v);
     }
     for (int o = 16; o > 0; o >>= 1) kept += __shfl_down_sync(0xffffffffu, kept, o);
-    if (lane == 0) s_cnt[warp] = kept;
+    if ((tid & 31) == 0) s_cnt[tid >> 5] = kept;
     __syncthreads();
-    if (threadIdx.x == 0) {
+    if (tid == 0) {
         unsigned long long total = 0;
         for (int w = 0; w < WARPS; ++w) total += s_cnt[w];
         atomicAdd(keep + n, total);
     }
-    if (!c_ok) return;
 
-    // 4. write: lane = channel, one position per warp iteration
-    float a = 1.0f, b = 0.0f;
+    // 4. write: a thread owns channels c .. c+7 of one position per step, 32
+    //    positions a step
+    const int j = tid & 7;
+    const int c = cs + 8 * j;
+    if (c >= C) return;
+    const bool vec = (C & 7) == 0;
+    const uint32_t* drop = s_seed + (j >> 2) * PLANE_D;
+    const int shift = (j & 3) * 8;
     const bool affine = MODE == 1 && ab != nullptr;
-    if (affine) {
-        a = rnd<T>(ab[(size_t)n * C + c]);
-        b = rnd<T>(ab[(size_t)N * C + (size_t)n * C + c]);
+    float a[8], b[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+        a[e] = 1.0f;
+        b[e] = 0.0f;
+        if (affine && c + e < C) {
+            a[e] = rnd<T>(ab[(size_t)n * C + c + e]);
+            b[e] = rnd<T>(ab[(size_t)N * C + (size_t)n * C + c + e]);
+        }
     }
-    for (int i = warp; i < TILE * TILE; i += WARPS) {
-        const int hh = h0 + i / TILE;
-        const int ww = w0 + i % TILE;
+#pragma unroll 4
+    for (int q = tid >> 3; q < PLANE_D; q += THREADS / 8) {
+        const int r = q / TW;
+        const int col = q - r * TW;
+        const int hh = h0 + r;
+        const int ww = w0 + col;
         if (hh >= H || ww >= W) continue;
+        const uint32_t bits = (drop[q] >> shift) & 0xFFu;
         const size_t off = (((size_t)n * H + hh) * W + ww) * C + c;
-        const bool dropped = (s_drop[i] >> lane) & 1u;
         if (MODE == 0) {
-            mask[off] = dropped ? 0 : 1;
+            if (vec) {
+                *reinterpret_cast<uint2*>(mask + off) = mask_bytes(bits);
+            } else {
+                for (int e = 0; e < 8 && c + e < C; ++e) mask[off + e] = ((bits >> e) & 1u) ? 0 : 1;
+            }
+        } else if (vec && sizeof(T) == 2) {
+            const uint4 v = *reinterpret_cast<const uint4*>(x + off);
+            *reinterpret_cast<uint4*>(out + off) = apply8(v, bits, affine, a, b, act, slope);
+        } else if (vec) {
+            const float4* src = reinterpret_cast<const float4*>(x + off);
+            float4* dst = reinterpret_cast<float4*>(out + off);
+#pragma unroll
+            for (int hv = 0; hv < 2; ++hv) {
+                const float4 v = src[hv];
+                const float in[4] = {v.x, v.y, v.z, v.w};
+                float o[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    o[e] = to_f(apply1<T>(from_f<T>(in[e]), (bits >> (4 * hv + e)) & 1u, affine,
+                                          a[4 * hv + e], b[4 * hv + e], act, slope));
+                dst[hv] = make_float4(o[0], o[1], o[2], o[3]);
+            }
         } else {
-            float y = to_f(x[off]);
-            if (affine) y = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(y, a)), b));
-            if (dropped) y = 0.0f;
-            if (act == 1) y = y > 0.0f ? y : 0.0f;
-            else if (act == 2) y = y > 0.0f ? y : rnd<T>(__fmul_rn(y, slope));
-            out[off] = from_f<T>(y);
+            for (int e = 0; e < 8 && c + e < C; ++e)
+                out[off + e] = apply1<T>(x[off + e], (bits >> e) & 1u, affine, a[e], b[e], act,
+                                         slope);
         }
     }
 }
 
-dim3 grid_for(int N, int H, int W, int C) {
-    return dim3(((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE), (C + 31) / 32, N);
+template <typename T, int P, int TW>
+__global__ void __launch_bounds__(THREADS, 4)
+dropblock_apply_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __restrict__ ab,
+                       unsigned long long* __restrict__ keep, const long long* __restrict__ key,
+                       int N, int H, int W, int C, uint32_t threshold, int p, int act,
+                       float slope) {
+    dropblock_tile<T, 1, P, TW>(x, out, nullptr, ab, keep, key, N, H, W, C, threshold, p, act,
+                                slope);
+}
+
+template <int P, int TW>
+__global__ void __launch_bounds__(THREADS, 4)
+dropblock_mask_kernel(int8_t* __restrict__ mask, unsigned long long* __restrict__ keep,
+                      const long long* __restrict__ key, int N, int H, int W, int C,
+                      uint32_t threshold, int p) {
+    dropblock_tile<float, 0, P, TW>(nullptr, nullptr, mask, nullptr, keep, key, N, H, W, C,
+                                    threshold, p, 0, 0.0f);
+}
+
+dim3 grid_for(int N, int H, int W, int C, int tw) {
+    return dim3(((H + TH - 1) / TH) * ((W + tw - 1) / tw), (C + CS - 1) / CS, N);
+}
+
+template <typename T>
+void launch_apply(const void* x, void* out, const float* ab, void* keep, const void* key, int N,
+                  int H, int W, int C, unsigned threshold, int p, int act, float slope,
+                  cudaStream_t s) {
+    if (p == 3) {
+        dropblock_apply_kernel<T, 3, 64><<<grid_for(N, H, W, C, 64), THREADS, 0, s>>>(
+            (const T*)x, (T*)out, ab, (unsigned long long*)keep, (const long long*)key, N, H, W,
+            C, threshold, p, act, slope);
+    } else {
+        dropblock_apply_kernel<T, 0, 32><<<grid_for(N, H, W, C, 32), THREADS, 0, s>>>(
+            (const T*)x, (T*)out, ab, (unsigned long long*)keep, (const long long*)key, N, H, W,
+            C, threshold, p, act, slope);
+    }
 }
 
 }  // namespace
@@ -177,33 +345,35 @@ dim3 grid_for(int N, int H, int W, int C) {
 // is drawn where the hash's top 24 bits, as an integer, are below it, which
 // is exactly u < gamma for the float32 uniform u = (bits >> 8) * 2^-24.
 // ab: (2, N, C) float32 or null. keep: (N,) 64-bit, zeroed by the caller.
-// key: two int64 words on the device. Returns cudaGetLastError().
+// key: two int64 words on the device. x and out 16-byte aligned. Odd
+// block_size <= 17. Returns cudaGetLastError().
 extern "C" int dropblock_fused_apply_launch(const void* x, void* out, const float* ab,
                                             void* keep, const void* key, int N, int H,
                                             int W, int C, unsigned threshold,
                                             int block_size, int act, float slope, int dtype,
                                             void* stream) {
-    const dim3 grid = grid_for(N, H, W, C);
     cudaStream_t s = (cudaStream_t)stream;
     const int p = block_size / 2;
-    if (dtype == 0) {
-        dropblock_kernel<float, 1><<<grid, THREADS, 0, s>>>(
-            (const float*)x, (float*)out, nullptr, ab, (unsigned long long*)keep,
-            (const long long*)key, N, H, W, C, threshold, p, act, slope);
-    } else {
-        dropblock_kernel<__nv_bfloat16, 1><<<grid, THREADS, 0, s>>>(
-            (const __nv_bfloat16*)x, (__nv_bfloat16*)out, nullptr, ab,
-            (unsigned long long*)keep, (const long long*)key, N, H, W, C, threshold, p, act,
-            slope);
-    }
+    if (dtype == 0)
+        launch_apply<float>(x, out, ab, keep, key, N, H, W, C, threshold, p, act, slope, s);
+    else
+        launch_apply<__nv_bfloat16>(x, out, ab, keep, key, N, H, W, C, threshold, p, act, slope, s);
     return (int)cudaGetLastError();
 }
 
 extern "C" int dropblock_mask_launch(void* mask, void* keep, const void* key, int N, int H,
                                      int W, int C, unsigned threshold, int block_size,
                                      void* stream) {
-    dropblock_kernel<float, 0><<<grid_for(N, H, W, C), THREADS, 0, (cudaStream_t)stream>>>(
-        nullptr, nullptr, (int8_t*)mask, nullptr, (unsigned long long*)keep,
-        (const long long*)key, N, H, W, C, threshold, block_size / 2, 0, 0.0f);
+    cudaStream_t s = (cudaStream_t)stream;
+    const int p = block_size / 2;
+    if (p == 3) {
+        dropblock_mask_kernel<3, 64><<<grid_for(N, H, W, C, 64), THREADS, 0, s>>>(
+            (int8_t*)mask, (unsigned long long*)keep, (const long long*)key, N, H, W, C,
+            threshold, p);
+    } else {
+        dropblock_mask_kernel<0, 32><<<grid_for(N, H, W, C, 32), THREADS, 0, s>>>(
+            (int8_t*)mask, (unsigned long long*)keep, (const long long*)key, N, H, W, C,
+            threshold, p);
+    }
     return (int)cudaGetLastError();
 }

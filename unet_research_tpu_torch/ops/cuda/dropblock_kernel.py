@@ -11,7 +11,10 @@ Replaces unet_research_tpu/ops/pallas/dropblock_kernel.py:
 
 Source: csrc/dropblock.cu. Both are bound by memory: K1 moves 2 bytes/element
 each way in bf16 (0.42 ms at the top site (16,592,576,64) on an H100 SXM at
-3.35 TB/s), K2 writes 1 byte/element (0.10 ms). The mask is the odd-b
+3.35 TB/s), K2 writes 1 byte/element (0.10 ms). A block owns a 64-channel
+slice of a 32x64 tile (32x32 for b != 7), hashes each halo position's 64
+channels in one thread, and applies 8 channels per thread with 16-byte
+accesses. The mask is the odd-b
 DropBlock of ops/dropblock.py::dropped_blocks, drawn from the same counter
 hash at the flat NHWC index, so kernel, plain version and the JAX
 elementwise pipeline agree bit for bit given the same two key words. (The
@@ -118,6 +121,8 @@ def dropblock_fused_apply(x, ab, key_words, gamma, block_size: int,
             raise ValueError("dropblock_fused_apply: ab must be contiguous (2, N, C) float32")
     if key_words.device != x.device:
         raise ValueError("dropblock_fused_apply: key_words must be on x's device")
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel moves 8 channels with one 16-byte access
     out = torch.empty_like(x)
     keep = torch.zeros(n, dtype=torch.int64, device=x.device)
     status = _library().dropblock_fused_apply_launch(
