@@ -1,6 +1,6 @@
-"""Times of the port's K1, K2 and K3 kernels at the main-path shapes, for the
-package in a given source tree, so that two trees can be compared on one
-card in turns.
+"""Times of the port's K1-K4 kernels at the main-path shapes, for the package
+in a given source tree, so that two trees can be compared on one card in
+turns.
 
     python3 scripts/kernel_times_torch.py [--root DIR] [--tag NAME]
 
@@ -18,7 +18,12 @@ call from torch.profiler (device_ms):
   in a tree whose `conv3x3_pair_dx(dy, K, y, ds1, ds2)` folds, that call;
   in an older one, `conv3x3_pair_dx(g, K)` on the folded g (the fold ran as
   plain ops there), named `dx_ms` in both;
-- `conv3x3_pair_valid` at (1, 592, 576, 64) -> 64.
+- `conv3x3_pair_valid` at (1, 592, 576, 64) -> 64;
+- K4 `rotate_fan` on the rotational chunk's two fans at 584x565 (K = 16,
+  the ties 45 + 90k included): one image to 16 angles (`K4_fwd`) and 16
+  images back by their -angles (`K4_inv`), the device time per call from
+  torch.profiler (all of a call's kernels: three in a tree with the
+  three-pass kernel) and the event time per call.
 Needs one CUDA card.
 """
 
@@ -34,6 +39,9 @@ import sys
 import torch
 
 H, W, CHUNK, BLOCK, P_DROP = 592, 576, 16, 7, 0.15
+# chip_smoke.py's rotational chunk
+FAN = [45.0, 135.0, 225.0, 315.0, 1.0, 17.0, 33.0, 60.0, 90.0, 101.0, 180.0, 200.5, 270.0,
+       300.0, 333.0, 359.0]
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -74,6 +82,7 @@ def main(argv=None) -> None:
     from unet_research_tpu_torch.ops.cuda import build
     from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk
     from unet_research_tpu_torch.ops.cuda import pair_conv as pc
+    from unet_research_tpu_torch.ops.cuda import shear_rotate as sr
     from unet_research_tpu_torch.ops.dropblock import dropblock_gamma_dependent
 
     build.build()
@@ -133,6 +142,13 @@ def main(argv=None) -> None:
     valid = lambda: pc.conv3x3_pair_valid(x, w)  # noqa: E731
     out["K3_valid_ms"] = time_ms(valid, 50)
     out["K3_valid_device_ms"] = device_ms(valid)
+    fan = torch.tensor(FAN)
+    im = torch.rand((1, 584, 565, 1), device=dev, generator=gen)
+    segs = torch.rand((len(FAN), 584, 565, 1), device=dev, generator=gen)
+    for name, (img, angles) in {"fwd": (im, fan), "inv": (segs, -fan)}.items():
+        warp = lambda: sr.rotate_fan(img, angles)  # noqa: E731
+        out[f"K4_{name}_device_ms"] = device_ms(warp)
+        out[f"K4_{name}_ms"] = time_ms(warp, 20)
     print(json.dumps(out), flush=True)
 
 

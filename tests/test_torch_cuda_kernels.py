@@ -14,11 +14,13 @@ against the plain version in float32 (TF32 off); K3's tiling is stressed at
 H not a multiple of its 2-row tile, W = 46, 70 and 576 (64-column tiles),
 batch 1 and 3, C_in 16/64/128, C_out 40/64/128, and each case names the
 kernel it must take ('wgmma' or 'cuda_cores'). K4 (the shear fan warp) at
-odd, non-square sizes, K = 1, 5 and 130 (two launch groups), single-image
-and batched, max abs 1e-6 (the same float32 operations in the same order:
-bit-equal expected). The fold kernel bit-equal to its plain version. K3's
-backward (the fold, dx in one K3 launch, dK by cuDNN) against autograd of
-the plain version at odd H/W, C_in 16/64/128 and C_out 64/128, with
+odd, non-square sizes, H and W one below and one above the 31x64 tile's
+multiples, 1x1 and 2x3 images, the eight ties 45 + 90k (the largest
+windows), the rotational chunk (K = 16 at 584x565) in both fans, K = 1, 5
+and 130 (two launch groups), single-image and batched: bit-equal
+(`torch.equal`; the same float32 operations in the same order). The fold
+kernel bit-equal to its plain version. K3's backward (the fold, dx in one
+K3 launch, dK by cuDNN) against autograd of the plain version at odd H/W, C_in 16/64/128 and C_out 64/128, with
 nonzero cotangents on the sums: max |d - plain| / max |plain| <= 1e-2 in
 bf16 and 1e-3 in float32; the dx call alone with the fold at the new
 tiling's edge shapes: dx within 1e-2, the folded g within one bf16
@@ -111,13 +113,30 @@ def test_conv3x3_pair_matches_plain(dev, shape, cout, dtype, path):
         assert float((s - r).abs().max() / r.abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("n,h,w,angles", [
+TIES = [45.0, 135.0, 225.0, 315.0, -45.0, -135.0, -225.0, -315.0]
+# one chunk of the rotational fan, as chip_smoke.py runs it
+FAN16 = [45.0, 135.0, 225.0, 315.0, 1.0, 17.0, 33.0, 60.0, 90.0, 101.0, 180.0, 200.5, 270.0,
+         300.0, 333.0, 359.0]
+ROTATE_CASES = [
     (1, 37, 53, [135.0]),
     (1, 61, 40, [45.0, -135.0, 7.5, 225.0, 359.0]),
     (5, 40, 61, [-45.0, 135.0, -7.5, -225.0, -359.0]),
     (1, 130, 129, [0.0, 90.0, 180.0, 270.0, 33.0]),
     (130, 20, 17, [2.75 * i - 179.0 for i in range(130)]),  # two launch groups
-])
+    # one below and one above the 31x64 tile's multiples, the ties
+    (1, 30, 63, TIES + [10.0, -80.0]),
+    (10, 32, 65, TIES + [0.5, 300.0]),
+    (1, 61, 127, TIES),
+    (8, 63, 129, TIES),
+    (1, 1, 1, TIES + [0.0, 17.0]),
+    (2, 2, 3, [135.0, -315.0]),
+    (1, 584, 565, FAN16),
+    (16, 584, 565, [-a for a in FAN16]),
+    (1, 40, 33, [3.0 * i + 0.5 for i in range(130)]),  # two launch groups, one image
+]
+
+
+@pytest.mark.parametrize("n,h,w,angles", ROTATE_CASES)
 def test_rotate_fan_matches_plain(dev, n, h, w, angles):
     from unet_research_tpu_torch.ops.cuda import shear_rotate as sr
 
@@ -129,7 +148,7 @@ def test_rotate_fan_matches_plain(dev, n, h, w, angles):
     assert sr.rotate_fan.launches == before + 1
     ref = sr.rotate_fan_plain(img, a)
     assert out.shape == (len(angles), h, w, 1)
-    assert float((out - ref).abs().max()) <= 1e-6
+    assert torch.equal(out, ref), float((out - ref).abs().max())
 
 
 @pytest.mark.parametrize("cin", [16, 64, 128])

@@ -8,6 +8,12 @@
   included: atol 1e-4 (about 1.4e-5 measured; the margin covers a shift
   that sits one ulp from an integer and floors the other way, where the
   two taps swap weights);
+- ops/cuda/shear_rotate.py::tile_windows, the windows K4 stages per output
+  tile, against the indices the plain version's three passes read (every
+  line's floored shift formed as rotate_fan_plain forms it), for every
+  member of the engine's fans (+-1..359 degrees at 584x565) and the card
+  tests' shapes and angles; and window_limits, which sizes the kernel's
+  shared memory, against those windows and the 227 KB a block may use;
 - ops/image.py::rotate_bilinear against JAX rotate_bilinear: atol 1e-5
   (float32 sin/cos of two libraries), and against the torchvision 0.10
   rotate that tests/test_image_ops.py rebuilds from grid_sample, at its
@@ -26,6 +32,7 @@ from unet_research_tpu.ops.pallas.shear_rotate import rotate_fan as jax_rotate_f
 from unet_research_tpu_torch.ops.cuda import shear_rotate as sr
 from unet_research_tpu_torch.ops.image import rotate_bilinear
 from test_image_ops import torch_rotate_golden
+from test_torch_cuda_kernels import ROTATE_CASES
 
 TIES = [45.0, 135.0, 225.0, 315.0, -45.0, -135.0, -225.0, -315.0]
 FAN = np.asarray(TIES + [0.0, 1.0, 7.0, 33.5, 90.0, 180.0, 270.0, 359.0, -90.0], np.float32)
@@ -98,6 +105,63 @@ def test_cpu_wrapper_takes_the_plain_route():
 def test_rotate_fan_rejects_what_jax_rejects(shape, n_angles):
     with pytest.raises(ValueError):
         sr.rotate_fan(torch.zeros(shape), torch.zeros(n_angles))
+
+
+def _floors(slope, offset, lines):
+    """floor(slope * line + offset) in float32 for member k's lines, k along
+    the first axis: the shift rotate_fan_plain floors for a line."""
+    view = (-1,) + (1,) * (lines.dim() - 1)
+    return torch.floor(slope.view(view) * lines.to(torch.float32)
+                       + offset.view(view)).to(torch.int64)
+
+
+def _extremes(slope, offset, lo, hi, width):
+    """Per tile, the least and greatest floored shift over its lines
+    [lo, hi] (each tile's own range, at most `width` lines)."""
+    lines = lo[..., None] + torch.arange(width)
+    inside = lines <= hi[..., None]
+    d = _floors(slope, offset, lines)
+    big = torch.iinfo(torch.int64).max
+    return (torch.where(inside, d, big).amin(-1), torch.where(inside, d, -big).amax(-1))
+
+
+WINDOW_CASES = ([(584, 565, np.arange(1, 360, dtype=np.float32)),
+                 (584, 565, -np.arange(1, 360, dtype=np.float32))]
+                + [(h, w, np.asarray(a, np.float32)) for _, h, w, a in ROTATE_CASES])
+
+
+@pytest.mark.parametrize("h,w,angles", WINDOW_CASES,
+                         ids=[f"{h}x{w}-{len(a)}" for h, w, a in WINDOW_CASES])
+def test_tile_windows_hold_what_the_plain_passes_read(h, w, angles):
+    p = sr.fan_params(torch.from_numpy(angles), h, w)
+    S = sr.canvas_size(h, w)
+    py, px = (S - h) // 2, (S - w) // 2
+    ti, tj = sr.TILE
+    win = sr.tile_windows(p, h, w)
+    k = len(angles)
+    # each tile's output rows y0..y1 and columns x0..x1 in canvas coordinates
+    i0, j0 = torch.arange(0, h, ti), torch.arange(0, w, tj)
+    y0 = (py + i0)[None, :, None].expand(k, -1, len(j0))
+    y1 = (py + torch.clamp(i0 + ti, max=h) - 1)[None, :, None].expand(k, -1, len(j0))
+    x0 = (px + j0)[None, None, :]
+    x1 = (px + torch.clamp(j0 + tj, max=w) - 1)[None, None, :]
+    # pass 3: row y reads r2 at columns x + d3(y) and x + d3(y) + 1
+    lo, hi = _extremes(p.r, p.t2, y0, y1, ti)
+    c_lo, c_hi = x0 + lo, x1 + hi + 1
+    assert bool((win.c0 <= c_lo).all() and (c_hi <= win.c1).all())
+    # pass 2: column x reads r1 at rows y + d2(x) and y + d2(x) + 1
+    lo, hi = _extremes(p.q, p.s, c_lo, c_hi, int((c_hi - c_lo).max()) + 1)
+    r_lo, r_hi = y0 + lo, y1 + hi + 1
+    assert bool((win.r0 <= r_lo).all() and (r_hi <= win.r1).all())
+    # pass 1: row y reads the canvas at columns x + d1(y) and x + d1(y) + 1
+    lo, hi = _extremes(p.r, p.t1, r_lo, r_hi, int((r_hi - r_lo).max()) + 1)
+    assert bool((win.v0 <= c_lo + lo).all() and (c_hi + hi + 1 <= win.v1).all())
+    # the windows fit the shared memory the launch asks for
+    cols, rows, canvas = sr.window_limits(p, S)
+    assert int((win.c1 - win.c0).max()) + 1 <= cols
+    assert int((win.r1 - win.r0).max()) + 1 <= rows
+    assert int((win.v1 - win.v0).max()) + 1 <= canvas
+    assert sr.smem_bytes((cols, rows, canvas)) <= 227 * 1024
 
 
 @pytest.mark.parametrize("batched", [False, True])

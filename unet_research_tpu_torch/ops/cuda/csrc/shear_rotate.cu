@@ -13,33 +13,59 @@
 //           y = py + i, x = px + j (only the crop window is computed),
 // with d = floor(shift), f = shift - d, and zero for every tap outside [0, S).
 //
-// Design. One thread per output element and one launch per pass. Pass 1
-// reads the input image straight through the placement and the member's
-// rot90 index map, so no canvas or rotated copy is stored (at a quarter turn
-// of 1 or 3 a warp's reads run down a column of the input); pass 2 resamples
-// the columns in place of the TPU kernel's transpose, threads of a warp on
-// neighbouring x, whose source row moves by |q| <= sin 45deg a column, so a
-// warp's reads spread over up to 23 rows; pass 3 writes only the crop. The
-// TPU kernel's 8-row strips and whole-strip lane rolls (Mosaic has no
-// per-lane gather) are not carried over.
+// Design. One launch per 128 members; a block computes one 31 x 64 tile of
+// the output of one member, and nothing but that output goes to device
+// memory. The passes compose, so a tile needs one window of each earlier
+// stage: pass 3 reads r2 at columns [c0, c1], pass 2 reads r1 at rows
+// [R0, R1] of those columns, pass 1 reads the canvas at columns [v0, v1] of
+// those rows. Every floored shift is monotone in its line, so each window
+// follows from the shifts at the two ends of the range before it
+// (ops/cuda/shear_rotate.py::tile_windows states the same arithmetic). The
+// wrapper passes bounds on the windows' sizes, which size shared memory; a
+// tile whose window exceeds them traps. In a block:
+//   1. pass 2's floor and fraction per window column, a table;
+//   2. the canvas values that pass 1 reads are copied into shared memory by
+//      4-byte cp.async, with zero fill for what lies outside the image. Under
+//      the member's rot90 index map they are spans of image rows: at quarter
+//      turns 0 and 2 one span per canvas row (exact, by binary search on the
+//      monotone table), at 1 and 3 one per canvas column (a range of rows
+//      narrowed by three rounds of the window arithmetic). About 1.4 values
+//      per output, against 5 for the whole rectangle. They are stored in
+//      canvas orientation at an odd row pitch, so the transposed stores and
+//      pass 1's reads down a column hit distinct banks;
+//   3. pass 1 computes only the r1 values that pass 2 reads: for window
+//      column c, the ni + 1 rows from y0 + d2(c), a warp per column and a
+//      row per lane, kept column by column at an odd pitch (a sheared window,
+//      2.7x smaller than the rectangle [R0, R1]);
+//   4. each output takes its two r2 taps, each from two r1 values; the
+//      threads of a warp write neighbouring output columns.
+// The range tests of passes 2 and 3 move into pass 1: r1 is zero outside
+// the canvas, which makes r2 zero there too. The TPU kernel's 8-row strips
+// and whole-strip lane rolls (Mosaic has no per-lane gather) are not
+// carried over.
 //
 // Rounding. Each shift is __fmul_rn then __fadd_rn and each blend is
 // t1 * (1 - f) + t2 * f with explicit round-to-nearest operations, so nvcc
 // cannot contract them into FMAs: the kernel computes the plain version's
-// float32 operations in the same order and is expected to equal it bit for
-// bit (the stated limit, 1e-6 max abs, only allows for a floorf edge case).
+// float32 operations in the same order and equals it bit for bit.
 //
-// Bound: memory. Per fan it needs one read of the input and one write of
-// the (K, H, W) output; the two (K, S, S) float32 intermediates add a write
-// and a read each, which keeps it well above that bound.
+// Bound: memory. Per fan it needs one read of the input and one write of the
+// (K, H, W) output: at K = 16 and 584 x 565, 6.7 us (one image in) and
+// 12.6 us (16 images in) at 3.35 TB/s. The kernel takes about 39 us for
+// either (H100 80GB HBM3, 700 W): its time is the work of a block's phases
+// (staging, pass 1, the outputs), not device memory, and neither twice the
+// blocks per SM nor fewer conversions per value moved it (PERF.md).
 
 #include <cuda_runtime.h>
 #include <string.h>
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 256;
 constexpr int MAX_MEMBERS = 128;  // members per launch: 3 KB of kernel parameters
+// The output tile (ops/cuda/shear_rotate.py::TILE): 31 rows give each window
+// column of pass 1 its 32 r1 values, one per lane of a warp.
+constexpr int TI = 31, TJ = 64;
 
 struct Member {
     float r, t1, q, s, t2;
@@ -61,105 +87,214 @@ __device__ __forceinline__ float shift(float slope, int line, float offset) {
     return __fadd_rn(__fmul_rn(slope, (float)line), offset);
 }
 
-// The rotated canvas C_k[y, x]: jnp.rot90 / torch.rot90 of the placed image.
-__device__ __forceinline__ float canvas(const float* img, int qm, int y, int x, int H, int W,
-                                        int S, int py, int px) {
-    if (x < 0 || x >= S) return 0.0f;
-    int a, b;  // row and column of the unrotated canvas
-    switch (qm) {
-        case 0: a = y; b = x; break;
-        case 1: a = x; b = S - 1 - y; break;
-        case 2: a = S - 1 - y; b = S - 1 - x; break;
-        default: a = S - 1 - x; b = y; break;
+__device__ __forceinline__ int floor_shift(float slope, int line, float offset) {
+    return (int)floorf(shift(slope, line, offset));
+}
+
+// 4-byte asynchronous copy to shared address dst; zeros when !valid.
+__device__ __forceinline__ void copy4(unsigned dst, const float* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+// The first c in [0, n) with pred(c), or n; pred is false, then true.
+template <typename Pred>
+__device__ __forceinline__ int first_true(int n, Pred pred) {
+    int lo = 0, hi = n;
+    while (lo < hi) {
+        const int mid = (lo + hi) / 2;
+        if (pred(mid)) hi = mid;
+        else lo = mid + 1;
     }
-    a -= py;
-    b -= px;
-    if (a < 0 || a >= H || b < 0 || b >= W) return 0.0f;
-    return img[(long long)a * W + b];
+    return lo;
 }
 
-__global__ void shear_x_first(const float* __restrict__ img, const __grid_constant__ Fan fan,
-                              int k0, float* __restrict__ r1, int nimg, int H, int W, int S,
-                              int py, int px) {
-    const int x = blockIdx.x * THREADS + threadIdx.x;
-    const int y = blockIdx.y;
-    const int k = k0 + blockIdx.z;
-    if (x >= S) return;
+__global__ void __launch_bounds__(THREADS)
+shear_fan_kernel(const float* __restrict__ img, const __grid_constant__ Fan fan, int k0,
+                 float* __restrict__ out, int nimg, int H, int W, int S, int py, int px,
+                 int max_cols, int max_rows, int max_canvas) {
+    constexpr int RP = (TI + 1) | 1;  // odd pitch of the TI + 1 r1 values of a column
+    const int pitch = max_canvas | 1;
+    extern __shared__ float smem[];
+    float* cv = smem;                                  // canvas window [max_rows][pitch]
+    float* r1 = cv + max_rows * pitch;                 // sheared r1 window [max_cols][RP]
+    float* f2 = r1 + max_cols * RP;                    // pass 2's fraction per column
+    int* d2 = reinterpret_cast<int*>(f2 + max_cols);   // and its floor
+    int* span_lo = d2 + max_cols;                      // staged span of each line
+    int* span_hi = span_lo + max(max_rows, max_canvas);
+
     const Member m = fan.m[blockIdx.z];
-    const float delta = shift(m.r, y, m.t1);
-    const float d = floorf(delta);
-    const float f = __fsub_rn(delta, d);
-    const int src = x + (int)d;
+    const int k = k0 + blockIdx.z;
+    const int i0 = blockIdx.y * TI, j0 = blockIdx.x * TJ;
+    const int ni = min(TI, H - i0), nj = min(TJ, W - j0);
+    const int y0 = py + i0, y1 = y0 + ni - 1;  // the tile in canvas coordinates
+    const int x0 = px + j0, x1 = x0 + nj - 1;
+    int ea = floor_shift(m.r, y0, m.t2), eb = floor_shift(m.r, y1, m.t2);
+    const int c0 = x0 + min(ea, eb), c1 = x1 + max(ea, eb) + 1;  // r2 columns
+    ea = floor_shift(m.q, c0, m.s);
+    eb = floor_shift(m.q, c1, m.s);
+    const int R0 = y0 + min(ea, eb), R1 = y1 + max(ea, eb) + 1;  // r1 and canvas rows
+    ea = floor_shift(m.r, R0, m.t1);
+    eb = floor_shift(m.r, R1, m.t1);
+    const int v0 = c0 + min(ea, eb), v1 = c1 + max(ea, eb) + 1;  // canvas columns
+    const int ncols = c1 - c0 + 1, nrows = R1 - R0 + 1, nv = v1 - v0 + 1;
+    if (ncols > max_cols || nrows > max_rows || nv > max_canvas) __trap();
+
+    // 1. Pass 2's floors and fractions per window column.
+    for (int c = threadIdx.x; c < ncols; c += THREADS) {
+        const float delta = shift(m.q, c0 + c, m.s);
+        const float d = floorf(delta);
+        d2[c] = (int)d;
+        f2[c] = __fsub_rn(delta, d);
+    }
+    __syncthreads();
+
+    // 2. The part of the canvas window that pass 1 reads, staged along image
+    // rows: canvas rows at quarter turns 0 and 2, canvas columns at 1 and 3.
+    // First the span of each staging line, in canvas coordinates.
+    const bool by_rows = (m.qm & 1) == 0;
+    const int nlines = by_rows ? nrows : nv;
+    for (int t = threadIdx.x; t < nlines; t += THREADS) {
+        if (by_rows) {
+            // row y takes r1 from the columns c with d2[c] in [y - y0 - ni,
+            // y - y0], a range of c since d2 is monotone
+            const int y = R0 + t, tlo = y - y0 - ni, thi = y - y0;
+            int clo, chi;
+            if (m.q >= 0.0f) {
+                clo = first_true(ncols, [&](int c) { return d2[c] >= tlo; });
+                chi = first_true(ncols, [&](int c) { return d2[c] > thi; }) - 1;
+            } else {
+                clo = first_true(ncols, [&](int c) { return d2[c] <= thi; });
+                chi = first_true(ncols, [&](int c) { return d2[c] < tlo; }) - 1;
+            }
+            const int d1 = floor_shift(m.r, y, m.t1);
+            span_lo[t] = c0 + clo + d1;
+            span_hi[t] = c0 + chi + d1 + 1;
+        } else {
+            // column x is read by the r1 values of columns x - d1(y) - {0, 1}
+            // at rows y; narrow a range of rows that holds all of them
+            const int x = v0 + t;
+            int ylo = R0, yhi = R1;
+            for (int it = 0; it < 3 && ylo <= yhi; ++it) {
+                const int ea = floor_shift(m.r, ylo, m.t1), eb = floor_shift(m.r, yhi, m.t1);
+                const int clo = max(x - 1 - max(ea, eb) - c0, 0);
+                const int chi = min(x - min(ea, eb) - c0, ncols - 1);
+                if (clo > chi) {
+                    ylo = R1 + 1;
+                    break;
+                }
+                ylo = max(ylo, y0 + min(d2[clo], d2[chi]));
+                yhi = min(yhi, y0 + max(d2[clo], d2[chi]) + ni);
+            }
+            span_lo[t] = ylo;
+            span_hi[t] = yhi;
+        }
+    }
+    __syncthreads();
+    // Element u of staging line t is image (aA + aT * t, bB + bU * u) and
+    // canvas window element t * sT + (u - u0) * sU.
+    int aA, aT, bB, bU;
+    switch (m.qm) {
+        case 0: aA = R0 - py; aT = 1; bB = -px; bU = 1; break;                 // (a, b) = (y, x)
+        case 1: aA = v0 - py; aT = 1; bB = S - 1 - px; bU = -1; break;         // (x, S-1-y)
+        case 2: aA = S - 1 - R0 - py; aT = -1; bB = S - 1 - px; bU = -1; break;  // (S-1-y, S-1-x)
+        default: aA = S - 1 - v0 - py; aT = -1; bB = -px; bU = 1; break;       // (S-1-x, y)
+    }
+    const int sT = by_rows ? pitch : 1, sU = by_rows ? 1 : pitch, u0 = by_rows ? v0 : R0;
     const float* im = img + (nimg == 1 ? 0 : (long long)k * H * W);
-    const float a = canvas(im, m.qm, y, src, H, W, S, py, px);
-    const float b = canvas(im, m.qm, y, src + 1, H, W, S, py, px);
-    r1[((long long)k * S + y) * S + x] = blend(a, b, f);
+    const unsigned cv_s = static_cast<unsigned>(__cvta_generic_to_shared(cv));
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int t = warp; t < nlines; t += THREADS / 32) {
+        const int a = aA + aT * t, hi = span_hi[t];
+        const bool row_in = (unsigned)a < (unsigned)H;
+        const float* row = im + (long long)(row_in ? a : 0) * W;
+        for (int u = span_lo[t] + lane; u <= hi; u += 32) {
+            const int b = bB + bU * u;
+            const bool in = row_in && (unsigned)b < (unsigned)W;
+            copy4(cv_s + 4u * (t * sT + (u - u0) * sU), in ? row + b : im, in);
+        }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    // 3. r1 at rows y0 + d2[c] + kk, kk in [0, ni], of window column c, a
+    // warp per column (one row per lane at TI = 31); zero outside the
+    // canvas, where pass 2's taps are zero. A canvas tap outside [0, S) lies
+    // outside the image too and reads the zero fill.
+    for (int c = warp; c < ncols; c += THREADS / 32) {
+        const int x = c0 + c, ybase = y0 + d2[c];
+        const bool x_in = (unsigned)x < (unsigned)S;
+        for (int kk = lane; kk <= ni; kk += 32) {
+            const int y = ybase + kk;
+            float v = 0.0f;
+            if (x_in && (unsigned)y < (unsigned)S) {
+                const float delta = shift(m.r, y, m.t1);
+                const float d = floorf(delta);
+                const float* src = cv + (y - R0) * pitch + (x + (int)d - v0);
+                v = blend(src[0], src[1], __fsub_rn(delta, d));
+            }
+            r1[c * RP + kk] = v;
+        }
+    }
+    __syncthreads();
+
+    // 4. out[i, j] from r2 at columns x0 + j + d3 and the next, each r2
+    // from two r1 values of its column.
+    const int j = threadIdx.x % TJ;
+    if (j >= nj) return;
+    float* dst = out + ((long long)k * H + i0) * W + j0 + j;
+    for (int i = threadIdx.x / TJ; i < ni; i += THREADS / TJ) {
+        const float delta = shift(m.r, y0 + i, m.t2);
+        const float d = floorf(delta);
+        const int c = x0 + j + (int)d - c0;
+        const float* col = r1 + c * RP + i;
+        const float a = blend(col[0], col[1], f2[c]);
+        const float b = blend(col[RP], col[RP + 1], f2[c + 1]);
+        dst[i * W] = blend(a, b, __fsub_rn(delta, d));
+    }
 }
 
-__global__ void shear_y(const float* __restrict__ r1, const __grid_constant__ Fan fan, int k0,
-                        float* __restrict__ r2, int S) {
-    const int x = blockIdx.x * THREADS + threadIdx.x;
-    const int y = blockIdx.y;
-    const int k = k0 + blockIdx.z;
-    if (x >= S) return;
-    const Member m = fan.m[blockIdx.z];
-    const float delta = shift(m.q, x, m.s);
-    const float d = floorf(delta);
-    const float f = __fsub_rn(delta, d);
-    const int src = y + (int)d;
-    const float* col = r1 + (long long)k * S * S + x;
-    const float a = (src >= 0 && src < S) ? col[(long long)src * S] : 0.0f;
-    const float b = (src + 1 >= 0 && src + 1 < S) ? col[(long long)(src + 1) * S] : 0.0f;
-    r2[((long long)k * S + y) * S + x] = blend(a, b, f);
-}
-
-__global__ void shear_x_crop(const float* __restrict__ r2, const __grid_constant__ Fan fan,
-                             int k0, float* __restrict__ out, int H, int W, int S, int py,
-                             int px) {
-    const int j = blockIdx.x * THREADS + threadIdx.x;
-    const int i = blockIdx.y;
-    const int k = k0 + blockIdx.z;
-    if (j >= W) return;
-    const Member m = fan.m[blockIdx.z];
-    const int y = py + i;
-    const float delta = shift(m.r, y, m.t2);
-    const float d = floorf(delta);
-    const float f = __fsub_rn(delta, d);
-    const int src = px + j + (int)d;
-    const float* row = r2 + ((long long)k * S + y) * S;
-    const float a = (src >= 0 && src < S) ? row[src] : 0.0f;
-    const float b = (src + 1 >= 0 && src + 1 < S) ? row[src + 1] : 0.0f;
-    out[((long long)k * H + i) * W + j] = blend(a, b, f);
+int launch(const float* img, const Member* host, float* out, int K, int nimg, int H, int W,
+           int S, int py, int px, int max_cols, int max_rows, int max_canvas, cudaStream_t st) {
+    // ops/cuda/shear_rotate.py::smem_bytes mirrors this layout
+    const int smem = (max_rows * (max_canvas | 1) + max_cols * (((TI + 1) | 1) + 2) +
+                      2 * (max_rows > max_canvas ? max_rows : max_canvas)) * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(shear_fan_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((W + TJ - 1) / TJ, (H + TI - 1) / TI);
+    for (int k0 = 0; k0 < K; k0 += MAX_MEMBERS) {
+        const int n = K - k0 < MAX_MEMBERS ? K - k0 : MAX_MEMBERS;
+        Fan fan;
+        memcpy(fan.m, host + k0, n * sizeof(Member));
+        shear_fan_kernel<<<dim3(grid.x, grid.y, n), THREADS, smem, st>>>(
+            img, fan, k0, out, nimg, H, W, S, py, px, max_cols, max_rows, max_canvas);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
 }
 
 }  // namespace
 
 // img: (nimg, H, W) float32 on the card, nimg 1 (broadcast) or K. members:
 // K Member rows in host memory (r, t1, q, s, t2 as float32, qm as int32 in
-// [0, 4)), read before the function returns. r1, r2: (K, S, S) float32
-// scratch. out: (K, H, W) float32. Three launches per MAX_MEMBERS members.
-// Returns cudaGetLastError().
-extern "C" int shear_rotate_launch(const void* img, const void* members, void* r1, void* r2,
-                                   void* out, int K, int nimg, int H, int W, int S, int py,
-                                   int px, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
+// [0, 4)), read before the function returns. out: (K, H, W) float32.
+// (ti, tj): the output tile, which must be (TI, TJ); max_*: bounds
+// on a tile's r2 columns, r1 rows and canvas columns
+// (ops/cuda/shear_rotate.py::window_limits). One launch per MAX_MEMBERS
+// members. Returns a cudaError_t.
+extern "C" int shear_rotate_launch(const void* img, const void* members, void* out, int K,
+                                   int nimg, int H, int W, int S, int py, int px, int ti,
+                                   int tj, int max_cols, int max_rows, int max_canvas,
+                                   void* stream) {
+    const float* x = (const float*)img;
     const Member* host = (const Member*)members;
-    for (int k0 = 0; k0 < K; k0 += MAX_MEMBERS) {
-        const int n = K - k0 < MAX_MEMBERS ? K - k0 : MAX_MEMBERS;
-        Fan fan;
-        memcpy(fan.m, host + k0, n * sizeof(Member));
-        const dim3 canvas_grid((S + THREADS - 1) / THREADS, S, n);
-        shear_x_first<<<canvas_grid, THREADS, 0, st>>>((const float*)img, fan, k0, (float*)r1,
-                                                       nimg, H, W, S, py, px);
-        int status = (int)cudaGetLastError();
-        if (status != 0) return status;
-        shear_y<<<canvas_grid, THREADS, 0, st>>>((const float*)r1, fan, k0, (float*)r2, S);
-        status = (int)cudaGetLastError();
-        if (status != 0) return status;
-        shear_x_crop<<<dim3((W + THREADS - 1) / THREADS, H, n), THREADS, 0, st>>>(
-            (const float*)r2, fan, k0, (float*)out, H, W, S, py, px);
-        status = (int)cudaGetLastError();
-        if (status != 0) return status;
-    }
-    return 0;
+    float* y = (float*)out;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (ti != TI || tj != TJ) return (int)cudaErrorInvalidValue;
+    return launch(x, host, y, K, nimg, H, W, S, py, px, max_cols, max_rows, max_canvas, st);
+    return (int)cudaErrorInvalidValue;
 }

@@ -11,12 +11,13 @@ shear-vs-bilinear interpolation difference of the JAX function.
 Source: csrc/shear_rotate.cu. Bound: memory. At the rotational engine's
 chunk (K = 16 members of 584x565, float32) the forward fan reads the one
 image (1.3 MB) and writes 21.1 MB, 6.7 us at 3.35 TB/s on an H100 SXM; the
-inverse fan reads and writes 21.1 MB each, 12.6 us. The kernel makes three
-launches, one per pass; passes 1 and 2 each write a (K, S, S) float32
-intermediate (51.4 MB at S = 896) that the next pass reads, about 200 MB
-moved per fan in all, so it runs at many times its bound. The TPU kernel's
-8-row strips, its per-strip roll base and pltpu.roll exist because Mosaic
-has no per-lane gather; here each thread computes its own source index.
+inverse fan reads and writes 21.1 MB each, 12.6 us. The kernel makes one
+launch per 128 members: a block computes one TILE of one member's output
+from windows of the canvas and of the two intermediates in shared memory
+(`tile_windows` states their arithmetic, `window_limits` bounds their
+sizes), so no (K, S, S) intermediate exists. The TPU kernel's 8-row strips,
+its per-strip roll base and pltpu.roll exist because Mosaic has no per-lane
+gather; here each thread computes its own source index.
 
 The canvas keeps the JAX package's 128-aligned size. The kernel does not
 need the alignment, but S sets the canvas centre (S-1)/2 and the content
@@ -50,6 +51,9 @@ _HALF_PI = np.float32(np.pi / 2)
 # rotations, but their interpolation differs by up to 0.28 on noise. The
 # folded constant reproduces the jitted choice at every tie 45 + 90k.
 _QUARTERS_PER_DEG = np.float32(_DEG2RAD / _HALF_PI)
+# Output rows x columns of the tile one block computes (csrc/shear_rotate.cu
+# TI, TJ; the launch refuses another).
+TILE = (31, 64)
 _lib = None
 
 
@@ -58,7 +62,7 @@ def _library():
     if _lib is None:
         lib = load_library("shear_rotate")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.shear_rotate_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.shear_rotate_launch.argtypes = [p, p, p] + [i] * 12 + [p]
         lib.shear_rotate_launch.restype = i
         _lib = lib
     return _lib
@@ -112,6 +116,77 @@ def fan_params(angles_deg, h: int, w: int) -> FanParams:
     t2 = e_x - r * e_y - t1
     s = e_y - q * t2
     return FanParams(qm, phi, r, t1, q, s, t2)
+
+
+class Windows(NamedTuple):
+    """One tile's windows per member, (K, tiles down, tiles across) int64,
+    each an inclusive range in canvas coordinates: pass 3 reads r2 at
+    columns [c0, c1], pass 2 reads r1 at rows [r0, r1] (of those columns),
+    pass 1 reads the canvas at columns [v0, v1] (of those rows)."""
+
+    c0: torch.Tensor
+    c1: torch.Tensor
+    r0: torch.Tensor
+    r1: torch.Tensor
+    v0: torch.Tensor
+    v1: torch.Tensor
+
+
+def tile_windows(p: FanParams, h: int, w: int) -> Windows:
+    """The windows that csrc/shear_rotate.cu computes for each tile, in the
+    same float32 operations. A floored shift floor(slope * line + offset) is
+    monotone in the line, so over a range of lines it is extreme at the two
+    ends: each window is the range before it, widened by the floors there
+    and by one for the second tap."""
+    S = canvas_size(h, w)
+    py, px = (S - h) // 2, (S - w) // 2
+    ti, tj = TILE
+    i0, j0 = torch.arange(0, h, ti), torch.arange(0, w, tj)
+    y0 = (py + i0)[None, :, None]
+    y1 = (py + torch.clamp(i0 + ti, max=h) - 1)[None, :, None]
+    x0 = (px + j0)[None, None, :]
+    x1 = (px + torch.clamp(j0 + tj, max=w) - 1)[None, None, :]
+
+    def floors(slope, offset, a, b):
+        def at(line):
+            return torch.floor(slope[:, None, None] * line.to(torch.float32)
+                               + offset[:, None, None]).to(torch.int64)
+        fa, fb = at(a), at(b)
+        return torch.minimum(fa, fb), torch.maximum(fa, fb)
+
+    lo, hi = floors(p.r, p.t2, y0, y1)
+    c0, c1 = x0 + lo, x1 + hi + 1
+    lo, hi = floors(p.q, p.s, c0, c1)
+    r0, r1 = y0 + lo, y1 + hi + 1
+    lo, hi = floors(p.r, p.t1, r0, r1)
+    return Windows(c0, c1, r0, r1, c0 + lo, c1 + hi + 1)
+
+
+def window_limits(p: FanParams, s: int) -> tuple[int, int, int]:
+    """Bounds on a tile's r2 columns, r1 rows and canvas columns for every
+    member of the fan, which size the kernel's shared memory. Over n lines a
+    floored shift moves by at most floor(|slope| * (n - 1) + eps) + 1, where
+    eps covers the float32 rounding of slope * line + offset at canvas size
+    s; a window holds the lines of the range before it, one more for the
+    second tap, and that spread."""
+    ti, tj = TILE
+    eps = s * 2.0 ** -18
+    r, q = float(p.r.abs().max()), float(p.q.abs().max())
+
+    def span(lines, slope, n):
+        return lines + 2 + math.floor(slope * (n - 1) + eps)
+
+    cols = span(tj, r, ti)
+    rows = span(ti, q, cols)
+    return cols, rows, span(cols, r, rows)
+
+
+def smem_bytes(limits) -> int:
+    """Shared memory of one block (csrc/shear_rotate.cu::launch): the canvas
+    window at an odd pitch, the sheared r1 window, pass 2's floors and
+    fractions, and the staged span of each canvas row or column."""
+    cols, rows, canvas = limits
+    return 4 * (rows * (canvas | 1) + cols * (((TILE[0] + 1) | 1) + 2) + 2 * max(rows, canvas))
 
 
 def _check(img, angles_deg):
@@ -182,12 +257,10 @@ def rotate_fan(img: torch.Tensor, angles_deg) -> torch.Tensor:
     # r, t1, q, s, t2, then qm
     members = torch.cat([torch.stack([p.r, p.t1, p.q, p.s, p.t2], dim=1).view(torch.int32),
                          p.qm.to(torch.int32)[:, None]], dim=1)
-    buf1 = torch.empty((K, S, S), dtype=torch.float32, device=dev)
-    buf2 = torch.empty((K, S, S), dtype=torch.float32, device=dev)
     out = torch.empty((K, h, w, 1), dtype=torch.float32, device=dev)
     status = _library().shear_rotate_launch(
-        img.data_ptr(), members.data_ptr(), buf1.data_ptr(), buf2.data_ptr(),
-        out.data_ptr(), K, img.shape[0], h, w, S, (S - h) // 2, (S - w) // 2,
+        img.data_ptr(), members.data_ptr(), out.data_ptr(), K, img.shape[0], h, w, S,
+        (S - h) // 2, (S - w) // 2, *TILE, *window_limits(p, S),
         torch.cuda.current_stream(dev).cuda_stream)
     check(status, "rotate_fan")
     rotate_fan.launches += 1
