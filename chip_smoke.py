@@ -16,7 +16,18 @@ autograd at the train shapes (bf16 and float32), one train step through the
 kernel route against the plain routes, Trainer.fit of the canonical model
 (bf16, remat, dependent DropBlock b=7 ramped 0 -> 0.15 over 8 steps,
 pair + kernel masks, SGD lr 1e-3 momentum 0.99 clip 0.5) for 3 epochs of 8
-synthetic 584x565 images with its launch counts, and one lr_find sweep.
+synthetic 584x565 images with its launch counts, and one lr_find sweep,
+then the CLIs: on a synthetic augmented tree of 584x565 PNGs (train 4, val
+2, test 1; written under _runs/chip_smoke_cli/ and deleted at the end) it
+runs, through their main(argv), `training -mode train` (1 epoch, bf16,
+default routes), `training -mode test` on the kept checkpoint,
+`dropblock_uncertainty` (48 members, chunk 16, 4 saved) and
+`rotational_uncertainty -warp shear` (359 angles, 2 saved), and checks
+each command's launch counts, its output tree file for file, the .pt
+shapes, finite metrics and that the checkpoint loads back; it times each
+command, the share spent outside the engines, and the evaluation layer's
+host work. An early `env` line says which of PIL, pandas, sklearn,
+matplotlib and msgpack import here; the port needs none of them.
 Every phase prints one JSON line; the last line is
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit). Needs
 one CUDA card; exits non-zero without one.
@@ -42,6 +53,8 @@ twice the plain bf16 route's distance from the plain float32 route.
 
 from __future__ import annotations
 
+import csv
+import inspect
 import json
 import os
 import re
@@ -58,6 +71,12 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from unet_research_tpu_torch.cli import common as cli_common  # noqa: E402
+from unet_research_tpu_torch.cli import dropblock_uncertainty as cli_dropblock  # noqa: E402
+from unet_research_tpu_torch.cli import rotational_uncertainty as cli_rotational  # noqa: E402
+from unet_research_tpu_torch.cli import training as cli_training  # noqa: E402
+from unet_research_tpu_torch.evaluation import artifacts as ev_artifacts  # noqa: E402
+from unet_research_tpu_torch.evaluation import metrics as ev_metrics  # noqa: E402
 from unet_research_tpu_torch.models import unet as tunet  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import build  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk  # noqa: E402
@@ -70,6 +89,10 @@ from unet_research_tpu_torch.ops.dropblock import dropblock_gamma_dependent  # n
 from unet_research_tpu_torch.ops.image import rotate_bilinear  # noqa: E402
 from unet_research_tpu_torch.uncertainty.mc_dropblock import MCDropBlockEngine  # noqa: E402
 from unet_research_tpu_torch.uncertainty.rotational import RotationalEngine  # noqa: E402
+from unet_research_tpu_torch.train.checkpoint import find_checkpoint  # noqa: E402
+from unet_research_tpu_torch.utils.convert import load_model_checkpoint  # noqa: E402
+from unet_research_tpu_torch.utils.general import to_u8  # noqa: E402
+from unet_research_tpu_torch.utils import png  # noqa: E402
 
 DEV = torch.device("cuda")
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -816,6 +839,285 @@ def run_train_slice(state) -> dict:
     return got, steps
 
 
+# --- the CLIs ---------------------------------------------------------------
+
+CLI_ROOT = os.path.join(ROOT, "_runs", "chip_smoke_cli")
+CLI_SPLITS = (("train", 4, True), ("val", 2, True), ("test", 1, False))
+CLI_FLAGS = ["--precision", "bf16"]
+CLI_CFG = {"dtype": torch.bfloat16}  # the model those flags build (canonical_config)
+MC_ITERS, MC_SAVE, ROT_ITERS, ROT_SAVE = 48, 4, 359, 2
+
+
+def optional_libraries() -> dict:
+    """Which of the JAX package's evaluation libraries import here, each in
+    a process of its own: the port needs none of them."""
+    return {name: subprocess.run([sys.executable, "-c", f"import {name}"],
+                                 capture_output=True).returncode == 0
+            for name in ("PIL", "pandas", "sklearn", "matplotlib", "msgpack")}
+
+
+def write_cli_tree(root: str) -> None:
+    """An augmented-layout tree of 584x565 PNGs: seeded variants of the
+    synthetic image, the disc FOV as every mask, and targets with both
+    classes inside the FOV."""
+    im, gt, fov = (a[0, ..., 0] for a in synthetic_image())
+    inside = gt[fov > 0]
+    if not (inside.min() == 0.0 and inside.max() == 1.0):
+        raise AssertionError("the synthetic target must hold both classes in the FOV")
+    rng = np.random.default_rng(5)
+    for split, n, with_targets in CLI_SPLITS:
+        kinds = ("images", "masks", "targets") if with_targets else ("images", "masks")
+        for kind in kinds:
+            os.makedirs(os.path.join(root, split, kind))
+        for i in range(n):
+            noisy = np.clip(im + 0.05 * rng.standard_normal(im.shape), 0.0, 1.0)
+            png.write_png(os.path.join(root, split, "images", f"{i}_image.png"), to_u8(noisy))
+            png.write_png(os.path.join(root, split, "masks", f"{i}_mask.png"), to_u8(fov))
+            if with_targets:
+                png.write_png(os.path.join(root, split, "targets", f"{i}_target.png"), to_u8(gt))
+
+
+def ensemble_forwards(members: int, saved: int, chunk: int) -> int:
+    """Batched forwards of one ensemble: the saved members, the full chunks,
+    the remainder (uncertainty/ensemble.py)."""
+    rest = members - saved
+    return (1 if saved else 0) + rest // chunk + (1 if rest % chunk else 0)
+
+
+class Stopwatch:
+    """Seconds spent inside chosen callables while active, the card awaited
+    at each exit; a generator function is timed over each of its items."""
+
+    def __init__(self, targets):
+        self.targets = targets  # [(owner, attribute name)]
+        self.seconds = 0.0
+
+    def wrap(self, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
+
+        def timed_items(*args, **kwargs):
+            items = fn(*args, **kwargs)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(items)
+                except StopIteration:
+                    return
+                finally:
+                    torch.cuda.synchronize()
+                    self.seconds += time.perf_counter() - t0
+                yield item
+
+        return timed_items if inspect.isgeneratorfunction(fn) else timed
+
+    def __enter__(self):
+        self.saved = [(owner, name, getattr(owner, name)) for owner, name in self.targets]
+        for owner, name, fn in self.saved:
+            setattr(owner, name, self.wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def cli_files(root: str) -> list:
+    return sorted(os.path.relpath(os.path.join(base, f), root)
+                  for base, _, files in os.walk(root) for f in files)
+
+
+def check_pt(path: str, shape: tuple) -> torch.Tensor:
+    t = torch.load(path)
+    if tuple(t.shape) != shape or t.dtype != torch.float32 or not bool(torch.isfinite(t).all()):
+        raise AssertionError(f"{path}: {t.dtype} {tuple(t.shape)}, expected float32 {shape}")
+    return t
+
+
+def check_metrics_csv(path: str, rows: int) -> list:
+    with open(path, newline="") as f:
+        table = list(csv.reader(f))
+    if table[0] != list(ev_metrics.COLUMNS) or len(table) != rows + 1:
+        raise AssertionError(f"{path}: {table}")
+    values = [[float(v) for v in row] for row in table[1:]]
+    if not np.isfinite(values).all():
+        raise AssertionError(f"{path}: non-finite metrics {values}")
+    return values
+
+
+def expect_launches(where: str, got: dict, want: dict) -> None:
+    """The launches of a run are `want` (0 for the kernels it omits), and
+    every K3 launch ran the wgmma kernel."""
+    if got != {**{name: 0 for name in COUNTERS}, **want}:
+        raise AssertionError(f"{where}: launches {got}, expected {want}")
+    assert_wgmma(where)
+
+
+def run_cli(name: str, main, argv: list, want: dict) -> tuple:
+    """One CLI call through its main(argv): its launch counts (asserted),
+    its seconds, the seconds inside the engines (Trainer.fit and .predict,
+    the ensembles' predict), in final_test_metrics and in load_datasets."""
+    engines = Stopwatch([(Trainer, "fit"), (Trainer, "predict"), (MCDropBlockEngine, "predict"),
+                         (RotationalEngine, "predict")])
+    harness = Stopwatch([(cli_training, "final_test_metrics"),
+                         (cli_dropblock, "final_test_metrics")])
+    loading = Stopwatch([(cli_common, "load_datasets")])
+    reset_counts()
+    t0 = time.perf_counter()
+    with engines, harness, loading:
+        out = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = counts()
+    expect_launches(f"cli {name}", got, want)
+    row = {"command": name, "seconds": seconds, "engine_seconds": engines.seconds,
+           "final_test_metrics_seconds": harness.seconds, "load_datasets_seconds": loading.seconds,
+           "outside_engines_share": 1.0 - engines.seconds / seconds, "launches": got}
+    return out, row
+
+
+def run_cli_phase() -> dict:
+    """The port's three kernel-carrying CLIs at full width and depth
+    (canonical 31M, bf16, default routes) on a synthetic 584x565 tree:
+    training (train, then test on the kept checkpoint), dropblock_uncertainty
+    and rotational_uncertainty -warp shear. Returns each command's launches."""
+    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    data, runs = os.path.join(CLI_ROOT, "data"), os.path.join(CLI_ROOT, "runs")
+    t0 = time.perf_counter()
+    write_cli_tree(data)
+    emit({"phase": "cli-data", "splits": {s: n for s, n, _ in CLI_SPLITS}, "input": [584, 565],
+          "seconds": time.perf_counter() - t0})
+    n_train, n_val, n_test = (n for _, n, _ in CLI_SPLITS)
+    cfg = tunet.canonical_config(**CLI_CFG)
+    rows, launches = [], {}
+
+    # training -mode train: 1 epoch of n_train steps, n_val validation
+    # forwards, then the final metrics' n_test + n_val forwards
+    argv = ["-mode", "train", "-data_path", data, "-save_path", os.path.join(runs, "bm"),
+            "-num_epochs", "1", "--auto_lr_find", "False", "-lr", "1e-3",
+            "--gradient_clip_val", "0.5", "-seed", "0"] + CLI_FLAGS
+    forwards = n_val + n_test + n_val
+    dest, row = run_cli("training-train", cli_training.main, argv, {
+        "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * n_train,
+        "conv3x3_pair": 6 * n_train + 3 * forwards,
+        "conv3x3_pair_dx": 3 * n_train, "conv3x3_pair_fold": 3 * n_train})
+    ckpt = find_checkpoint(os.path.join(dest, "model_info"))
+    want = [os.path.join("model_info", os.path.basename(ckpt))] + [
+        os.path.join("statistics", f) for f in ev_metrics.output_files(n_val, n_test)]
+    if cli_files(dest) != sorted(want):
+        raise AssertionError(f"training tree {cli_files(dest)}")
+    sd, meta = load_model_checkpoint(ckpt, cfg)
+    tunet.UNet(cfg, device=DEV).load_state_dict(sd)
+    row["metrics"] = check_metrics_csv(
+        os.path.join(dest, "statistics", "val_images", "metrics.csv"), n_val)
+    for i in range(n_val):
+        check_pt(os.path.join(dest, "statistics", "val_images", "tensors", f"image_{i}",
+                              "segmentation.pt"), (1, 584, 565))
+    row["checkpoint"] = {"file": os.path.basename(ckpt), "meta": meta}
+    rows.append(row)
+    launches["cli_train"] = row["launches"]
+
+    # training -mode test on the kept checkpoint
+    argv = ["-mode", "test", "-model_path", ckpt, "-data_path", data, "-save_path",
+            os.path.join(runs, "test"), "-seed", "0"] + CLI_FLAGS
+    out, row = run_cli("training-test", cli_training.main, argv,
+                       {"conv3x3_pair": 3 * (n_test + n_val)})
+    if cli_files(out) != ev_metrics.output_files(n_val, n_test):
+        raise AssertionError(f"test tree {cli_files(out)}")
+    row["metrics"] = check_metrics_csv(os.path.join(out, "val_images", "metrics.csv"), n_val)
+    rows.append(row)
+    launches["cli_test"] = row["launches"]
+
+    # dropblock_uncertainty: each val image's ensemble twice (save, then
+    # evaluate with fresh masks)
+    argv = ["-model_path", ckpt, "-data_path", data, "-save_path", os.path.join(runs, "mc"),
+            "-iter_num", str(MC_ITERS), "-chunk", str(CHUNK), "-save_num", str(MC_SAVE),
+            "-seed", "0"] + CLI_FLAGS
+    mc_forwards = ensemble_forwards(MC_ITERS, MC_SAVE, CHUNK) * n_val * 2
+    out, row = run_cli("dropblock_uncertainty", cli_dropblock.main, argv, {
+        "dropblock_fused_apply": TRAIN_SITES * mc_forwards, "conv3x3_pair": 3 * mc_forwards})
+    want = ["model_ckpt_symlink.ckpt"] + [
+        os.path.join("tensors", f"image_{i}", f"{m}.pt") for i in range(n_val)
+        for m in ("mean", "std", "tensors")] + [
+        os.path.join("statistics", f) for f in ev_metrics.output_files(n_val, 0, True)]
+    if cli_files(out) != sorted(want):
+        raise AssertionError(f"dropblock_uncertainty tree {cli_files(out)}")
+    std_max = []
+    for i in range(n_val):
+        folder = os.path.join(out, "tensors", f"image_{i}")
+        check_pt(os.path.join(folder, "mean.pt"), (1, 1, 584, 565))
+        check_pt(os.path.join(folder, "tensors.pt"), (MC_SAVE, 1, 1, 584, 565))
+        std_max.append(float(check_pt(os.path.join(folder, "std.pt"), (1, 1, 584, 565)).max()))
+    if not min(std_max) > 0:
+        raise AssertionError(f"MC std.max() per image {std_max}")
+    row.update(forwards=mc_forwards, std_max=std_max, metrics=check_metrics_csv(
+        os.path.join(out, "statistics", "val_images", "metrics.csv"), n_val))
+    rows.append(row)
+    launches["cli_mc"] = row["launches"]
+
+    # rotational_uncertainty -warp shear over all 359 angles
+    argv = ["-model_path", ckpt, "-data_path", data, "-save_path", os.path.join(runs, "rot"),
+            "-warp", "shear", "-num_iterations", str(ROT_ITERS), "-save_num", str(ROT_SAVE),
+            "-chunk", str(CHUNK)] + CLI_FLAGS
+    rot_forwards = ensemble_forwards(ROT_ITERS, ROT_SAVE, CHUNK) * n_val
+    out, row = run_cli("rotational_uncertainty-shear", cli_rotational.main, argv, {
+        "rotate_fan": 2 * rot_forwards, "conv3x3_pair": 3 * rot_forwards})
+    want = ["model_ckpt_symlink.ckpt"] + [os.path.join(f"image_{i}", f"{m}.pt")
+                                          for i in range(n_val) for m in ("mean", "std", "tensors")]
+    if cli_files(out) != sorted(want):
+        raise AssertionError(f"rotational_uncertainty tree {cli_files(out)}")
+    std_max = []
+    for i in range(n_val):
+        folder = os.path.join(out, f"image_{i}")
+        check_pt(os.path.join(folder, "mean.pt"), (1, 1, 584, 565))
+        check_pt(os.path.join(folder, "tensors.pt"), (ROT_SAVE, 1, 1, 584, 565))
+        std_max.append(float(check_pt(os.path.join(folder, "std.pt"), (1, 1, 584, 565)).max()))
+    if not min(std_max) > 0:
+        raise AssertionError(f"rotational std.max() per image {std_max}")
+    row.update(forwards=rot_forwards, std_max=std_max)
+    rows.append(row)
+    launches["cli_rotational_shear"] = row["launches"]
+    for row in rows:
+        emit({"phase": "cli", "config": "canonical 31M, --precision bf16, default routes "
+              "(-conv_impl pair, -mask_impl fused)", "input": [584, 565], **row})
+    time_evaluation(data)
+    shutil.rmtree(CLI_ROOT)
+    return launches
+
+
+def time_evaluation(data: str) -> None:
+    """Host seconds of the evaluation layer at 584x565: reading one PNG of
+    the tree (filter 0, the row path), undoing Paeth filters on every row
+    (the anti-diagonal path, which PIL-written files take), the FOV metrics
+    (AUROC over the disc FOV), each figure."""
+    im, gt, fov = synthetic_image()
+    seg = np.clip(im + 0.1, 0.0, 1.0)[0]
+    out = os.path.join(CLI_ROOT, "evaluation")
+    os.makedirs(out)
+    timings = {}
+    paeth_rows = np.full(584, 4, np.uint8)
+    filtered = np.random.default_rng(3).integers(0, 256, (584, 565), dtype=np.uint8)
+    calls = {"read_png": lambda: png.read_png(os.path.join(data, "val", "images", "0_image.png")),
+             "unfilter_paeth_rows": lambda: png._unfilter(paeth_rows, filtered, 1),
+             "get_accuracy_metrics": lambda: ev_metrics.get_accuracy_metrics(seg, gt[0], fov[0]),
+             "save_val_example": lambda: ev_artifacts.save_val_example(im[0], seg, gt[0], 1, out),
+             "save_contour_map": lambda: ev_artifacts.save_contour_map(seg, gt[0], out),
+             "save_overlap_map": lambda: ev_artifacts.save_overlap_map(seg, gt[0], out),
+             "save_test_example": lambda: ev_artifacts.save_test_example(im[0], seg, 1, out),
+             "save_loss_profile": lambda: ev_artifacts.save_loss_profile(
+                 list(np.linspace(0.7, 0.2, 50)), list(np.linspace(0.6, 0.25, 50)), out)}
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        fn()
+        timings[name] = time.perf_counter() - t0
+    emit({"phase": "evaluation-host", "input": [584, 565], "fov_pixels": int((fov > 0).sum()),
+          "seconds": timings})
+
+
 
 def main() -> None:
     # float32 references run in full float32, not TF32
@@ -823,6 +1125,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     header()
+    emit({"phase": "env", "imports": optional_libraries()})
     build_kernels()
     rows = [check_k1(), check_k2(), check_k3(), check_k4(), *check_k3_backward()]
     check_k3_valid()
@@ -831,10 +1134,11 @@ def main() -> None:
     rotational = run_rotational(state)
     run_train_routes(state)
     train, steps = run_train_slice(state)
+    cli = run_cli_phase()
     # each path's counts, read right after it ran; `launches` is the path
     # that runs the kernel by default (K2: training, K3: the MC ensemble)
     paths = {"mc": launches["main"], "mc_kernel_variant": launches["kernel_variant"],
-             "rotational_shear": rotational["shear"], "train": train}
+             "rotational_shear": rotational["shear"], "train": train, **cli}
     for row, name, main_path in zip(rows, ("dropblock_fused_apply", "dropblock_mask",
                                            "conv3x3_pair", "rotate_fan", "conv3x3_pair_dx",
                                            "conv3x3_pair_fold"),

@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither jax, flax nor the JAX package,
-and its entry points run on the card unless the CPU is asked for."""
+nor PIL, pandas, sklearn, matplotlib or msgpack (it depends on numpy, torch
+and the standard library only; the card has no sklearn or matplotlib), and
+its entry points run on the card unless the CPU is asked for."""
 
 import ast
 import pathlib
@@ -12,7 +14,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "unet_research_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "unet_research_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "unet_research_tpu", "PIL", "pandas", "sklearn",
+           "matplotlib", "msgpack")
 
 
 def _modules():
@@ -31,7 +34,14 @@ def test_imports_with_jax_blocked():
     for required in ("unet_research_tpu_torch.train.loop", "unet_research_tpu_torch.train.state",
                      "unet_research_tpu_torch.train.policies",
                      "unet_research_tpu_torch.train.checkpoint",
-                     "unet_research_tpu_torch.data.loading", "unet_research_tpu_torch.ops.losses"):
+                     "unet_research_tpu_torch.data.loading", "unet_research_tpu_torch.ops.losses",
+                     "unet_research_tpu_torch.data.dataset", "unet_research_tpu_torch.utils.png",
+                     "unet_research_tpu_torch.utils.general", "unet_research_tpu_torch.utils.convert",
+                     "unet_research_tpu_torch.evaluation", "unet_research_tpu_torch.evaluation.metrics",
+                     "unet_research_tpu_torch.evaluation.artifacts", "unet_research_tpu_torch.cli",
+                     "unet_research_tpu_torch.cli.common", "unet_research_tpu_torch.cli.training",
+                     "unet_research_tpu_torch.cli.dropblock_uncertainty",
+                     "unet_research_tpu_torch.cli.rotational_uncertainty"):
         assert required in names
     code = f"""
 import importlib, sys
@@ -92,3 +102,19 @@ def test_entry_points_default_to_the_card():
                  lambda: next(batch_iterator(ds, 1, False))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+@pytest.mark.parametrize("cli", ["training", "dropblock_uncertainty", "rotational_uncertainty"])
+def test_clis_default_to_the_card(tmp_path, cli):
+    """Without -device cpu a CLI needs the card: on a host without CUDA it
+    raises before it reads or writes anything."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CLIs run on it")
+    main = importlib.import_module(f"unet_research_tpu_torch.cli.{cli}").main
+    argv = ["-data_path", str(tmp_path / "data"), "-save_path", str(tmp_path / "out")]
+    argv += ["-mode", "test"] if cli == "training" else ["-model_path", str(tmp_path / "m.ckpt")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(argv)
+    assert not (tmp_path / "out").exists()

@@ -1,19 +1,26 @@
 """The port's streaming ensemble and MC-DropBlock engine
 (unet_research_tpu_torch/uncertainty/) against a direct torch reduction and
 the JAX `streaming_ensemble_batched` on the same member table. rtol 1e-5
-(float32 Chan merge against a one-shot reduction)."""
+(float32 Chan merge against a one-shot reduction). The two MC engines end
+to end on the same per-chunk site keys: 1e-5 in float32."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import unet_research_tpu.models.unet as junet
 from unet_research_tpu.uncertainty.ensemble import (
     streaming_ensemble_batched as jax_streaming_ensemble_batched,
 )
+from unet_research_tpu.uncertainty.mc_dropblock import MCDropBlockEngine as JaxMCDropBlockEngine
+from unet_research_tpu_torch.models import unet as tunet
 from unet_research_tpu_torch.models.unet import UNet, canonical_config
+from unet_research_tpu_torch.uncertainty import mc_dropblock
 from unet_research_tpu_torch.uncertainty.ensemble import streaming_ensemble_batched
 from unet_research_tpu_torch.uncertainty.mc_dropblock import MCDropBlockEngine
+from unet_research_tpu_torch.utils.convert import jax_params_to_state_dict
 
 
 def _table_fn(table):
@@ -105,3 +112,55 @@ def test_engine_resize(rng):
     mean, std, saved, im_t, gt_t, mask_t = _engine(resize=16).predict(im, gt, mask, 0.1)
     assert mean.shape == (1, 16, 16, 1) and saved.shape == (2, 1, 16, 16, 1)
     assert im_t.shape == gt_t.shape == mask_t.shape == (1, 16, 16, 1)
+
+
+@pytest.mark.parametrize("kind,resize", [("dependent", -1), ("independent", 16)])
+def test_engine_matches_jax_engine_on_its_chunk_keys(monkeypatch, rng, kind, resize):
+    """The JAX engine folds the chunk index into its key and each mask site
+    draws from that (uncertainty/ensemble.py:131-157). A spy records the key
+    of every site call of an unjitted run (inside jit it would see tracers);
+    the port's engine draws the same keys, chunk by chunk, through its
+    draw_site_keys seam. 7 members, 2 saved, chunk 3: chunks of 2, 3, 2."""
+    small = dict(filters=4, model_depth=2, group_norm_groups=2)
+    jcfg = junet.canonical_config(dropblock=junet.DropBlockConfig(kind=kind, block_size=3), **small)
+    tcfg = tunet.canonical_config(
+        dropblock=tunet.DropBlockConfig(kind=kind, block_size=3, mask_impl="fused"), **small)
+    im, gt, mask = _image(rng, 20, 18)
+    variables = junet.UNet(jcfg).init(jax.random.PRNGKey(2), jnp.asarray(im))
+    model = UNet(tcfg, device="cpu")
+    model.load_state_dict(jax_params_to_state_dict(variables, jcfg))
+
+    calls = []
+    for name in ("dropblock_dependent", "dropblock_independent"):
+        real = getattr(junet, name)
+
+        def spy(x_, key, *a, _real=real, **k):
+            calls.append(np.asarray(jax.random.key_data(key)).reshape(-1).astype(np.int64))
+            return _real(x_, key, *a, **k)
+
+        monkeypatch.setattr(junet, name, spy)
+    engine = JaxMCDropBlockEngine(junet.UNet(jcfg), num_iterations=7, return_num=2,
+                                  resize=resize, chunk=3)
+    with jax.disable_jit():
+        ref = engine.predict(variables["params"], im, gt, mask, jax.random.PRNGKey(9), 0.15)
+    sites = model.num_mask_sites()
+    assert len(calls) == 3 * sites
+    chunk_keys = iter(torch.from_numpy(np.stack(calls)).split(sites))
+    monkeypatch.setattr(mc_dropblock, "draw_site_keys", lambda n, generator: next(chunk_keys))
+    got = MCDropBlockEngine(model, num_iterations=7, return_num=2, resize=resize, chunk=3,
+                            device="cpu").predict(im, gt, mask, 0.15)
+    for name, a, b in zip(("mean", "std", "saved"), got[:3], ref[:3]):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, err_msg=name)
+    assert float(got[1].max()) > 0.01  # the masks differ between members
+
+
+def test_predict_takes_a_generator(rng):
+    """A call's generator decides its masks; the engine's own is left alone."""
+    im, gt, mask = _image(rng)
+    engine = _engine(seed=5)
+    a = engine.predict(im, gt, mask, 0.15, generator=torch.Generator().manual_seed(8))[0]
+    b = engine.predict(im, gt, mask, 0.15, generator=torch.Generator().manual_seed(8))[0]
+    c = engine.predict(im, gt, mask, 0.15)[0]
+    assert torch.equal(a, b)
+    assert torch.equal(c, _engine(seed=5).predict(im, gt, mask, 0.15)[0])

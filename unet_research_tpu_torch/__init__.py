@@ -14,8 +14,14 @@ Same subpackage layout as the JAX package, one twin per module:
 - `train/`        the trainer (SGD + momentum, clipping, plateau LR, early
                   stopping, best-checkpoint keeping, lr_find) and the eight
                   resize policies.
-- `data/`         the in-memory uint8 split and the batch feed.
-- `utils/`        JAX-params / reference-checkpoint conversion.
+- `data/`         the split reader (`load_split`), the in-memory uint8 split
+                  and the batch feed.
+- `evaluation/`   FOV metrics and the final_test_metrics harness with its
+                  artifacts (numpy, scipy and torch only).
+- `cli/`          the training, dropblock_uncertainty and
+                  rotational_uncertainty entry points.
+- `utils/`        JAX-params / JAX msgpack / reference-checkpoint reading,
+                  the PNG reader and writer, general helpers.
 
 Public functions keep JAX's NHWC layout. Entry points run on the card
 (`device="cuda"`) unless the caller passes `device="cpu"`.

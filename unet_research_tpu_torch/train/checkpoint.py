@@ -10,7 +10,8 @@ the evaluation scripts pick up the first entry of model_info/
 Format: `torch.save({"state_dict", "meta", "optimizer"})`, the reference PL
 .ckpt layout, so `utils/convert.py::load_reference_checkpoint` reads the
 weights of a file written here. The JAX package writes flax msgpack files
-instead; the port does not read those yet.
+instead: `utils/convert.py::load_model_checkpoint` reads their weights (not
+their optimizer state).
 """
 
 from __future__ import annotations

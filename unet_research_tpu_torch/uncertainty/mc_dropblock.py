@@ -24,7 +24,7 @@ class MCDropBlockEngine:
     """Build once per model, call `predict` per image.
 
     generator: the torch.Generator the site keys are drawn from (seeded 0
-    when None)."""
+    when None), unless a call of `predict` passes its own."""
 
     def __init__(self, model: UNet, num_iterations: int = 1000, return_num: int = 25,
                  resize: int = -1, chunk: int = 25, device=None,
@@ -39,15 +39,18 @@ class MCDropBlockEngine:
             generator = torch.Generator().manual_seed(0)
         self.generator = generator
 
-    def predict(self, im, gt, mask, drop_prob: float):
+    def predict(self, im, gt, mask, drop_prob: float, generator: torch.Generator | None = None):
         """im, gt, mask: NHWC (1, H, W, C) arrays or tensors. Returns
         (mean, std, saved, im, gt, mask): mean/std are (1, H, W, 1), saved is
-        (return_num, 1, H, W, 1), the reference's tensor layout."""
+        (return_num, 1, H, W, 1), the reference's tensor layout. generator:
+        this call's site-key generator (the engine's own when None), as the
+        JAX engine takes a key per call."""
         im, gt, mask = (engine_input(t, self.device, self.resize) for t in (im, gt, mask))
         num_sites = self.model.num_mask_sites()
+        generator = self.generator if generator is None else generator
 
         def batch(size: int):
-            keys = draw_site_keys(num_sites, self.generator).to(self.device)
+            keys = draw_site_keys(num_sites, generator).to(self.device)
             xb = im.expand((size,) + tuple(im.shape[1:]))
             return self.model(xb, drop_prob=drop_prob, site_keys=keys) * mask
 
