@@ -26,8 +26,26 @@ default routes), `training -mode test` on the kept checkpoint,
 each command's launch counts, its output tree file for file, the .pt
 shapes, finite metrics and that the checkpoint loads back; it times each
 command, the share spent outside the engines, and the evaluation layer's
-host work. An early `env` line says which of PIL, pandas, sklearn,
-matplotlib and msgpack import here; the port needs none of them.
+host work. Then dataset generation (`drive-augment`): a synthetic DRIVE tree
+at 584x565 (5 training images as uncompressed RGB TIFF with GIF masks and
+1st_manual GIFs whose LZW codes stay at 9 bits, 2 test images; under
+_runs/chip_smoke_drive/, deleted at the end) read back equal through
+load_drive, one 36-member `_augment_batch` on the card held against the
+CPU's under the tie rule of tests/test_torch_augment.py (tie counts and
+seconds printed), and `create_augmentations -num_train 8` through its
+main(argv) with its tree asserted (24 train triples, 2 val, test 01_ and
+02_) and its device-batch and PNG-write seconds apart. Then the
+multi-fidelity CLIs (`mf-cli`) on that tree: K3 and its dx at 32^2, 128^2,
+256^2 and 304x208 against the plain version and one model forward at
+300x200 (3 K3 launches), then `mf_training -policy uni -orig_train_size 3
+-num_augmentations 8` (its size plan holds -1, 256 and 128), `lf_training
+-policy lft -new_size 256` in train and test mode, and `base_model_mf` on
+the MF checkpoint at 128x128, 256x256 and 584x565, each at full width
+(bf16, default routes, 1 epoch) with its launch counts, every K3 launch on
+wgmma, its output tree, `.pt` shapes, finite metrics, the checkpoint read
+back, and its seconds and share outside the engines. An early `env` line
+says which of PIL, pandas, sklearn, matplotlib and msgpack import here;
+the port needs none of them.
 Every phase prints one JSON line; the last line is
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit). Needs
 one CUDA card; exits non-zero without one.
@@ -59,6 +77,7 @@ import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -71,8 +90,12 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from unet_research_tpu_torch.cli import base_model_mf as cli_base_model_mf  # noqa: E402
 from unet_research_tpu_torch.cli import common as cli_common  # noqa: E402
+from unet_research_tpu_torch.cli import create_augmentations as cli_augment  # noqa: E402
 from unet_research_tpu_torch.cli import dropblock_uncertainty as cli_dropblock  # noqa: E402
+from unet_research_tpu_torch.cli import lf_training as cli_lf  # noqa: E402
+from unet_research_tpu_torch.cli import mf_training as cli_mf  # noqa: E402
 from unet_research_tpu_torch.cli import rotational_uncertainty as cli_rotational  # noqa: E402
 from unet_research_tpu_torch.cli import training as cli_training  # noqa: E402
 from unet_research_tpu_torch.evaluation import artifacts as ev_artifacts  # noqa: E402
@@ -82,7 +105,8 @@ from unet_research_tpu_torch.ops.cuda import build  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import pair_conv as pc  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import shear_rotate as sr  # noqa: E402
-from unet_research_tpu_torch.data import ArrayDataset  # noqa: E402
+from unet_research_tpu_torch.data import ArrayDataset, load_drive, load_split  # noqa: E402
+from unet_research_tpu_torch.data import augment as data_augment  # noqa: E402
 from unet_research_tpu_torch.ops.losses import masked_rescaled_bce  # noqa: E402
 from unet_research_tpu_torch.train import POLICIES, Trainer, TrainerConfig, lr_find  # noqa: E402
 from unet_research_tpu_torch.ops.dropblock import dropblock_gamma_dependent  # noqa: E402
@@ -960,11 +984,12 @@ def expect_launches(where: str, got: dict, want: dict) -> None:
 def run_cli(name: str, main, argv: list, want: dict) -> tuple:
     """One CLI call through its main(argv): its launch counts (asserted),
     its seconds, the seconds inside the engines (Trainer.fit and .predict,
-    the ensembles' predict), in final_test_metrics and in load_datasets."""
+    the ensembles' predict, base_model_mf's predict_at), in
+    final_test_metrics and in load_datasets."""
     engines = Stopwatch([(Trainer, "fit"), (Trainer, "predict"), (MCDropBlockEngine, "predict"),
-                         (RotationalEngine, "predict")])
-    harness = Stopwatch([(cli_training, "final_test_metrics"),
-                         (cli_dropblock, "final_test_metrics")])
+                         (RotationalEngine, "predict"), (cli_base_model_mf, "predict_at")])
+    harness = Stopwatch([(cli_common, "final_test_metrics"), (cli_dropblock, "final_test_metrics"),
+                         (cli_base_model_mf, "final_test_metrics")])
     loading = Stopwatch([(cli_common, "load_datasets")])
     reset_counts()
     t0 = time.perf_counter()
@@ -1118,6 +1143,334 @@ def time_evaluation(data: str) -> None:
           "seconds": timings})
 
 
+# --- dataset generation and the multi-fidelity CLIs --------------------------
+
+DRIVE_ROOT = os.path.join(ROOT, "_runs", "chip_smoke_drive")
+DRIVE_SPLITS = (("training", 5, True), ("test", 2, False))
+AUG_MEMBERS, AUG_TRAIN = 36, 8          # one batch of the real generator; -num_train
+MF_SIZES = ((128, 128), (256, 256), (584, 565))   # base_model_mf's sweep
+
+
+def write_raw_tiff(path: str, rgb: np.ndarray) -> None:
+    """An uncompressed little-endian RGB TIFF in one strip."""
+    h, w, _ = rgb.shape
+    entries = [(256, 3, [w]), (257, 3, [h]), (258, 3, [8, 8, 8]), (259, 3, [1]), (262, 3, [2]),
+               (273, 4, [0]), (277, 3, [3]), (278, 3, [h]), (279, 4, [rgb.nbytes]), (284, 3, [1])]
+    bits_at = 8 + 2 + 12 * len(entries) + 4
+    data_at = bits_at + 6
+    ifd = struct.pack("<H", len(entries))
+    for tag, kind, values in entries:
+        if tag == 258:
+            field = struct.pack("<I", bits_at)
+        elif tag == 273:
+            field = struct.pack("<I", data_at)
+        else:
+            field = struct.pack("<" + ("H" if kind == 3 else "I"), values[0]).ljust(4, b"\0")
+        ifd += struct.pack("<HHI", tag, kind, len(values)) + field
+    with open(path, "wb") as f:
+        f.write(b"II*\0" + struct.pack("<I", 8) + ifd + struct.pack("<I", 0)
+                + struct.pack("<3H", 8, 8, 8) + np.ascontiguousarray(rgb).tobytes())
+
+
+def write_gray_gif(path: str, gray: np.ndarray) -> None:
+    """A GIF of uint8 (H, W) with the identity gray palette whose LZW codes
+    stay at 9 bits: literals only, a clear code before every 254 of them."""
+    h, w = gray.shape
+    n = gray.size
+    groups = -(-n // 254)
+    codes = np.full(n + groups + 1, 256, np.uint16)       # clear codes ...
+    codes[np.arange(n) + np.arange(n) // 254 + 1] = gray.reshape(-1)
+    codes[-1] = 257                                        # ... and the end code
+    bits = ((codes[:, None] >> np.arange(9, dtype=np.uint16)) & 1).astype(np.uint8)
+    data = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+    blocks = b"".join(bytes((len(data[i:i + 255]),)) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    palette = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1).tobytes()
+    with open(path, "wb") as f:
+        f.write(b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0) + palette + b","
+                + struct.pack("<HHHHB", 0, 0, w, h, 0) + b"\x08" + blocks + b"\x00;")
+
+
+def write_drive_tree(root: str) -> dict:
+    """A DRIVE-layout tree at 584x565 from the synthetic image: RGB TIFFs
+    (three gains of the image plus noise), the disc FOV as every mask GIF,
+    the target as the 1st_manual GIFs. Returns {split: (images, targets or
+    None, masks)}, the uint8 arrays written."""
+    im, gt, fov = (a[0, ..., 0] for a in synthetic_image())
+    rng = np.random.default_rng(8)
+    written = {}
+    for split, n, manual in DRIVE_SPLITS:
+        kinds = ("images", "mask", "1st_manual") if manual else ("images", "mask")
+        for kind in kinds:
+            os.makedirs(os.path.join(root, split, kind))
+        arrays = ([], [] if manual else None, [])
+        for i in range(n):
+            rgb = np.stack([im * g for g in (0.9, 0.6, 0.3)], axis=-1)
+            rgb = (np.clip(rgb + 0.05 * rng.standard_normal(rgb.shape), 0, 1) * 255).round()
+            arrays[0].append(rgb.astype(np.uint8))
+            write_raw_tiff(os.path.join(root, split, "images", f"{21 + i:02d}_{split}.tif"),
+                           arrays[0][-1])
+            arrays[2].append((fov * 255).astype(np.uint8))
+            write_gray_gif(os.path.join(root, split, "mask", f"{21 + i:02d}_{split}_mask.gif"),
+                           arrays[2][-1])
+            if manual:
+                arrays[1].append((gt * 255).astype(np.uint8))
+                write_gray_gif(os.path.join(root, split, "1st_manual", f"{21 + i:02d}_manual1.gif"),
+                               arrays[1][-1])
+        written[split] = tuple(None if a is None else np.stack(a) for a in arrays)
+    return written
+
+
+def nearest_ties(angles, rot_on, h: int, w: int) -> np.ndarray:
+    """(K, H, W) True where a cv2-style rotation's source coordinate, in
+    float64 from the float32 radians, lies within 1e-4 of a .5 tie: there
+    floor(src + 0.5) may fetch either neighbour (tests/test_torch_augment.py)."""
+    a = np.where(rot_on, angles, np.float32(0)).astype(np.float32) * np.float32(np.pi / 180)
+    a = a.astype(np.float64)[:, None, None]
+    yy = np.arange(h, dtype=np.float64)[:, None] - h / 2
+    xx = np.arange(w, dtype=np.float64)[None, :] - w / 2
+    near = [np.abs(s - np.floor(s) - 0.5) < 1e-4
+            for s in (np.cos(a) * xx - np.sin(a) * yy + w / 2, np.sin(a) * xx + np.cos(a) * yy + h / 2)]
+    return near[0] | near[1]
+
+
+def differ_off_ties(got, want, ties, what: str) -> dict:
+    ties = np.broadcast_to(ties.reshape(ties.shape + (1,) * (got.ndim - ties.ndim)), got.shape)
+    differ = got != want
+    if (differ & ~ties).any():
+        raise AssertionError(f"{what}: {int((differ & ~ties).sum())} pixels differ off the ties")
+    return {"ties": int(ties.sum()), "differ_at_ties": int(differ.sum())}
+
+
+def check_augment_batch(drive) -> None:
+    """One source image's 36 augments on the card and on the CPU (the plain
+    route, the same plan): the card's uint8 outputs equal the CPU's but at
+    proven ties (the gray image within 0.05 before rounding, and rounding
+    apart only within 0.05 of a .5 boundary; targets and masks apart only
+    at nearest ties)."""
+    im, gt, mask = drive[0]
+    plan = data_augment._plan(np.random.default_rng(7), AUG_MEMBERS)
+    plan[0][:4], plan[1][:4] = (0.0, 90.0, -90.0, 180.0), True
+    outs, seconds = {}, {}
+    for where, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+        args = data_augment._on_device(im, gt, mask, dev)
+        data_augment._augment_batch(*args, *plan)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = data_augment._augment_batch(*args, *plan)
+        torch.cuda.synchronize()
+        seconds[where] = time.perf_counter() - t0
+        outs[where] = [t.cpu().numpy() for t in out]
+        if where == "card":
+            peak = torch.cuda.max_memory_allocated() / 2**30
+    (card_im, card_gt, card_mask), (cpu_im, cpu_gt, cpu_mask) = outs["card"], outs["cpu"]
+    float_err = float(np.abs(card_im - cpu_im).max())
+    if not float_err <= 0.05:
+        raise AssertionError(f"augment image: card vs CPU {float_err} > 0.05")
+
+    def u8(a):
+        return np.clip(np.round(a), 0, 255).astype(np.uint8)
+
+    h, w = gt.shape
+    near = nearest_ties(plan[0], plan[1], h, w)
+    rounding = np.abs(cpu_im - np.floor(cpu_im) - 0.5) <= 0.05
+    emit({"phase": "drive-augment-batch", "members": AUG_MEMBERS, "input": [h, w],
+          "image_max_abs": float_err,
+          "image_u8": differ_off_ties(u8(card_im), u8(cpu_im), rounding, "augment image"),
+          "target_u8": differ_off_ties(u8(card_gt), u8(cpu_gt), near, "augment target"),
+          "mask_u8": differ_off_ties(u8(card_mask), u8(cpu_mask), near, "augment mask"),
+          "card_seconds": seconds["card"], "cpu_seconds": seconds["cpu"], "card_peak_gib": peak})
+
+
+def run_drive_augment_phase() -> str:
+    """The DRIVE reader and the generator: a synthetic 584x565 DRIVE tree,
+    one 36-member batch held card against CPU, then create_augmentations
+    -num_train 8 through its main(argv) on the card. Returns the tree."""
+    shutil.rmtree(DRIVE_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    written = write_drive_tree(os.path.join(DRIVE_ROOT, "drive"))
+    write_seconds = time.perf_counter() - t0
+    # load_drive (read_tiff, read_gif) gives back what was written
+    t0 = time.perf_counter()
+    loaded = {split: load_drive(os.path.join(DRIVE_ROOT, "drive"), split) for split in written}
+    read_seconds = time.perf_counter() - t0
+    for split, arrays in written.items():
+        got = (loaded[split].images, loaded[split].targets, loaded[split].masks)
+        for kind, a, b in zip(("images", "targets", "masks"), got, arrays):
+            if not (a is None and b is None or np.array_equal(a, b)):
+                raise AssertionError(f"load_drive {split} {kind}: not the arrays written")
+    emit({"phase": "drive-data", "splits": {s: n for s, n, _ in DRIVE_SPLITS},
+          "input": [584, 565], "write_seconds": write_seconds, "load_drive_seconds": read_seconds})
+    check_augment_batch(loaded["training"])
+
+    dest = os.path.join(DRIVE_ROOT, "aug")
+    argv = ["-data_root", os.path.join(DRIVE_ROOT, "drive"), "-dest", dest, "-seed", "1234",
+            "-num_train", str(AUG_TRAIN)]
+    device = Stopwatch([(data_augment, "_augment_batch")])
+    writes = Stopwatch([(data_augment, "_save_u8")])
+    reads = Stopwatch([(data_augment, "load_drive")])
+    reset_counts()
+    t0 = time.perf_counter()
+    with device, writes, reads:
+        out = cli_augment.main(argv)
+    seconds = time.perf_counter() - t0
+    expect_launches("create_augmentations", counts(), {})
+    n_train = 3 * AUG_TRAIN   # int(5 * 0.7) sources
+    want = [os.path.join(split, kind, f"{i}_{kind[:-1]}.png")
+            for split, n in (("train", n_train), ("val", 2))
+            for kind in ("images", "targets", "masks") for i in range(n)]
+    want += [os.path.join("test", kind, f"{i:02d}_{kind[:-1]}.png")
+             for kind in ("images", "masks") for i in (1, 2)]
+    if out != dest or cli_files(out) != sorted(want):
+        raise AssertionError(f"create_augmentations tree {cli_files(out)}")
+    train = load_split(os.path.join(out, "train"))
+    if train.images.shape != (n_train, 584, 565, 1):
+        raise AssertionError(f"train split {train.images.shape}")
+    emit({"phase": "drive-augment", "command": "create_augmentations -num_train 8",
+          "input": [584, 565], "triples": {"train": n_train, "val": 2, "test": 2},
+          "seconds": seconds, "device_batch_seconds": device.seconds,
+          "png_write_seconds": writes.seconds, "load_drive_seconds": reads.seconds,
+          "png_files": len(want)})
+    return out
+
+
+def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|; NaN when `want` is zero or not finite."""
+    scale = float(want.float().abs().max())
+    if not (0.0 < scale < float("inf")):
+        return float("nan")
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+def check_k3_sizes() -> None:
+    """K3 and its dx at the multi-fidelity sizes (32^2, 128^2, 256^2 and
+    300x200 autopadded to 304x208), 64 and 128 input channels, batch 1,
+    against the plain version (K3's tolerances), each on wgmma; then one
+    DropBlock-free forward of the canonical model at 300x200: 3 K3
+    launches, every other 3x3 conv on cuDNN."""
+    rows = []
+    for h, w in ((32, 32), (128, 128), (256, 256), (304, 208)):
+        for cin in (64, 128):
+            wts = conv_weights(cin, 64)
+            g = torch.Generator(device=DEV).manual_seed(h + cin)
+            x = torch.randn((1, h, w, cin), device=DEV, generator=g).to(torch.bfloat16)
+            dy = torch.randn((1, h, w, 64), device=DEV, generator=g).to(torch.bfloat16)
+            y, s1, s2 = pc.conv3x3_pair(x, wts, stats=True)
+            path = pc.conv3x3_pair.path
+            dx, _ = pc.conv3x3_pair_dx(dy, wts)
+            if path != "wgmma" or pc.conv3x3_pair_dx.path != "wgmma":
+                raise AssertionError(f"K3 at {h}x{w}x{cin}: {path}, dx {pc.conv3x3_pair_dx.path}")
+            ry = pc.conv3x3_pair_plain(x, wts)
+            _, r1, r2 = pc.conv3x3_pair_plain(x.float(), wts.float(), stats=True)
+            rdx, _ = pc.conv3x3_pair_dx_plain(dy, wts)
+            rel = {"y": max_rel(y, ry), "dx": max_rel(dx, rdx),
+                   "sums": max(max_rel(s1, r1), max_rel(s2, r2))}
+            # written so that a NaN fails
+            if not (rel["y"] <= 1e-2 and rel["dx"] <= 1e-2 and rel["sums"] <= 1e-3):
+                raise AssertionError(f"K3 at {h}x{w}x{cin}: {rel}")
+            rows.append({"shape": [1, h, w, cin], **rel})
+    model = model_for(base_state(), kind=None)
+    reset_counts()
+    with torch.inference_mode():
+        seg = model(torch.rand((1, 300, 200, 1), device=DEV))
+    torch.cuda.synchronize()
+    expect_launches("forward at 300x200", counts(), {"conv3x3_pair": 3})
+    if seg.shape != (1, 300, 200, 1) or not bool(torch.isfinite(seg).all()):
+        raise AssertionError(f"forward at 300x200: {tuple(seg.shape)}")
+    emit({"phase": "K3-sizes", "rows": rows, "forward_300x200_launches": counts()})
+
+
+def check_cli_tree(where: str, out: str, n_val: int, n_test: int, side) -> list:
+    """The final-metrics tree under `out`, the segmentation shapes (1, *side)
+    and a finite metrics.csv; returns its values."""
+    if cli_files(out) != ev_metrics.output_files(n_val, n_test):
+        raise AssertionError(f"{where} tree {cli_files(out)}")
+    for i in range(n_val):
+        check_pt(os.path.join(out, "val_images", "tensors", f"image_{i}", "segmentation.pt"),
+                 (1, *side))
+    return check_metrics_csv(os.path.join(out, "val_images", "metrics.csv"), n_val)
+
+
+def run_trained_cli(name: str, main, argv: list, want: dict, n_val: int, n_test: int, side,
+                    cfg) -> tuple:
+    """A -mode train command: its launches, the kept checkpoint (loaded back
+    strictly) and the statistics tree. Returns (checkpoint, row)."""
+    dest, row = run_cli(name, main, argv, want)
+    ckpt = find_checkpoint(os.path.join(dest, "model_info"))
+    if cli_files(os.path.join(dest, "model_info")) != [os.path.basename(ckpt)]:
+        raise AssertionError(f"{name}: model_info {cli_files(os.path.join(dest, 'model_info'))}")
+    row["metrics"] = check_cli_tree(name, os.path.join(dest, "statistics"), n_val, n_test, side)
+    sd, meta = load_model_checkpoint(ckpt, cfg)
+    tunet.UNet(cfg, device=DEV).load_state_dict(sd)
+    row["checkpoint"] = {"file": os.path.basename(ckpt), "meta": meta}
+    return ckpt, row
+
+
+def run_mf_cli_phase(data: str) -> dict:
+    """mf_training (uni), lf_training (lft at 256, train and test) and
+    base_model_mf (128^2, 256^2, 584x565) at full width and depth
+    (canonical 31M, bf16, default routes, independent DropBlock in
+    training) on the generated tree. Returns each command's launches."""
+    check_k3_sizes()
+    runs = os.path.join(DRIVE_ROOT, "runs")
+    n_train, n_val, n_test = 3 * AUG_TRAIN, 2, 2
+    cfg = tunet.canonical_config(**CLI_CFG)
+    base = ["-data_path", data, "-num_epochs", "1", "--auto_lr_find", "False", "-lr", "1e-3",
+            "--gradient_clip_val", "0.5", "-seed", "0"] + CLI_FLAGS
+    # one epoch of n_train steps, n_val validation forwards, then the final
+    # metrics' n_test + n_val forwards: K3 3 per forward, twice per step (remat)
+    train_want = {"dropblock_mask": (TRAIN_SITES + REMAT_SITES) * n_train,
+                  "conv3x3_pair": 6 * n_train + 3 * (n_val + n_test + n_val),
+                  "conv3x3_pair_dx": 3 * n_train, "conv3x3_pair_fold": 3 * n_train}
+    rows, launches = [], {}
+
+    argv = ["-mode", "train", "-policy", "uni", "-orig_train_size", "3",
+            "-num_augmentations", str(AUG_TRAIN), "-save_path", os.path.join(runs, "mf")] + base
+    plan = cli_mf.size_plan_for(cli_mf.build_parser().parse_args(argv), n_train)
+    sizes = {str(s): int((plan == s).sum()) for s in (-1, 256, 128)}
+    if len(plan) != n_train or 0 in sizes.values():
+        raise AssertionError(f"uni size plan {plan}")
+    mf_ckpt, row = run_trained_cli("mf_training-uni-train", cli_mf.main, argv, train_want,
+                                   n_val, n_test, (584, 565), cfg)
+    row["size_plan_counts"] = sizes
+    rows.append(row)
+    launches["cli_mf_uni_train"] = row["launches"]
+
+    argv = ["-mode", "train", "-policy", "lft", "-new_size", "256",
+            "-save_path", os.path.join(runs, "lf")] + base
+    lf_ckpt, row = run_trained_cli("lf_training-lft-train", cli_lf.main, argv, train_want,
+                                   n_val, n_test, (256, 256), cfg)
+    rows.append(row)
+    launches["cli_lf_lft_train"] = row["launches"]
+
+    argv = ["-mode", "test", "-policy", "lft", "-new_size", "256", "-model_path", lf_ckpt,
+            "-data_path", data, "-save_path", os.path.join(runs, "lf_test"), "-seed", "0"] + CLI_FLAGS
+    out, row = run_cli("lf_training-lft-test", cli_lf.main, argv,
+                       {"conv3x3_pair": 3 * (n_test + n_val)})
+    row["metrics"] = check_cli_tree("lf test", out, n_val, n_test, (256, 256))
+    rows.append(row)
+    launches["cli_lf_lft_test"] = row["launches"]
+
+    argv = ["-model_path", mf_ckpt, "-data_path", data, "-save_path", os.path.join(runs, "bm"),
+            "-height", ",".join(str(h) for h, _ in MF_SIZES),
+            "-width", ",".join(str(w) for _, w in MF_SIZES)] + CLI_FLAGS
+    out, row = run_cli("base_model_mf", cli_base_model_mf.main, argv,
+                       {"conv3x3_pair": 3 * (n_test + n_val) * len(MF_SIZES)})
+    if sorted(os.listdir(out)) != sorted(f"{h}x{w}" for h, w in MF_SIZES):
+        raise AssertionError(f"base_model_mf sizes {os.listdir(out)}")
+    row["metrics"] = {f"{h}x{w}": check_cli_tree(f"base_model_mf {h}x{w}",
+                                                  os.path.join(out, f"{h}x{w}"), n_val, n_test,
+                                                  (h, w)) for h, w in MF_SIZES}
+    rows.append(row)
+    launches["cli_base_model_mf"] = row["launches"]
+    for row in rows:
+        emit({"phase": "mf-cli", "config": "canonical 31M, --precision bf16, default routes "
+              "(-conv_impl pair, -mask_impl fused), independent DropBlock b=7 in training",
+              "input": [584, 565], "splits": {"train": n_train, "val": n_val, "test": n_test},
+              **row})
+    return launches
+
 
 def main() -> None:
     # float32 references run in full float32, not TF32
@@ -1135,6 +1488,8 @@ def main() -> None:
     run_train_routes(state)
     train, steps = run_train_slice(state)
     cli = run_cli_phase()
+    cli.update(run_mf_cli_phase(run_drive_augment_phase()))
+    shutil.rmtree(DRIVE_ROOT)
     # each path's counts, read right after it ran; `launches` is the path
     # that runs the kernel by default (K2: training, K3: the MC ensemble)
     paths = {"mc": launches["main"], "mc_kernel_variant": launches["kernel_variant"],

@@ -41,7 +41,13 @@ def test_imports_with_jax_blocked():
                      "unet_research_tpu_torch.evaluation.artifacts", "unet_research_tpu_torch.cli",
                      "unet_research_tpu_torch.cli.common", "unet_research_tpu_torch.cli.training",
                      "unet_research_tpu_torch.cli.dropblock_uncertainty",
-                     "unet_research_tpu_torch.cli.rotational_uncertainty"):
+                     "unet_research_tpu_torch.cli.rotational_uncertainty",
+                     "unet_research_tpu_torch.cli.create_augmentations",
+                     "unet_research_tpu_torch.cli.mf_training",
+                     "unet_research_tpu_torch.cli.lf_training",
+                     "unet_research_tpu_torch.cli.base_model_mf",
+                     "unet_research_tpu_torch.data.drive", "unet_research_tpu_torch.data.augment",
+                     "unet_research_tpu_torch.utils.gif", "unet_research_tpu_torch.utils.tiff"):
         assert required in names
     code = f"""
 import importlib, sys
@@ -81,8 +87,8 @@ def test_no_jax_imports_in_source(path):
         assert not any(_blocked(n) for n in names), (path, names)
 
 
-def test_entry_points_default_to_the_card():
-    from unet_research_tpu_torch.data import ArrayDataset, batch_iterator
+def test_entry_points_default_to_the_card(tmp_path):
+    from unet_research_tpu_torch.data import ArrayDataset, batch_iterator, create_augmentations
     from unet_research_tpu_torch.device import resolve_device
     from unet_research_tpu_torch.models.unet import UNet, canonical_config
     from unet_research_tpu_torch.train import POLICIES, Trainer, TrainerConfig
@@ -102,9 +108,16 @@ def test_entry_points_default_to_the_card():
                  lambda: next(batch_iterator(ds, 1, False))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+    # the generator raises before it reads the DRIVE tree or creates dest
+    # (the tree does not exist: a read would raise FileNotFoundError)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_augmentations(str(tmp_path / "drive"), str(tmp_path / "aug"))
+    assert not (tmp_path / "aug").exists()
 
 
-@pytest.mark.parametrize("cli", ["training", "dropblock_uncertainty", "rotational_uncertainty"])
+@pytest.mark.parametrize("cli", ["training", "dropblock_uncertainty", "rotational_uncertainty",
+                                 "create_augmentations", "mf_training", "lf_training",
+                                 "base_model_mf"])
 def test_clis_default_to_the_card(tmp_path, cli):
     """Without -device cpu a CLI needs the card: on a host without CUDA it
     raises before it reads or writes anything."""
@@ -113,8 +126,12 @@ def test_clis_default_to_the_card(tmp_path, cli):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CLIs run on it")
     main = importlib.import_module(f"unet_research_tpu_torch.cli.{cli}").main
-    argv = ["-data_path", str(tmp_path / "data"), "-save_path", str(tmp_path / "out")]
-    argv += ["-mode", "test"] if cli == "training" else ["-model_path", str(tmp_path / "m.ckpt")]
+    if cli == "create_augmentations":
+        argv = ["-data_root", str(tmp_path / "data"), "-dest", str(tmp_path / "out")]
+    else:
+        argv = ["-data_path", str(tmp_path / "data"), "-save_path", str(tmp_path / "out")]
+        argv += (["-mode", "test"] if cli.endswith("training")
+                 else ["-model_path", str(tmp_path / "m.ckpt")])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(argv)
     assert not (tmp_path / "out").exists()

@@ -21,6 +21,7 @@ end to end.
 from __future__ import annotations
 
 import argparse
+import os
 from os.path import join
 from typing import Optional
 
@@ -28,7 +29,13 @@ import torch
 
 from unet_research_tpu_torch.data.dataset import load_split
 from unet_research_tpu_torch.device import resolve_device
+from unet_research_tpu_torch.evaluation.metrics import final_test_metrics
 from unet_research_tpu_torch.models.unet import DropBlockConfig, UNet, canonical_config
+from unet_research_tpu_torch.train import Trainer, TrainerConfig
+from unet_research_tpu_torch.train.checkpoint import load_checkpoint
+from unet_research_tpu_torch.train.policies import ResizePolicy
+from unet_research_tpu_torch.utils.convert import load_model_checkpoint
+from unet_research_tpu_torch.utils.general import create_dir, seed_everything
 
 # -conv_impl values -> the port's UNetConfig.conv_impl
 _CONV_IMPLS = {"pair": "pair", "xla": "torch"}
@@ -151,3 +158,72 @@ def load_datasets(data_path: str, with_train: bool = True):
     val = load_split(join(data_path, "val"))
     test = load_split(join(data_path, "test"), with_targets=False)
     return train, val, test
+
+
+def make_trainer(args, policy: ResizePolicy, dropblock_kind: str, remat: bool = True) -> Trainer:
+    """The trainer of the training CLIs: the model of build_unet with the
+    DropBlock scheduler, under `policy`, with the honoured Trainer flags."""
+    remat = remat and str(args.remat).lower() != "false"
+    model = build_unet(args, dropblock_kind=dropblock_kind, use_scheduler=True, remat=remat)
+    tcfg = TrainerConfig(
+        max_epochs=args.max_epochs or args.num_epochs,
+        lr=args.lr,
+        momentum=args.momentum,
+        clip_norm=args.gradient_clip_val,
+        auto_lr_find=str(args.auto_lr_find).lower() != "false",
+        check_val_every_n_epoch=args.check_val_every_n_epoch,
+        train_batch=args.train_batch,
+        val_batch=args.val_batch,
+        seed=args.seed,
+        profiler=args.profiler,
+        detect_anomaly=args.detect_anomaly,
+    )
+    return Trainer(model, policy, tcfg, device=args.device)
+
+
+def make_output_dir(args) -> str:
+    """Seed the run (unless -seed is -1) and create -save_path,
+    suffix-retried, as every CLI of the reference starts."""
+    if args.seed != -1:
+        seed_everything(args.seed)
+    dest = create_dir(args.save_path)
+    if dest is None:
+        raise SystemExit(1)
+    return dest
+
+
+def fit_and_score(trainer: Trainer, dest: str, train_ds, val_ds, test_ds, size_plan=None,
+                  resume_from: Optional[str] = None) -> str:
+    """-mode train after the data is read: fit into dest/model_info, reload
+    the best checkpoint and write the final metrics into dest/statistics
+    (training.py:227-231)."""
+    model_info = join(dest, "model_info")
+    os.makedirs(model_info)
+    _, history, keeper = trainer.fit(train_ds, val_ds, model_info, size_plan=size_plan,
+                                     resume_from=resume_from)
+    params, _, _ = load_checkpoint(keeper.best_path)
+    statistics = join(dest, "statistics")
+    os.makedirs(statistics)
+    final_test_metrics(lambda ds: trainer.predict(params, ds), val_ds, test_ds, statistics, history)
+    return dest
+
+
+def score_checkpoint(args, trainer_for) -> str:
+    """-mode test: the final metrics of -model_path (a JAX msgpack
+    checkpoint, a reference PL .ckpt or the port's own) on the val and test
+    splits, under the trainer that trainer_for(args, remat=False) builds."""
+    stats = make_output_dir(args)
+    _, val_ds, test_ds = load_datasets(args.data_path, with_train=False)
+    trainer = trainer_for(args, remat=False)
+    params, _ = load_model_checkpoint(args.model_path, trainer.model.cfg)
+    final_test_metrics(lambda ds: trainer.predict(params, ds), val_ds, test_ds, stats)
+    return stats
+
+
+def run_mode(args, training, testing) -> str:
+    """-mode train or test of a training CLI."""
+    if args.mode == "train":
+        return training(args)
+    if args.mode == "test":
+        return testing(args)
+    raise SystemExit(f"unknown mode {args.mode}")

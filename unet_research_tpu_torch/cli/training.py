@@ -18,74 +18,31 @@ from __future__ import annotations
 
 import argparse
 import math
-import os
-from os.path import join
 
 from unet_research_tpu_torch.cli import common
-from unet_research_tpu_torch.evaluation.metrics import final_test_metrics
-from unet_research_tpu_torch.train import POLICIES, Trainer, TrainerConfig
-from unet_research_tpu_torch.train.checkpoint import load_checkpoint
-from unet_research_tpu_torch.utils.convert import checkpoint_format, load_model_checkpoint
-from unet_research_tpu_torch.utils.general import create_dir, seed_everything
+from unet_research_tpu_torch.train import POLICIES, Trainer
+from unet_research_tpu_torch.utils.convert import checkpoint_format
 
 
 def make_trainer(args, policy_name: str = "none", remat: bool = True) -> Trainer:
-    remat = remat and str(args.remat).lower() != "false"
-    model = common.build_unet(args, dropblock_kind="dependent", use_scheduler=True, remat=remat)
-    tcfg = TrainerConfig(
-        max_epochs=args.max_epochs or args.num_epochs,
-        lr=args.lr,
-        momentum=args.momentum,
-        clip_norm=args.gradient_clip_val,
-        auto_lr_find=str(args.auto_lr_find).lower() != "false",
-        check_val_every_n_epoch=args.check_val_every_n_epoch,
-        train_batch=args.train_batch,
-        val_batch=args.val_batch,
-        seed=args.seed,
-        profiler=args.profiler,
-        detect_anomaly=args.detect_anomaly,
-    )
-    return Trainer(model, POLICIES[policy_name], tcfg, device=args.device)
+    return common.make_trainer(args, POLICIES[policy_name], "dependent", remat)
 
 
 def training(args) -> str:
     if args.resume_from is not None and checkpoint_format(args.resume_from) != "torch":
         raise ValueError(f"-resume_from {args.resume_from}: a JAX checkpoint's optimizer "
                          "state is not carried over; resume from a checkpoint of this port")
-    if args.seed != -1:
-        seed_everything(args.seed)
-    dest = create_dir(args.save_path)
-    if dest is None:
-        raise SystemExit(1)
-
+    dest = common.make_output_dir(args)
     train_ds, val_ds, test_ds = common.load_datasets(args.data_path)
     if args.train_ratio != 1.0:
         train_ds = train_ds.subset(math.ceil(args.train_ratio * len(train_ds)))
-
     trainer = make_trainer(args, "red" if args.train_ratio != 1.0 else "none")
-    model_info = join(dest, "model_info")
-    os.makedirs(model_info)
-    _, history, keeper = trainer.fit(train_ds, val_ds, model_info, resume_from=args.resume_from)
-
-    # reload the best checkpoint for the final metrics (training.py:227-231)
-    params, _, _ = load_checkpoint(keeper.best_path)
-    statistics = join(dest, "statistics")
-    os.makedirs(statistics)
-    final_test_metrics(lambda ds: trainer.predict(params, ds), val_ds, test_ds, statistics, history)
-    return dest
+    return common.fit_and_score(trainer, dest, train_ds, val_ds, test_ds,
+                                resume_from=args.resume_from)
 
 
 def testing(args) -> str:
-    if args.seed != -1:
-        seed_everything(args.seed)
-    stats = create_dir(args.save_path)
-    if stats is None:
-        raise SystemExit(1)
-    _, val_ds, test_ds = common.load_datasets(args.data_path, with_train=False)
-    trainer = make_trainer(args, remat=False)
-    params, _ = load_model_checkpoint(args.model_path, trainer.model.cfg)
-    final_test_metrics(lambda ds: trainer.predict(params, ds), val_ds, test_ds, stats)
-    return stats
+    return common.score_checkpoint(args, make_trainer)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -103,12 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = common.parse_with_passthrough(build_parser(), argv)
-    if args.mode == "train":
-        return training(args)
-    if args.mode == "test":
-        return testing(args)
-    raise SystemExit(f"unknown mode {args.mode}")
+    return common.run_mode(common.parse_with_passthrough(build_parser(), argv), training, testing)
 
 
 if __name__ == "__main__":

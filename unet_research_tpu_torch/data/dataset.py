@@ -5,7 +5,8 @@ The reference's UnetDataset (unet_code/utils/utils_dataset.py:8-78) pairs
 image/target/mask files by sorted index and normalises with ToTensor. Here
 the split is one uint8 NHWC array per kind, read once from its PNG files
 (`load_split`, through utils/png.py: PIL is not needed) and normalised to
-float32/255 when a batch is taken. The DRIVE reader is not ported yet.
+float32/255 when a batch is taken. The raw DRIVE tree is read by
+data/drive.py.
 """
 
 from __future__ import annotations

@@ -3,12 +3,14 @@
 The reference leans on DataLoader worker processes
 (base_model_tests/training.py:166-169). The split already sits in host
 memory as uint8, so a batch is a numpy slice normalised to float32, copied
-from pinned memory with `non_blocking=True`, one batch ahead of the one the
-caller is using: the copy overlaps the previous step's device work.
+from pinned memory with `non_blocking=True`, `prefetch` batches ahead of
+the one the caller is using: the copies overlap the previous steps' device
+work. `shard_batch` (data-parallel feeding) waits for ROADMAP item 8.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Iterator, Optional
 
 import numpy as np
@@ -31,14 +33,16 @@ def to_device(arrays, device: torch.device) -> tuple:
 
 
 def batch_iterator(ds: ArrayDataset, batch_size: int, shuffle: bool,
-                   rng: Optional[np.random.Generator] = None,
-                   device=None) -> Iterator[tuple]:
+                   rng: Optional[np.random.Generator] = None, drop_last: bool = False,
+                   device=None, prefetch: int = 1) -> Iterator[tuple]:
     """Yield (image, target, mask) float32 NHWC batches on `device` (the
     card unless the caller asks for the CPU).
 
     shuffle=True reshuffles per call (per epoch) with `rng`, as the JAX
     package does, so one seed gives one order in both; shuffle=False keeps
-    the order so batch_idx can index the MF size plans."""
+    the order so batch_idx can index the MF size plans. drop_last drops a
+    final partial batch. prefetch: how many batches beyond the one yielded
+    are already copied to the device."""
     device = resolve_device(device)
     n = len(ds)
     order = np.arange(n)
@@ -46,10 +50,18 @@ def batch_iterator(ds: ArrayDataset, batch_size: int, shuffle: bool,
         if rng is None:
             rng = np.random.default_rng()
         rng.shuffle(order)
-    starts = range(0, n, batch_size)
-    ahead = to_device(ds[order[:batch_size]], device) if n else None
-    for s in starts:
-        out = ahead
-        if s + batch_size < n:
-            ahead = to_device(ds[order[s + batch_size:s + 2 * batch_size]], device)
+    stop = n - n % batch_size if drop_last else n
+    starts = iter(range(0, stop, batch_size))
+    pending: deque = deque()
+
+    def make_next() -> None:
+        s = next(starts, None)
+        if s is not None:
+            pending.append(to_device(ds[order[s:s + batch_size]], device))
+
+    for _ in range(prefetch + 1):
+        make_next()
+    while pending:
+        out = pending.popleft()
+        make_next()
         yield out

@@ -1,8 +1,12 @@
 """Image geometry ops, NHWC layout (twin of unet_research_tpu/ops/image.py).
 
-What the two uncertainty engines need: the model's autopad/crop pair, the
-skip center-crop, the `-resize` square-pad + bilinear resize, and the
-rotational engine's default warp `rotate_bilinear`.
+What the engines and the generator need: the model's autopad/crop pair,
+the skip center-crop, the `-resize` square-pad + bilinear resize, the
+rotational engine's default warp `rotate_bilinear`, and the augmentation
+generator's gray conversion, flips and cv2-style rotations
+(`rotate_cv2_like`). The rotations share one source-map builder
+(`_rotation_maps`) and the two gathers; each rotates a batch by K angles
+in one call where the JAX functions take one angle under vmap.
 """
 
 from __future__ import annotations
@@ -64,11 +68,24 @@ def crop_to(img: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     return img[..., :h, :w, :]
 
 
-def _bilinear_gather_2d(img: torch.Tensor, src_y: torch.Tensor,
-                        src_x: torch.Tensor) -> torch.Tensor:
-    """Sample NHWC `img` (N = 1 or K) bilinearly at per-member fractional
-    maps src_y, src_x of shape (K, H', W'); out-of-canvas taps contribute 0
-    (JAX ops/image.py::_bilinear_gather_2d, border='zeros')."""
+def _members(img: torch.Tensor, k: int, source) -> torch.Tensor:
+    """(K, 1) index of the image of the NHWC batch `img` that each of K maps
+    samples: `source` when given, else member k (a batch of K) or image 0."""
+    if source is not None:
+        return torch.as_tensor(source, device=img.device).to(torch.int64)[:, None]
+    if img.shape[0] == k:
+        return torch.arange(k, device=img.device)[:, None]
+    return torch.zeros((k, 1), dtype=torch.int64, device=img.device)
+
+
+def _bilinear_gather_2d(img: torch.Tensor, src_y: torch.Tensor, src_x: torch.Tensor,
+                        border: str = "zeros", source=None) -> torch.Tensor:
+    """Sample NHWC `img` bilinearly at per-member fractional maps src_y,
+    src_x of shape (K, H', W') -> (K, H', W', C); map k samples image
+    source[k] (see `_members`). border='zeros': out-of-canvas taps
+    contribute 0 (grid_sample's padding_mode='zeros'); 'replicate': taps
+    clamp to the edge (cv2 BORDER_REPLICATE). JAX
+    ops/image.py::_bilinear_gather_2d, per member."""
     n, h, w, c = img.shape
     k, oh, ow = src_y.shape
     y0 = torch.floor(src_y)
@@ -78,18 +95,54 @@ def _bilinear_gather_2d(img: torch.Tensor, src_y: torch.Tensor,
     y0 = y0.to(torch.int64)
     x0 = x0.to(torch.int64)
     flat = img.reshape(n, h * w, c)
-    member = (torch.arange(k, device=img.device) if n == k
-              else torch.zeros(k, dtype=torch.int64, device=img.device))[:, None]
+    member = _members(img, k, source)
 
     def tap(yi, xi):
         idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
         vals = flat[member, idx.reshape(k, -1)].reshape(k, oh, ow, c)
-        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
-        return vals * valid[..., None].to(img.dtype)
+        if border == "zeros":
+            valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            vals = vals * valid[..., None].to(img.dtype)
+        return vals
 
     top = tap(y0, x0) * (1.0 - wx) + tap(y0, x0 + 1) * wx
     bot = tap(y0 + 1, x0) * (1.0 - wx) + tap(y0 + 1, x0 + 1) * wx
     return top * (1.0 - wy) + bot * wy
+
+
+def _nearest_gather_2d(img: torch.Tensor, src_y: torch.Tensor, src_x: torch.Tensor,
+                       border: str = "replicate", source=None) -> torch.Tensor:
+    """Nearest-neighbour sample of NHWC `img` at per-member maps (K, H', W'),
+    rounding half up, floor(src + 0.5), as JAX ops/image.py::
+    _nearest_gather_2d does; borders and `source` as in
+    _bilinear_gather_2d."""
+    n, h, w, c = img.shape
+    k, oh, ow = src_y.shape
+    yi = torch.floor(src_y + 0.5).to(torch.int64)
+    xi = torch.floor(src_x + 0.5).to(torch.int64)
+    idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+    vals = img.reshape(n, h * w, c)[_members(img, k, source), idx.reshape(k, -1)]
+    vals = vals.reshape(k, oh, ow, c)
+    if border == "zeros":
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        vals = vals * valid[..., None].to(img.dtype)
+    return vals
+
+
+def _rotation_maps(img: torch.Tensor, angles_deg, cy: float, cx: float):
+    """The per-member source maps (K, H, W) of CCW rotations of `img`'s
+    canvas by K angles in degrees about (cx, cy): degrees to radians, cos
+    and sin in float32, as the JAX functions compute them."""
+    n, h, w, _ = img.shape
+    a = torch.as_tensor(angles_deg).to(device=img.device, dtype=torch.float32).reshape(-1)
+    a = (a * _DEG2RAD)[:, None, None]
+    yy = torch.arange(h, dtype=torch.float32, device=img.device)[:, None] - cy
+    xx = torch.arange(w, dtype=torch.float32, device=img.device)[None, :] - cx
+    cos_a, sin_a = torch.cos(a), torch.sin(a)
+    # inverse map of a CCW rotation in image coordinates (y points down)
+    src_x = cos_a * xx - sin_a * yy + cx
+    src_y = sin_a * xx + cos_a * yy + cy
+    return src_y, src_x
 
 
 def rotate_bilinear(img: torch.Tensor, angles_deg) -> torch.Tensor:
@@ -100,19 +153,48 @@ def rotate_bilinear(img: torch.Tensor, angles_deg) -> torch.Tensor:
     rotates member k by angle k. The four taps are an explicit gather, not
     F.grid_sample, whose coordinate normalisation rounds differently."""
     n, h, w, c = img.shape
-    a = torch.as_tensor(angles_deg).to(device=img.device, dtype=torch.float32)
-    k = a.shape[0]
-    if n not in (1, k):
+    src_y, src_x = _rotation_maps(img, angles_deg, (h - 1) / 2.0, (w - 1) / 2.0)
+    if n not in (1, src_y.shape[0]):
         raise ValueError("img batch must be 1 or len(angles)")
-    a = (a * _DEG2RAD)[:, None, None]
-    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
-    yy = torch.arange(h, dtype=torch.float32, device=img.device)[:, None] - cy
-    xx = torch.arange(w, dtype=torch.float32, device=img.device)[None, :] - cx
-    cos_a, sin_a = torch.cos(a), torch.sin(a)
-    # inverse map of a CCW rotation in image coordinates (y points down)
-    src_x = cos_a * xx - sin_a * yy + cx
-    src_y = sin_a * xx + cos_a * yy + cy
     return _bilinear_gather_2d(img, src_y, src_x)
+
+
+def rotate_cv2_like(img: torch.Tensor, angles_deg, interpolation: str = "bilinear",
+                    border: str = "replicate", source=None) -> torch.Tensor:
+    """Rotate NHWC images the cv2/albumentations way by K angles in degrees
+    -> (K, H, W, C): CCW about the absolute centre (W/2, H/2), BORDER_REPLICATE
+    by default, bilinear for images and nearest for masks and targets (the
+    generator's A.Rotate(limit=180, border_mode=1), reference
+    preprocessing/create_augmentations.py:51-58; JAX
+    ops/image.py::rotate_cv2_like per angle). Member k rotates image
+    source[k] of the batch, or image k of a batch of K, or the one image.
+    An angle of 0 samples every pixel at its own centre, so it returns the
+    input exactly."""
+    n, h, w, c = img.shape
+    src_y, src_x = _rotation_maps(img, angles_deg, h / 2.0, w / 2.0)
+    if source is None and n not in (1, src_y.shape[0]):
+        raise ValueError("img batch must be 1 or len(angles), or pass source")
+    gather = _bilinear_gather_2d if interpolation == "bilinear" else _nearest_gather_2d
+    return gather(img, src_y, src_x, border=border, source=source)
+
+
+def flip_nhwc(img: torch.Tensor, code: int) -> torch.Tensor:
+    """cv2.flip semantics on NHWC: 0 = vertical (about the x axis), 1 =
+    horizontal, -1 = both (A.Flip draws the code uniformly,
+    create_augmentations.py:52-53)."""
+    dims = {0: (1,), 1: (2,), -1: (1, 2)}.get(code)
+    if dims is None:
+        raise ValueError("flip code must be -1, 0 or 1")
+    return img.flip(dims)
+
+
+def to_gray_rgb(img: torch.Tensor) -> torch.Tensor:
+    """A.ToGray on uint8-valued RGB (NHWC float holding 0..255): cv2's
+    fixed-point RGB2GRAY, Y = (R*4899 + G*9617 + B*1868 + 8192) >> 14, exact
+    in float32, repeated to 3 channels."""
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    y = torch.floor((r * 4899.0 + g * 9617.0 + b * 1868.0 + 8192.0) / 16384.0)
+    return y[..., None].expand(*y.shape, 3).contiguous()
 
 
 def center_crop(img: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:

@@ -12,7 +12,8 @@ The JAX package's checkpoints are flax msgpack files
 them in Python, without the msgpack library (the port depends on numpy,
 torch and the standard library only). `load_model_checkpoint` reads any of
 the three kinds of file a user holds: a JAX checkpoint, a reference PL
-`.ckpt`, or the port's own.
+`.ckpt`, or the port's own. `main` converts a reference `.ckpt` into the
+port's own checkpoint format.
 """
 
 from __future__ import annotations
@@ -288,3 +289,47 @@ def jax_params_to_state_dict(params: Mapping[str, Any], cfg) -> dict:
             norm(f"post{d}/norm{i}", f"up_blocks.{d}.1.{4 * i + 1}")
     conv("head", "output_conv.0")
     return sd
+
+
+def main(argv=None):
+    """Convert a reference PL/torch .ckpt into a checkpoint of this port
+    (train/checkpoint.py::save_checkpoint), with meta {"converted_from": SRC}.
+
+    Usage:
+      python -m unet_research_tpu_torch.utils.convert SRC.ckpt DST.ckpt \
+          [-filters 64] [-model_depth 4] [-group_norm_groups 32] \
+          [-norm group|batch|none] [-activation relu|...]
+
+    The arch flags must describe the reference model the checkpoint was
+    trained with (the reference hardcodes the canonical 31M config,
+    base_model_tests/training.py:171-192: the defaults here). The weights
+    are loaded strictly into a UNet of that configuration on the CPU, so a
+    file of another model raises; BatchNorm running statistics are kept."""
+    import argparse
+
+    from unet_research_tpu_torch.models.unet import DropBlockConfig, UNet, canonical_config
+    from unet_research_tpu_torch.train.checkpoint import save_checkpoint
+
+    p = argparse.ArgumentParser(description=main.__doc__)
+    p.add_argument("src")
+    p.add_argument("dst")
+    p.add_argument("-filters", type=int, default=64)
+    p.add_argument("-model_depth", type=int, default=4)
+    p.add_argument("-group_norm_groups", type=int, default=32)
+    p.add_argument("-norm", default="group")
+    p.add_argument("-activation", default="relu")
+    a = p.parse_args(argv)
+    cfg = canonical_config(
+        filters=a.filters, model_depth=a.model_depth, group_norm_groups=a.group_norm_groups,
+        norm=None if a.norm == "none" else a.norm, activation=a.activation,
+        dropblock=DropBlockConfig(kind="dependent"))
+    model = UNet(cfg, device="cpu")
+    model.load_state_dict(load_reference_checkpoint(a.src))
+    save_checkpoint(a.dst, model.state_dict(), meta={"converted_from": a.src})
+    n = sum(t.numel() for t in model.parameters())
+    print(f"converted {a.src} -> {a.dst} ({n:,} params)")
+    return a.dst
+
+
+if __name__ == "__main__":
+    main()
