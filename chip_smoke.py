@@ -43,7 +43,22 @@ multi-fidelity CLIs (`mf-cli`) on that tree: K3 and its dx at 32^2, 128^2,
 the MF checkpoint at 128x128, 256x256 and 584x565, each at full width
 (bf16, default routes, 1 epoch) with its launch counts, every K3 launch on
 wgmma, its output tree, `.pt` shapes, finite metrics, the checkpoint read
-back, and its seconds and share outside the engines. An early `env` line
+back, and its seconds and share outside the engines. Then the analysis
+half (`matrix`): `run_matrix -stage all --with_dependent` on BM-1, MF-1 and
+LF-3 through its main(argv) on the generated tree at full width (bf16,
+default routes, `-warp shear` passed through; LF-3 trains at 128^2 and its
+uncertainty runs at `-resize 128`), each command's launches asserted (K2,
+K3, dx and fold per train, K3 per test, K1 per MC run, K4 per rotational
+run, every K3 on wgmma), every stage's output tree and the density
+report's files (kinds std, cv, hist, did) asserted, the density stage's
+seconds split into the KDE (on the card), np.histogram and PNG writes;
+`view_tensors` on the same out_root; a rerun that skips every stage. Then
+`density-scale`: the density report (std, cv, hist) from memory at a real
+study's size, 12 models x 6 validation images x 584x565 for DB and ROT
+(seeded synthetic maps, no files read), its seconds split the same way and
+the KDE's peak extra device memory (at most 1 GiB), and the card's KDE on
+a 200k-sample subset held against the dense float64 formula on the CPU
+(1e-9 of the curve's maximum). An early `env` line
 says which of PIL, pandas, sklearn, matplotlib and msgpack import here;
 the port needs none of them.
 Every phase prints one JSON line; the last line is
@@ -71,8 +86,10 @@ twice the plain bf16 route's distance from the plain float32 route.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import inspect
+import io
 import json
 import os
 import re
@@ -97,8 +114,11 @@ from unet_research_tpu_torch.cli import dropblock_uncertainty as cli_dropblock  
 from unet_research_tpu_torch.cli import lf_training as cli_lf  # noqa: E402
 from unet_research_tpu_torch.cli import mf_training as cli_mf  # noqa: E402
 from unet_research_tpu_torch.cli import rotational_uncertainty as cli_rotational  # noqa: E402
+from unet_research_tpu_torch.cli import run_matrix as cli_run_matrix  # noqa: E402
 from unet_research_tpu_torch.cli import training as cli_training  # noqa: E402
+from unet_research_tpu_torch.cli import view_tensors as cli_view_tensors  # noqa: E402
 from unet_research_tpu_torch.evaluation import artifacts as ev_artifacts  # noqa: E402
+from unet_research_tpu_torch.evaluation import density as ev_density  # noqa: E402
 from unet_research_tpu_torch.evaluation import metrics as ev_metrics  # noqa: E402
 from unet_research_tpu_torch.models import unet as tunet  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import build  # noqa: E402
@@ -1472,6 +1492,307 @@ def run_mf_cli_phase(data: str) -> dict:
     return launches
 
 
+# --- the analysis half: run_matrix end to end and the density report --------
+
+MATRIX_MODELS = ("BM-1", "MF-1", "LF-3")
+MATRIX_ITERS, MATRIX_SAVE = 48, 2
+# the uncertainty stage's size (LF-3 at -resize 128); every model scores
+# its validation images at 584x565 (LF-3's HFT predicts at native size)
+MATRIX_SIDE = {"BM-1": (584, 565), "MF-1": (584, 565), "LF-3": (128, 128)}
+DENSITY_KINDS = ("std", "cv", "hist", "did")
+DENSITY_ROOT = os.path.join(ROOT, "_runs", "chip_smoke_density")
+
+
+def density_files(models, kinds) -> list:
+    """The files of a density report on `models`, each with DB, ROT and
+    dependent-run tensors, with masks and targets (all_metrics.csv apart)."""
+    groups = ["_".join(g.split(" ")) for g in ev_density.GROUPS]
+    files = []
+    if "std" in kinds:
+        files += ["std_magnitudes_db.csv", "std_magnitudes_rot.csv"]
+        files += [os.path.join("All_Models", f"{g}_{run}_STD.png")
+                  for g in groups for run in ("DB", "ROT")]
+        files += [os.path.join("Single_Models", f"{m}_{run}_STD.png")
+                  for m in models for run in ("DB", "ROT")]
+    if "cv" in kinds:
+        files += [os.path.join("All_Models", f"{g}_{run}_CV.png")
+                  for g in groups for run in ("DB", "ROT")]
+    if "hist" in kinds:
+        files += [os.path.join("Histograms", f"{name}_{m}.png") for m in models
+                  for name in ("CV_Histogram", "STD_Dilated_Histogram", "CV_Dilated_Histogram",
+                               "STD_InvDilated_Histogram", "CV_InvDilated_Histogram")]
+    if "did" in kinds:
+        files += [os.path.join("All_Models", f"{m}_DvUD_STD.png") for m in models]
+    return sorted(files)
+
+
+def check_magnitudes(path: str, rows: int) -> list:
+    """std_magnitudes_*.csv: `rows` rows of finite min/max/mean/std."""
+    with open(path, newline="") as f:
+        table = list(csv.reader(f))
+    if table[0] != ev_density.MAGNITUDE_COLUMNS or len(table) != rows + 1:
+        raise AssertionError(f"{path}: {table[:2]} ({len(table) - 1} rows)")
+    values = [[float(v) for v in row[2:6]] for row in table[1:]]
+    if not np.isfinite(values).all():
+        raise AssertionError(f"{path}: non-finite magnitudes {values}")
+    return values
+
+
+def density_stopwatches() -> dict:
+    """Seconds of the density report in the KDE (the card awaited), in
+    np.histogram and in PNG writes."""
+    return {"kde": Stopwatch([(ev_density, "_kde_curve")]),
+            "histogram": Stopwatch([(ev_density, "_histogram")]),
+            "png_write": Stopwatch([(ev_density, "write_png")])}
+
+
+def matrix_want(n_train: int, n_val: int, n_test: int) -> dict:
+    """The launches of each command run_matrix runs, from the code's
+    arithmetic: a train command's steps, validation and final forwards; a
+    test's final forwards; an MC run's ensembles (save, then evaluate) and a
+    rotational run's, per validation image."""
+    mc = ensemble_forwards(MATRIX_ITERS, MATRIX_SAVE, CHUNK) * n_val * 2
+    rot = ensemble_forwards(ROT_ITERS, MATRIX_SAVE, CHUNK) * n_val
+    return {
+        "train": {"dropblock_mask": (TRAIN_SITES + REMAT_SITES) * n_train,
+                  "conv3x3_pair": 6 * n_train + 3 * (n_val + n_test + n_val),
+                  "conv3x3_pair_dx": 3 * n_train, "conv3x3_pair_fold": 3 * n_train},
+        "test": {"conv3x3_pair": 3 * (n_test + n_val)},
+        "dropblock_uncertainty": {"dropblock_fused_apply": TRAIN_SITES * mc,
+                                  "conv3x3_pair": 3 * mc},
+        "rotational_uncertainty": {"rotate_fan": 2 * rot, "conv3x3_pair": 3 * rot},
+        "create_density": {},
+    }
+
+
+def check_matrix_tree(out_root: str, n_val: int, n_test: int) -> dict:
+    """Every stage's canonical directory with its files and shapes, and the
+    density report's file set. Returns the report's magnitudes."""
+    for model in MATRIX_MODELS:
+        mdir = os.path.join(out_root, model)
+        infos = cli_files(os.path.join(mdir, "model_info"))
+        if len(infos) != 1 or not infos[0].startswith("model-epoch="):
+            raise AssertionError(f"{model} model_info {infos}")
+        check_cli_tree(f"{model} train", os.path.join(mdir, "statistics"), n_val, n_test,
+                       (584, 565))
+        check_cli_tree(f"{model} test", os.path.join(mdir, "test_statistics"), n_val, n_test,
+                       (584, 565))
+        side = MATRIX_SIDE[model]
+        for run in ("dropblock_uncertainty", "dropblock_uncertainty_dep"):
+            out = os.path.join(mdir, run)
+            want = ["model_ckpt_symlink.ckpt"] + [
+                os.path.join("tensors", f"image_{i}", f"{m}.pt") for i in range(n_val)
+                for m in ("mean", "std", "tensors")] + [
+                os.path.join("statistics", f) for f in ev_metrics.output_files(n_val, 0, True)]
+            if cli_files(out) != sorted(want):
+                raise AssertionError(f"{model} {run} tree {cli_files(out)}")
+            for i in range(n_val):
+                folder = os.path.join(out, "tensors", f"image_{i}")
+                check_pt(os.path.join(folder, "mean.pt"), (1, 1, *side))
+                if not float(check_pt(os.path.join(folder, "std.pt"), (1, 1, *side)).max()) > 0:
+                    raise AssertionError(f"{model} {run} image {i}: std is 0")
+        out = os.path.join(mdir, "rotation_uncertainty")
+        want = ["model_ckpt_symlink.ckpt"] + [os.path.join(f"image_{i}", f"{m}.pt")
+                                              for i in range(n_val)
+                                              for m in ("mean", "std", "tensors")]
+        if cli_files(out) != sorted(want):
+            raise AssertionError(f"{model} rotation_uncertainty tree {cli_files(out)}")
+        for i in range(n_val):
+            check_pt(os.path.join(out, f"image_{i}", "std.pt"), (1, 1, *side))
+    dens = os.path.join(out_root, "density")
+    if cli_files(dens) != sorted(density_files(MATRIX_MODELS, DENSITY_KINDS)
+                                 + ["all_metrics.csv"]):
+        raise AssertionError(f"density report {cli_files(dens)}")
+    return {kind: check_magnitudes(os.path.join(dens, f"std_magnitudes_{kind}.csv"),
+                                   len(MATRIX_MODELS) * n_val) for kind in ("db", "rot")}
+
+
+def run_matrix_phase(data: str) -> dict:
+    """run_matrix -stage all --with_dependent on BM-1, MF-1 and LF-3 at full
+    width (canonical 31M, bf16, default routes) on the generated tree, each
+    command's launches asserted; then view_tensors on its out_root, and a
+    rerun that skips every stage. Returns the matrix's launches."""
+    out_root = os.path.join(DRIVE_ROOT, "matrix")
+    n_train, n_val, n_test = 3 * AUG_TRAIN, 2, 2
+    argv = ["-stage", "all", "-data_path", data, "-out_root", out_root,
+            "-models", ",".join(MATRIX_MODELS), "-num_epochs", "1", "--with_dependent",
+            "-orig_train_size", "3", "-num_augmentations", str(AUG_TRAIN),
+            "-iter_num", str(MATRIX_ITERS), "-chunk", str(CHUNK), "-save_num", str(MATRIX_SAVE),
+            "-warp", "shear", "--auto_lr_find", "False", "-lr", "1e-3",
+            "--gradient_clip_val", "0.5", "-seed", "0"] + CLI_FLAGS
+    want = matrix_want(n_train, n_val, n_test)
+    commands, stage_seconds = [], {}
+    run_module, stages = cli_run_matrix._run_module, {}
+
+    def counted(module, args, dry):
+        """One stage command: its launches and seconds."""
+        before = counts()
+        t0 = time.perf_counter()
+        run_module(module, args, dry)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {k: v - before[k] for k, v in counts().items()}
+        kind = args[args.index("-mode") + 1] if "-mode" in args else module
+        save_path = os.path.relpath(args[args.index("-save_path") + 1], out_root)
+        expect = {**{name: 0 for name in COUNTERS}, **want[kind]}
+        if got != expect:
+            raise AssertionError(f"matrix {module} {save_path}: launches {got}, "
+                                 f"expected {expect}")
+        commands.append({"command": module, "kind": kind, "save_path": save_path,
+                         "seconds": seconds, "launches": got})
+
+    def timed(name, fn):
+        def stage(*a):
+            t0 = time.perf_counter()
+            fn(*a)
+            stage_seconds[name] = time.perf_counter() - t0
+        return stage
+
+    for name in ("train", "test", "uncertainty", "density"):
+        stages[name] = getattr(cli_run_matrix, f"stage_{name}")
+    watches = density_stopwatches()
+    reset_counts()
+    try:
+        cli_run_matrix._run_module = counted
+        for name, fn in stages.items():
+            setattr(cli_run_matrix, f"stage_{name}", timed(name, fn))
+        t0 = time.perf_counter()
+        with watches["kde"], watches["histogram"], watches["png_write"]:
+            cli_run_matrix.main(argv)
+        seconds = time.perf_counter() - t0
+    finally:
+        cli_run_matrix._run_module = run_module
+        for name, fn in stages.items():
+            setattr(cli_run_matrix, f"stage_{name}", fn)
+    launches = counts()
+    assert_wgmma("matrix")
+    kinds = [c["kind"] for c in commands]
+    expected_kinds = (["train"] * 3 + ["test"] * 3
+                      + ["dropblock_uncertainty", "dropblock_uncertainty",
+                         "rotational_uncertainty"] * 3 + ["create_density"])
+    if kinds != expected_kinds:
+        raise AssertionError(f"matrix commands {kinds}")
+    magnitudes = check_matrix_tree(out_root, n_val, n_test)
+    density_seconds = stage_seconds["density"]
+    emit({"phase": "matrix", "command": "run_matrix -stage all --with_dependent",
+          "models": list(MATRIX_MODELS), "config": "canonical 31M, --precision bf16, default "
+          "routes (-conv_impl pair, -mask_impl fused), -warp shear", "input": [584, 565],
+          "splits": {"train": n_train, "val": n_val, "test": n_test}, "seconds": seconds,
+          "stage_seconds": stage_seconds, "commands": commands, "launches": launches,
+          "density": {"seconds": density_seconds,
+                      **{f"{k}_seconds": w.seconds for k, w in watches.items()},
+                      **{f"{k}_share": w.seconds / density_seconds for k, w in watches.items()}},
+          "magnitudes_rows": {k: len(v) for k, v in magnitudes.items()}})
+
+    # the viewer on the same out_root
+    viewer = os.path.join(out_root, "viewer")
+    t0 = time.perf_counter()
+    cli_view_tensors.main(["-results_root", out_root, "-aug_root", data, "-save_path", viewer,
+                           "-models", ",".join(MATRIX_MODELS)])
+    view_seconds = time.perf_counter() - t0
+    want_files = sorted([f"{m}_image_{i}.png" for m in MATRIX_MODELS for i in range(n_val)]
+                        + [f"MSE_Plot_{m}.png" for m in MATRIX_MODELS])
+    if cli_files(viewer) != want_files:
+        raise AssertionError(f"view_tensors files {cli_files(viewer)}")
+    shutil.rmtree(viewer)
+
+    # the rerun skips every stage but the density report, which is redrawn
+    reset_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        cli_run_matrix.main(argv)
+    rerun_seconds = time.perf_counter() - t0
+    skips = [line for line in log.getvalue().splitlines() if "skip" in line]
+    stage_count = len(MATRIX_MODELS) * (1 + 1 + 3)
+    if len(skips) != stage_count or counts() != {name: 0 for name in COUNTERS}:
+        raise AssertionError(f"matrix rerun: {len(skips)} skips of {stage_count}, "
+                             f"launches {counts()}")
+    emit({"phase": "matrix-rerun", "skipped": len(skips), "seconds": rerun_seconds,
+          "view_tensors_seconds": view_seconds, "viewer_files": len(want_files)})
+    shutil.rmtree(out_root)
+    return {"matrix": launches}
+
+
+def synthetic_study(rng, models, images: int, hw) -> tuple:
+    """Seeded mean/std maps of a study (DB and ROT per model and image) in
+    the ranges the ensembles give, a disc FOV as every mask and thresholded
+    noise as every target."""
+    data = {key: {} for key in ("mean_db", "std_db", "mean_rot", "std_rot")}
+    for model in models:
+        for kind, scale in (("db", 0.05), ("rot", 0.02)):
+            data[f"mean_{kind}"][model] = {i: rng.random((1, 1, *hw), dtype=np.float32)
+                                           for i in range(images)}
+            data[f"std_{kind}"][model] = {
+                i: (rng.exponential(scale, (1, 1, *hw))).astype(np.float32)
+                for i in range(images)}
+    yy, xx = np.mgrid[:hw[0], :hw[1]]
+    disc = ((((yy - hw[0] / 2) / (hw[0] / 2)) ** 2 + ((xx - hw[1] / 2) / (hw[1] / 2)) ** 2)
+            < 0.9).astype(np.uint8) * 255
+    masks = {i: disc for i in range(images)}
+    targets = {i: ((rng.random(hw) > 0.85) * 255).astype(np.uint8) for i in range(images)}
+    return data, masks, targets
+
+
+def run_density_scale_phase() -> None:
+    """The density report at a real study's size, from memory: 12 models x 6
+    validation images x 584x565 for DB and ROT, kinds std, cv and hist, the
+    KDE on the card; then the card's KDE on a 200k-sample subset against
+    the plain float64 formula on the CPU (1e-9 of the curve's maximum)."""
+    models, images = ev_density.MODELS, 6
+    t0 = time.perf_counter()
+    data, masks, targets = synthetic_study(np.random.default_rng(8), models, images, (584, 565))
+    setup_seconds = time.perf_counter() - t0
+    values = sum(v.size for key in ("std_db", "std_rot") for d in data[key].values()
+                 for v in d.values())
+    shutil.rmtree(DENSITY_ROOT, ignore_errors=True)
+    watches = density_stopwatches()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with watches["kde"], watches["histogram"], watches["png_write"]:
+        ev_density.render_density_report(data, masks, targets, DENSITY_ROOT, models,
+                                         ("std", "cv", "hist"), DEV)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    files = cli_files(DENSITY_ROOT)
+    if files != density_files(models, ("std", "cv", "hist")):
+        raise AssertionError(f"density-scale files {files}")
+    rows = {k: len(check_magnitudes(os.path.join(DENSITY_ROOT, f"std_magnitudes_{k}.csv"),
+                                    len(models) * images)) for k in ("db", "rot")}
+    shutil.rmtree(DENSITY_ROOT)
+    if peak > 1 << 30:
+        raise AssertionError(f"the KDE's extra device memory {peak} > 1 GiB")
+
+    # the card's KDE against the dense float64 formula on the CPU
+    sel = np.concatenate([v.ravel() for v in data["std_db"][models[0]].values()])
+    sel = sel[sel > 0.01]
+    subset = sel[np.random.default_rng(9).permutation(sel.size)[:200_000]]
+    rnge, steps = (0, 0.5), 1000
+    t0 = time.perf_counter()
+    xs, dens = ev_density._kde_curve(subset, rnge, steps, DEV)
+    card_seconds = time.perf_counter() - t0
+    h = (rnge[1] - rnge[0]) / steps
+    t0 = time.perf_counter()
+    x = torch.from_numpy(subset.astype(np.float64))
+    grid = torch.from_numpy(np.linspace(*rnge, steps))
+    plain = (torch.exp(-0.5 * ((grid[:, None] - x[None, :]) / h) ** 2).sum(1)
+             / (subset.size * h * np.sqrt(2 * np.pi))).numpy()
+    plain_seconds = time.perf_counter() - t0
+    rel = float(np.abs(dens - plain).max() / plain.max())
+    if not rel <= 1e-9:
+        raise AssertionError(f"KDE on the card vs the float64 formula: {rel} of the maximum")
+    emit({"phase": "density-scale", "models": len(models), "images": images,
+          "input": [584, 565], "std_values": int(values), "kinds": ["std", "cv", "hist"],
+          "seconds": seconds, **{f"{k}_seconds": w.seconds for k, w in watches.items()},
+          "other_seconds": seconds - sum(w.seconds for w in watches.values()),
+          "kde_peak_extra_bytes": int(peak), "setup_seconds": setup_seconds,
+          "magnitudes_rows": rows, "kde_check": {"samples": int(subset.size), "steps": steps,
+                                                 "max_rel": rel, "card_seconds": card_seconds,
+                                                 "cpu_dense_seconds": plain_seconds}})
+
+
 def main() -> None:
     # float32 references run in full float32, not TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -1488,8 +1809,11 @@ def main() -> None:
     run_train_routes(state)
     train, steps = run_train_slice(state)
     cli = run_cli_phase()
-    cli.update(run_mf_cli_phase(run_drive_augment_phase()))
+    data = run_drive_augment_phase()
+    cli.update(run_mf_cli_phase(data))
+    cli.update(run_matrix_phase(data))
     shutil.rmtree(DRIVE_ROOT)
+    run_density_scale_phase()
     # each path's counts, read right after it ran; `launches` is the path
     # that runs the kernel by default (K2: training, K3: the MC ensemble)
     paths = {"mc": launches["main"], "mc_kernel_variant": launches["kernel_variant"],

@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither jax, flax nor the JAX package,
-nor PIL, pandas, sklearn, matplotlib or msgpack (it depends on numpy, torch
-and the standard library only; the card has no sklearn or matplotlib), and
-its entry points run on the card unless the CPU is asked for."""
+nor PIL, pandas, sklearn, matplotlib, msgpack or cv2 (it depends on numpy,
+torch and the standard library only; the card has no sklearn or
+matplotlib), and its entry points run on the card unless the CPU is asked
+for."""
 
 import ast
 import pathlib
@@ -15,7 +16,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "unet_research_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "unet_research_tpu", "PIL", "pandas", "sklearn",
-           "matplotlib", "msgpack")
+           "matplotlib", "msgpack", "cv2")
 
 
 def _modules():
@@ -47,7 +48,12 @@ def test_imports_with_jax_blocked():
                      "unet_research_tpu_torch.cli.lf_training",
                      "unet_research_tpu_torch.cli.base_model_mf",
                      "unet_research_tpu_torch.data.drive", "unet_research_tpu_torch.data.augment",
-                     "unet_research_tpu_torch.utils.gif", "unet_research_tpu_torch.utils.tiff"):
+                     "unet_research_tpu_torch.utils.gif", "unet_research_tpu_torch.utils.tiff",
+                     "unet_research_tpu_torch.evaluation.density",
+                     "unet_research_tpu_torch.evaluation.raster",
+                     "unet_research_tpu_torch.cli.create_density",
+                     "unet_research_tpu_torch.cli.view_tensors",
+                     "unet_research_tpu_torch.cli.run_matrix"):
         assert required in names
     code = f"""
 import importlib, sys
@@ -117,7 +123,7 @@ def test_entry_points_default_to_the_card(tmp_path):
 
 @pytest.mark.parametrize("cli", ["training", "dropblock_uncertainty", "rotational_uncertainty",
                                  "create_augmentations", "mf_training", "lf_training",
-                                 "base_model_mf"])
+                                 "base_model_mf", "create_density"])
 def test_clis_default_to_the_card(tmp_path, cli):
     """Without -device cpu a CLI needs the card: on a host without CUDA it
     raises before it reads or writes anything."""
@@ -128,6 +134,8 @@ def test_clis_default_to_the_card(tmp_path, cli):
     main = importlib.import_module(f"unet_research_tpu_torch.cli.{cli}").main
     if cli == "create_augmentations":
         argv = ["-data_root", str(tmp_path / "data"), "-dest", str(tmp_path / "out")]
+    elif cli == "create_density":
+        argv = ["-results_root", str(tmp_path / "data"), "-save_path", str(tmp_path / "out")]
     else:
         argv = ["-data_path", str(tmp_path / "data"), "-save_path", str(tmp_path / "out")]
         argv += (["-mode", "test"] if cli.endswith("training")

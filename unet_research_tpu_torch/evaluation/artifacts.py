@@ -16,17 +16,10 @@ from os.path import join
 import numpy as np
 import torch
 
+from unet_research_tpu_torch.evaluation.raster import colorize
 from unet_research_tpu_torch.utils.general import to_u8
 from unet_research_tpu_torch.utils.png import write_png
 
-# matplotlib's 'seismic' (matplotlib/_cm.py, _seismic_data): five colours
-# at even steps, interpolated into a 256-entry table as
-# LinearSegmentedColormap.from_list does, in bytes as Colormap(bytes=True)
-# gives them (the float table times 255, truncated)
-_SEISMIC_DATA = ((0.0, 0.0, 0.3), (0.0, 0.0, 1.0), (1.0, 1.0, 1.0), (1.0, 0.0, 0.0),
-                 (0.5, 0.0, 0.0))
-_SEISMIC = (np.stack([np.interp(np.linspace(0.0, 1.0, 256), np.linspace(0.0, 1.0, 5), ch)
-                      for ch in zip(*_SEISMIC_DATA)], axis=-1) * 255).astype(np.uint8)
 _GUTTER = 4  # white columns between the panels of a figure
 
 
@@ -125,10 +118,7 @@ def save_contour_map(seg, gt, save_path=".") -> None:
     s = np.round(np.asarray(seg)[..., 0])
     g = np.asarray(gt)[..., 0]
     diff = 2 * (s - g) / np.clip(np.abs(s) + np.abs(g), 1e-6, None)
-    lo, hi = float(diff.min()), float(diff.max())
-    norm = (diff - lo) / (hi - lo) if hi > lo else np.zeros_like(diff)
-    index = np.clip((norm * 256).astype(np.intp), 0, 255)
-    write_png(join(save_path, "contour_map.png"), _SEISMIC[index])
+    write_png(join(save_path, "contour_map.png"), colorize(diff, "seismic"))
 
 
 def save_overlap_map(seg, gt, save_path=".") -> None:
