@@ -17,7 +17,16 @@ kernel route against the plain routes, Trainer.fit of the canonical model
 (bf16, remat, dependent DropBlock b=7 ramped 0 -> 0.15 over 8 steps,
 pair + kernel masks, SGD lr 1e-3 momentum 0.99 clip 0.5) for 3 epochs of 8
 synthetic 584x565 images with its launch counts, and one lr_find sweep,
-then the CLIs: on a synthetic augmented tree of 584x565 PNGs (train 4, val
+then data parallelism on the one card (`dp`): K1/K2 at a sample offset
+(8 of 16, 1 of 2) against their plain versions and the full launch's
+rows; two gloo ranks sharing the card (parallel/launch.py; NCCL refuses
+two ranks on one card) take one train step at a global batch of 2 in
+float32 and in bf16 against the one-process steps, compare their
+parameters' float64 checksums, run Trainer.fit (1 epoch of 4 images at
+train_batch 2) with each kernel's launches and rank 0's checkpoint, time a
+step and the gradient all-reduce, and run the 48-member MC engine split
+over them against the one-process run above; then NCCL at world size 1
+(`dp-nccl`): the data-parallel step bit-equal to the plain step, then the CLIs: on a synthetic augmented tree of 584x565 PNGs (train 4, val
 2, test 1; written under _runs/chip_smoke_cli/ and deleted at the end) it
 runs, through their main(argv), `training -mode train` (1 epoch, bf16,
 default routes), `training -mode test` on the kept checkpoint,
@@ -82,6 +91,14 @@ dK within 4e-3 of the float32 correlation of the same x and folded
 cotangent (one rounding to bf16 is at most 2^-9 of the largest magnitude). One train step: the kernel
 route's loss and gradient (global relative L2 over all parameters) within
 twice the plain bf16 route's distance from the plain float32 route.
+Data parallelism: K1/K2 at an offset bit-equal; the float32 step's loss
+within 2e-5 relative and parameters within rtol 2e-4 / atol 2e-6 of the
+one-process step (tests/test_mesh.py's); the bf16 update (relative L2)
+within twice the plain bf16 route's distance from plain float32; the
+ranks' checksums equal; the split MC run's mean, std and saved members
+within twice the plain bf16 route's distance from float32 of the
+one-process run (the masks are the same bits); NCCL at world size 1
+bit-equal to the plain step (cuDNN deterministic, cuDNN convs).
 """
 
 from __future__ import annotations
@@ -101,6 +118,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 if not torch.cuda.is_available():
     raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false")
@@ -126,6 +144,14 @@ from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk  # noqa: E4
 from unet_research_tpu_torch.ops.cuda import pair_conv as pc  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import shear_rotate as sr  # noqa: E402
 from unet_research_tpu_torch.data import ArrayDataset, load_drive, load_split  # noqa: E402
+from unet_research_tpu_torch.data.loading import shard_batch  # noqa: E402
+from unet_research_tpu_torch.parallel import launch  # noqa: E402
+from unet_research_tpu_torch.parallel.mesh import (  # noqa: E402
+    all_gather,
+    all_reduce_grads_,
+    make_mesh,
+    multihost_initialize,
+)
 from unet_research_tpu_torch.data import augment as data_augment  # noqa: E402
 from unet_research_tpu_torch.ops.losses import masked_rescaled_bce  # noqa: E402
 from unet_research_tpu_torch.train import POLICIES, Trainer, TrainerConfig, lr_find  # noqa: E402
@@ -226,11 +252,15 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ordered(a) - ordered(b)).abs().max())
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
 def header() -> None:
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
-    print(f"{smi} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"{card()} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
 
 def build_kernels() -> None:
@@ -580,7 +610,8 @@ def run_slice(state) -> dict:
               float((outs["kernels"] - outs["plain_bf16"]).abs().mean())})
     if not d_kernel <= 2.0 * d_bf16:
         raise AssertionError(f"kernel route {d_kernel} vs plain bf16 noise {d_bf16}")
-    return {"main": main, "kernel_variant": kernel_variant}
+    return {"main": main, "kernel_variant": kernel_variant, "bf16_noise": d_bf16,
+            "outputs": tuple(t.cpu() for t in (mean, std, saved))}
 
 
 def run_rotational(state) -> dict:
@@ -881,6 +912,275 @@ def run_train_slice(state) -> dict:
           "seconds": time.perf_counter() - t0})
     shutil.rmtree(out_dir, ignore_errors=True)
     return got, steps
+
+
+# --- data parallelism -------------------------------------------------------
+
+DP_ROOT = os.path.join(ROOT, "_runs", "chip_smoke_dp")
+DP_LR = 1e-3
+
+
+def check_offsets() -> None:
+    """K1 and K2 at a sample offset: the n-sample launch at offset k against
+    the plain version at offset k and against rows [k, k+n) of the full
+    launch, all bit for bit (masks, keep counts, K1's output), at the MC
+    split (16 -> 8 at offset 8) and the train split (2 -> 1 at offset 1)."""
+    for full_n, k, n in ((CHUNK, 8, 8), (2, 1, 1)):
+        key = keys(11 + k)
+        mask, keep = dbk.dropblock_mask((full_n, H, W, 64), key, GAMMA, BLOCK)
+        part = (n, H, W, 64)
+        m, kp = dbk.dropblock_mask(part, key, GAMMA, BLOCK, sample_offset=k)
+        pm, pkp = dbk.dropblock_mask_plain(part, key, GAMMA, BLOCK, sample_offset=k)
+        k2 = {"rows": torch.equal(m, mask[k:k + n]) and torch.equal(kp, keep[k:k + n]),
+              "plain": torch.equal(m, pm) and torch.equal(kp, pkp)}
+        del mask, m, pm
+        x = activation(full_n, 64, seed=5 + k)
+        ab = gn_ab(x)
+        out, keep1 = dbk.dropblock_fused_apply(x, ab, key, GAMMA, BLOCK)
+        xs, abs_ = x[k:k + n].contiguous(), ab[:, k:k + n].contiguous()
+        o, kp1 = dbk.dropblock_fused_apply(xs, abs_, key, GAMMA, BLOCK, sample_offset=k)
+        po, pkp1 = dbk.dropblock_fused_apply_plain(xs, abs_, key, GAMMA, BLOCK, sample_offset=k)
+        k1 = {"rows": torch.equal(o, out[k:k + n]) and torch.equal(kp1, keep1[k:k + n]),
+              "plain": torch.equal(o, po) and torch.equal(kp1, pkp1)}
+        torch.cuda.synchronize()
+        emit({"phase": "dp-offsets", "full": [full_n, H, W, 64], "offset": k, "n": n,
+              "K2_bit_equal": k2, "K1_bit_equal": k1,
+              "keep_fraction": (kp / (H * W * 64)).tolist()})
+        if not all(k1.values()) or not all(k2.values()):
+            raise AssertionError(f"K1/K2 at offset {k}: K1 {k1}, K2 {k2}")
+        del x, out, o, po
+
+
+def wall_ms(fn, iters: int) -> float:
+    """Host clock per call around calls that end in a synchronize (a step
+    or a collective: the time the rank waits for)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def flat_params(model) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1).float() for p in model.parameters()])
+
+
+def dp_step(state, batch, site_keys, mesh, **overrides):
+    """One train step of the canonical train model (remat, dependent b=7 at
+    step 7 of the ramp, p = 0.15, clip 0.5) on the global batch of 2; under
+    `mesh` on this rank's rows. Returns (loss, params before, after, the
+    momentum trace)."""
+    model = train_model(state, **overrides)
+    cfg = TrainerConfig(lr=DP_LR, momentum=0.99, clip_norm=0.5, auto_lr_find=False,
+                        train_batch=2, verbose=False)
+    trainer = Trainer(model, POLICIES["none"], cfg, mesh=mesh, device=DEV)
+    st = trainer.create_state(None, DP_LR)
+    st.step = 7
+    before = flat_params(model)
+    rows = batch if mesh is None else shard_batch(batch, mesh)
+    loss = float(trainer.train_step(st, *rows, DP_LR, site_keys=site_keys))
+    trace = torch.cat([v.reshape(-1) for v in st.momentum_buffers()])
+    return loss, before, flat_params(model), trace
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def dp_rank() -> dict:
+    """One of two gloo ranks sharing the card (parallel/launch.py). Rank 1
+    starts from other weights: the trainer hands every rank rank 0's.
+    1. One data-parallel train step in float32 and in bf16 (kernel routes),
+       the ranks' parameters and momentum compared by float64 checksums;
+       rank 0 also runs the one-process steps on the global batch (the same
+       route in float32, the plain routes in bf16 and float32).
+    2. Trainer.fit, 1 epoch of 4 images at train_batch 2, with its launches
+       and the checkpoint rank 0 alone writes; then the step's and the
+       gradient all-reduce's wall times.
+    3. The split MC engine: 48 members, chunk 16, K1 at offsets 0/8.
+    Returns rank 0's records and counts."""
+    torch.backends.cudnn.allow_tf32 = False  # as main() sets them for the references
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(device=DEV)
+    rank = mesh.rank
+    state = base_state()
+    mine = state if rank == 0 else {k: v + 1.0 for k, v in state.items()}
+    ds = train_dataset(2, seed=3)
+    batch = tuple(torch.as_tensor(a, device=DEV) for a in ds[np.arange(2)])
+    site_keys = tunet.draw_site_keys(TRAIN_SITES, torch.Generator().manual_seed(4)).to(DEV)
+    out = {}
+
+    # 1. the step
+    f32 = dp_step(mine, batch, site_keys, mesh, dtype=torch.float32)
+    bf16 = dp_step(mine, batch, site_keys, mesh)
+    sums = torch.tensor([[float(t.double().sum()) for t in (*f32[2:], *bf16[2:])]],
+                        dtype=torch.float64, device=DEV)
+    sums = all_gather(sums, mesh)
+    if rank == 0:
+        ref = dp_step(state, batch, site_keys, None, dtype=torch.float32)
+        plain_bf16 = dp_step(state, batch, site_keys, None, conv_impl="torch",
+                             mask_impl="elementwise")
+        plain_f32 = dp_step(state, batch, site_keys, None, conv_impl="torch",
+                            mask_impl="elementwise", dtype=torch.float32)
+        upd = {name: r[2] - r[1] for name, r in (("dp_bf16", bf16), ("plain_bf16", plain_bf16),
+                                                 ("plain_f32", plain_f32))}
+        params_close = torch.allclose(f32[2], ref[2], rtol=2e-4, atol=2e-6)
+        out["step"] = {
+            "loss_f32_dp": f32[0], "loss_f32_one_process": ref[0],
+            "loss_f32_rel": abs(f32[0] - ref[0]) / abs(ref[0]),
+            "params_f32_max_abs": float((f32[2] - ref[2]).abs().max()),
+            "params_f32_within_rtol_2e-4_atol_2e-6": params_close,
+            "loss_bf16_dp": bf16[0], "loss_plain_bf16": plain_bf16[0],
+            "loss_plain_f32": plain_f32[0],
+            "update_rel_l2_dp_bf16_vs_plain_bf16": rel_l2(upd["dp_bf16"], upd["plain_bf16"]),
+            "update_rel_l2_plain_bf16_vs_f32": rel_l2(upd["plain_bf16"], upd["plain_f32"]),
+            "checksums_by_rank": sums.tolist(),
+            "ranks_bit_identical": bool(torch.equal(sums[0], sums[1]))}
+        del ref, plain_bf16, plain_f32, upd
+    del f32, bf16
+
+    # 2. fit, then the step and the all-reduce alone
+    train_ds, val_ds = train_dataset(4, seed=1), train_dataset(2, seed=2)
+    model = train_model(mine)
+    cfg = TrainerConfig(max_epochs=1, lr=DP_LR, momentum=0.99, clip_norm=0.5,
+                        auto_lr_find=False, seed=0, verbose=False, train_batch=2)
+    trainer = Trainer(model, POLICIES["none"], cfg, mesh=mesh, device=DEV)
+    model_info = os.path.join(DP_ROOT, f"rank{rank}", "model_info")
+    reset_counts()
+    t0 = time.perf_counter()
+    fit_state, history, keeper = trainer.fit(train_ds, val_ds, model_info, params=mine)
+    torch.cuda.synchronize()
+    fit_seconds = time.perf_counter() - t0
+    fit_counts, fit_steps = counts(), fit_state.step
+    assert_wgmma(f"dp fit rank {rank}")
+    rows = shard_batch(batch, mesh)
+    step_ms = wall_ms(lambda: trainer.train_step(fit_state, *rows, DP_LR), 3)
+    flat = torch.zeros(sum(p.numel() for p in fit_state.params), device=DEV)
+    allreduce_ms = wall_ms(lambda: all_reduce_grads_([flat], mesh), 3)
+    times = all_gather(torch.tensor([[step_ms, allreduce_ms, fit_seconds]], dtype=torch.float64,
+                                    device=DEV), mesh)
+    out["fit"] = {"launches": fit_counts, "history": history, "step": fit_steps,
+                  "kept": None if keeper is None else os.listdir(model_info),
+                  "step_ms_by_rank": times[:, 0].tolist(),
+                  "grad_allreduce_ms_by_rank": times[:, 1].tolist(),
+                  "fit_seconds_by_rank": times[:, 2].tolist(),
+                  "grad_allreduce_mb": flat.numel() * 4 / 1e6}
+    del trainer, model, fit_state, flat
+
+    # 3. the split MC engine, on the weights and generator of run_slice
+    im, gt, mask = synthetic_image()
+    engine = MCDropBlockEngine(model_for(state), num_iterations=48, return_num=4, chunk=CHUNK,
+                               device=DEV, generator=torch.Generator().manual_seed(1),
+                               mesh=mesh)
+    engine.predict(im, gt, mask, P_DROP)  # the warm-up call run_slice makes
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    mean, std, saved, *_ = engine.predict(im, gt, mask, P_DROP)
+    torch.cuda.synchronize()
+    out["mc"] = {"launches": counts(), "seconds": time.perf_counter() - t0,
+                 "outputs": tuple(t.cpu() for t in (mean, std, saved))}
+    assert_wgmma(f"dp MC rank {rank}")
+    return out
+
+
+def run_dp_phase(mc_slice: dict) -> dict:
+    """The `dp` phase: two gloo ranks on this one card (NCCL refuses two
+    ranks on one card) run dp_rank; the checks of its records. Returns the
+    launch counts of rank 0's fit and MC run."""
+    shutil.rmtree(DP_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    got = launch.spawn(dp_rank, (), [f"cuda:{DEV.index or 0}"] * 2, backend="gloo")
+    seconds = time.perf_counter() - t0
+    step, fit, mc = got["step"], got["fit"], got["mc"]
+    ok_step = (step["loss_f32_rel"] <= 2e-5 and step["params_f32_within_rtol_2e-4_atol_2e-6"]
+               and step["update_rel_l2_dp_bf16_vs_plain_bf16"]
+               <= 2.0 * step["update_rel_l2_plain_bf16_vs_f32"]
+               and step["ranks_bit_identical"])
+    emit({"phase": "dp-train", "ranks": 2, "backend": "gloo", "device": "one card, shared",
+          "config": "canonical 31M, remat, dependent b=7 at step 7 of the 0->0.15 ramp, "
+          "clip 0.5, global batch 2 (1 row per rank)", **step})
+    if not ok_step:
+        raise AssertionError(f"dp step: {step}")
+    steps, val_per_rank = 2, 1
+    want = {"dropblock_fused_apply": 0, "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
+            "conv3x3_pair": 6 * steps + 3 * val_per_rank, "conv3x3_pair_dx": 3 * steps,
+            "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0}
+    rank1_dir = os.path.join(DP_ROOT, "rank1")
+    emit({"phase": "dp-fit", "card": card(), "launches_rank0": fit["launches"],
+          "history": fit["history"],
+          "kept_rank0": fit["kept"], "rank1_wrote": os.path.exists(rank1_dir),
+          "step_ms_by_rank": fit["step_ms_by_rank"],
+          "grad_allreduce_ms_by_rank": fit["grad_allreduce_ms_by_rank"],
+          "grad_allreduce_mb": fit["grad_allreduce_mb"],
+          "fit_seconds_by_rank": fit["fit_seconds_by_rank"]})
+    if fit["launches"] != want or fit["step"] != steps:
+        raise AssertionError(f"dp fit launches {fit['launches']}, expected {want}")
+    if not (fit["kept"] and len(fit["kept"]) == 1) or os.path.exists(rank1_dir):
+        raise AssertionError(f"dp fit: rank 0 kept {fit['kept']}, rank 1 wrote "
+                             f"{os.path.exists(rank1_dir)}")
+    if not all(np.isfinite(fit["history"]["train_loss_epoch"] + fit["history"]["val_loss_epoch"])):
+        raise AssertionError(f"dp fit history {fit['history']}")
+
+    forwards = 4  # the saved 4 and chunks of 16, 16 and 12: each split over the ranks
+    want_mc = {"dropblock_fused_apply": 22 * forwards, "dropblock_mask": 0,
+               "conv3x3_pair": 3 * forwards, "conv3x3_pair_dx": 0, "conv3x3_pair_fold": 0,
+               "rotate_fan": 0}
+    diffs = {name: float((a - b).abs().max())
+             for name, a, b in zip(("mean", "std", "saved"), mc["outputs"], mc_slice["outputs"])}
+    gate = 2.0 * mc_slice["bf16_noise"]
+    emit({"phase": "dp-mc", "members": 48, "chunk": CHUNK, "launches_rank0": mc["launches"],
+          "seconds": mc["seconds"], "max_abs_vs_one_process": diffs,
+          "gate_twice_plain_bf16_vs_f32": gate})
+    if mc["launches"] != want_mc or max(diffs.values()) > gate:
+        raise AssertionError(f"dp MC: launches {mc['launches']} (want {want_mc}), "
+                             f"differences {diffs} against {gate}")
+    check_outputs(*(t.to(DEV) for t in mc["outputs"]), 4)
+    shutil.rmtree(DP_ROOT)
+    emit({"phase": "dp", "seconds": seconds})
+    return {"dp_train": fit["launches"], "dp_mc": mc["launches"]}
+
+
+def run_dp_nccl(state) -> None:
+    """NCCL at world size 1: the trainer's data-parallel step bit-equal to the
+    plain trainer's step (cuDNN convs in deterministic mode, the K2 masks),
+    so the NCCL route of every collective in the step runs on the card."""
+    multihost_initialize(f"tcp://127.0.0.1:{launch.free_port()}", 1, 0)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        backend = dist.get_backend()
+        mesh = make_mesh(device=DEV)
+        ds = train_dataset(1, seed=3)
+        batch = tuple(torch.as_tensor(a, device=DEV) for a in ds[np.arange(1)])
+        site_keys = tunet.draw_site_keys(TRAIN_SITES, torch.Generator().manual_seed(4)).to(DEV)
+        runs = {}
+        for name, m in (("plain", None), ("nccl", mesh), ("plain_again", None)):
+            model = train_model(state, conv_impl="torch")
+            cfg = TrainerConfig(lr=DP_LR, momentum=0.99, clip_norm=0.5, auto_lr_find=False,
+                                verbose=False)
+            trainer = Trainer(model, POLICIES["none"], cfg, mesh=m, device=DEV)
+            st = trainer.create_state(None, DP_LR)
+            st.step = 7
+            loss = trainer.train_step(st, *batch, DP_LR, site_keys=site_keys)
+            runs[name] = (loss, flat_params(model),
+                          torch.cat([v.reshape(-1) for v in st.momentum_buffers()]))
+        torch.cuda.synchronize()
+
+        def same(a, b):
+            return all(torch.equal(x, y) for x, y in zip(runs[a], runs[b]))
+        rec = {"backend": backend, "plain_repeats_bit_equal": same("plain", "plain_again"),
+               "nccl_bit_equal_plain": same("nccl", "plain"),
+               "loss": float(runs["nccl"][0]),
+               "params_max_abs": float((runs["nccl"][1] - runs["plain"][1]).abs().max())}
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    emit({"phase": "dp-nccl", "world_size": 1, **rec})
+    if backend != "nccl" or not rec["nccl_bit_equal_plain"]:
+        raise AssertionError(f"dp-nccl: {rec}")
 
 
 # --- the CLIs ---------------------------------------------------------------
@@ -1803,11 +2103,14 @@ def main() -> None:
     build_kernels()
     rows = [check_k1(), check_k2(), check_k3(), check_k4(), *check_k3_backward()]
     check_k3_valid()
+    check_offsets()
     state = base_state()
     launches = run_slice(state)
     rotational = run_rotational(state)
     run_train_routes(state)
     train, steps = run_train_slice(state)
+    dp = run_dp_phase(launches)
+    run_dp_nccl(state)
     cli = run_cli_phase()
     data = run_drive_augment_phase()
     cli.update(run_mf_cli_phase(data))
@@ -1817,7 +2120,7 @@ def main() -> None:
     # each path's counts, read right after it ran; `launches` is the path
     # that runs the kernel by default (K2: training, K3: the MC ensemble)
     paths = {"mc": launches["main"], "mc_kernel_variant": launches["kernel_variant"],
-             "rotational_shear": rotational["shear"], "train": train, **cli}
+             "rotational_shear": rotational["shear"], "train": train, **dp, **cli}
     for row, name, main_path in zip(rows, ("dropblock_fused_apply", "dropblock_mask",
                                            "conv3x3_pair", "rotate_fan", "conv3x3_pair_dx",
                                            "conv3x3_pair_fold"),

@@ -197,8 +197,10 @@ def test_resume_and_device_flags(aug_data, jax_ckpt, trained, tmp_path):
     base = ["-mode", "train", "-data_path", aug_data, "-num_epochs", "1", "-seed", "7"] + SMALL
     with pytest.raises(ValueError, match="optimizer"):
         training.main(base + ["-save_path", str(tmp_path / "a"), "-resume_from", jax_ckpt] + CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        training.main(base + ["-save_path", str(tmp_path / "b"), "--devices", "2"] + CPU)
+    # a global batch of 1 does not divide over 2 data-parallel ranks
+    with pytest.raises(ValueError, match="does not divide"):
+        training.main(base + ["-save_path", str(tmp_path / "b"), "--devices", "2",
+                              "-train_batch", "1"] + CPU)
     assert not os.path.exists(tmp_path / "a") and not os.path.exists(tmp_path / "b")
     # the port resumes from its own checkpoint: one more epoch after epoch 0
     ckpt = find_checkpoint(join(trained, "model_info"))

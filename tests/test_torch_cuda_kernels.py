@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels against their plain versions on the card, at
 edge shapes the main path does not reach (ragged tiles, channel counts that
 are not multiples of 64, 32 or 16, float32, the smallest and largest block
-sizes, more than 64 output channels). They skip without a card; run them on
-one with
+sizes, more than 64 output channels, K1/K2 at a sample offset). They skip
+without a card; run them on one with
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
 
@@ -81,6 +81,38 @@ def test_dropblock_kernels_match_plain(dev, shape, dtype, b, act, affine):
     rmask, rkeep = dbk.dropblock_mask_plain(shape, key, gamma, b)
     assert torch.equal(mask, rmask) and torch.equal(mkeep, rkeep)
     assert 0 < float(keep.min()) < h * w * c
+
+
+@pytest.mark.parametrize("shape,dtype,b,offsets", [
+    ((4, 37, 45, 20), torch.float32, 7, ((1, 2), (3, 1))),
+    ((5, 33, 66, 70), torch.bfloat16, 3, ((2, 3), (4, 1))),
+    ((2, 40, 70, 64), torch.bfloat16, 17, ((1, 1),)),
+])
+def test_dropblock_kernels_at_a_sample_offset(dev, shape, dtype, b, offsets):
+    """K1 and K2 on rows [k, k+n) at sample_offset k equal rows [k, k+n) of
+    the full launch and the plain versions at offset k (a rank's rows of a
+    global batch)."""
+    from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(shape, device=dev, generator=g).to(dtype)
+    n, h, w, c = shape
+    ab = torch.randn((2, n, c), device=dev, generator=g)
+    gamma = 0.2 * h * w / (b * b * (h - b + 1) * (w - b + 1))
+    key = _key(dev)
+    out, keep = dbk.dropblock_fused_apply(x, ab, key, gamma, b)
+    mask, mkeep = dbk.dropblock_mask(shape, key, gamma, b)
+    for k, m in offsets:
+        xs, abs_ = x[k:k + m].contiguous(), ab[:, k:k + m].contiguous()
+        o, kp = dbk.dropblock_fused_apply(xs, abs_, key, gamma, b, sample_offset=k)
+        ro, rkp = dbk.dropblock_fused_apply_plain(xs, abs_, key, gamma, b, sample_offset=k)
+        assert torch.equal(o, out[k:k + m]) and torch.equal(kp, keep[k:k + m])
+        assert torch.equal(o, ro) and torch.equal(kp, rkp)
+        part = (m, h, w, c)
+        mk, mkp = dbk.dropblock_mask(part, key, gamma, b, sample_offset=k)
+        rmk, rmkp = dbk.dropblock_mask_plain(part, key, gamma, b, sample_offset=k)
+        assert torch.equal(mk, mask[k:k + m]) and torch.equal(mkp, mkeep[k:k + m])
+        assert torch.equal(mk, rmk) and torch.equal(mkp, rmkp)
 
 
 @pytest.mark.parametrize("shape,cout,dtype,path", [

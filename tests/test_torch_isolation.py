@@ -53,7 +53,9 @@ def test_imports_with_jax_blocked():
                      "unet_research_tpu_torch.evaluation.raster",
                      "unet_research_tpu_torch.cli.create_density",
                      "unet_research_tpu_torch.cli.view_tensors",
-                     "unet_research_tpu_torch.cli.run_matrix"):
+                     "unet_research_tpu_torch.cli.run_matrix",
+                     "unet_research_tpu_torch.parallel", "unet_research_tpu_torch.parallel.mesh",
+                     "unet_research_tpu_torch.parallel.launch"):
         assert required in names
     code = f"""
 import importlib, sys

@@ -31,6 +31,7 @@ from unet_research_tpu.train.checkpoint import BestCheckpointKeeper as JKeeper
 from unet_research_tpu.train.loop import lr_find as jlr_find
 from unet_research_tpu_torch.data import ArrayDataset, batch_iterator
 from unet_research_tpu_torch.models import unet as tunet
+from unet_research_tpu_torch.parallel import Mesh
 from unet_research_tpu_torch.train import (
     POLICIES,
     BestCheckpointKeeper,
@@ -308,9 +309,17 @@ def test_fused_route_under_autograd_raises():
 
 
 def test_trainer_rejects_a_mesh_and_a_misplaced_model():
+    """A mesh whose size does not divide train_batch (the global batch)
+    raises before any step; a model on another device than the trainer's
+    raises."""
     model = tunet.UNet(tunet.canonical_config(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Trainer(model, POLICIES["none"], TrainerConfig(), mesh=object(), device="cpu")
+    mesh = Mesh(None, 2, 1, 0, torch.device("cpu"))
+    for batch in (1, 3):
+        with pytest.raises(ValueError, match="does not divide"):
+            Trainer(model, POLICIES["none"], TrainerConfig(train_batch=batch), mesh=mesh,
+                    device="cpu")
+    assert Trainer(model, POLICIES["none"], TrainerConfig(train_batch=4), mesh=mesh,
+                   device="cpu").mesh is mesh
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(model, POLICIES["none"], TrainerConfig())

@@ -13,13 +13,16 @@ Same subpackage layout as the JAX package, one twin per module:
                   and the rotational TTA engine.
 - `train/`        the trainer (SGD + momentum, clipping, plateau LR, early
                   stopping, best-checkpoint keeping, lr_find) and the eight
-                  resize policies.
+                  resize policies; data-parallel under a mesh.
+- `parallel/`     the data-parallel mesh over torch.distributed, its
+                  collectives, and the local rank launcher of `--devices N`.
 - `data/`         the split reader (`load_split`), the in-memory uint8 split
                   and the batch feed.
 - `evaluation/`   FOV metrics and the final_test_metrics harness with its
                   artifacts (numpy, scipy and torch only).
-- `cli/`          the training, dropblock_uncertainty and
-                  rotational_uncertainty entry points.
+- `cli/`          the entry points: the training CLIs, the ensembles, the
+                  generator and the analysis half (`--devices N` on the
+                  four whose JAX twins take a mesh).
 - `utils/`        JAX-params / JAX msgpack / reference-checkpoint reading,
                   the PNG reader and writer, general helpers.
 

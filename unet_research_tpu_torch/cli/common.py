@@ -6,9 +6,17 @@ PL Trainer namespace (Trainer.add_argparse_args,
 base_model_tests/training.py:239-267). The documented flags are kept as
 they are; the Trainer flags that map onto this stack are honoured
 (--gradient_clip_val, --check_val_every_n_epoch, --max_epochs, --precision
-16/bf16 -> torch.bfloat16) and every other one is accepted and ignored
-with a notice. `--gpus/--devices` above 1 raises: data-parallel training is
-not ported yet (ROADMAP item 8).
+16/bf16 -> torch.bfloat16, --gpus/--devices N -> the size of the
+data-parallel mesh) and every other one is accepted and ignored with a
+notice.
+
+`--devices N` above 1 (training, mf_training, lf_training and
+dropblock_uncertainty, the commands whose JAX twins take a mesh): outside a
+process group the command spawns N ranks (parallel/launch.py; rank r on
+cuda:r, or on the CPU over gloo under `-device cpu`), each of which runs
+the command again inside the group on its rows of every batch or chunk;
+rank 0 alone prints and writes, so the output tree is the one-process
+run's. The other commands run on one device and refuse N > 1.
 
 Two differences from the JAX CLIs: `-device cuda|cpu` (default cuda; the
 card, unless the CPU is asked for), and the kernel routes as defaults:
@@ -22,15 +30,19 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 from os.path import join
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from unet_research_tpu_torch.data.dataset import load_split
 from unet_research_tpu_torch.device import resolve_device
 from unet_research_tpu_torch.evaluation.metrics import final_test_metrics
 from unet_research_tpu_torch.models.unet import DropBlockConfig, UNet, canonical_config
+from unet_research_tpu_torch.parallel import launch
+from unet_research_tpu_torch.parallel.mesh import make_mesh
 from unet_research_tpu_torch.train import Trainer, TrainerConfig
 from unet_research_tpu_torch.train.checkpoint import load_checkpoint
 from unet_research_tpu_torch.train.policies import ResizePolicy
@@ -95,7 +107,8 @@ def add_trainer_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--check_val_every_n_epoch", type=int, default=1)
     parser.add_argument("--max_epochs", type=int, default=None)
     parser.add_argument("--gpus", "--devices", dest="devices", type=int, default=1,
-                        help="device count; only 1 (data-parallel training is ROADMAP item 8)")
+                        help="data-parallel ranks (one per card, or CPU ranks under -device "
+                        "cpu); 1 for the commands that run on one device")
     parser.add_argument("--precision", type=str, default="32",
                         help="'bf16'/'16' selects bfloat16 compute")
     parser.add_argument("--auto_lr_find", type=str, default="True")
@@ -103,20 +116,56 @@ def add_trainer_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--detect_anomaly", action="store_true")
 
 
-def parse_with_passthrough(parser: argparse.ArgumentParser, argv=None):
+def parse_with_passthrough(parser: argparse.ArgumentParser, argv=None,
+                           split: Optional[str] = None):
     """parse_known_args, with a notice for the ignored Trainer flags (the
     reference accepts the whole Trainer namespace). Resolves -device (raises
-    when CUDA is asked for and absent) and refuses --devices > 1, before
-    anything is read or written."""
+    when CUDA is asked for and absent) and checks --devices, before anything
+    is read or written.
+
+    split: the flag whose value the ranks of `--devices N` divide
+    (train_batch, chunk); None for a command that runs on one device, which
+    refuses N > 1. Inside a process group (a spawned rank) args.mesh is the
+    mesh of N ranks and args.device this rank's device; else None."""
     args, unknown = parser.parse_known_args(argv)
-    if unknown:
+    if unknown and not dist.is_initialized():
         print(f"[unet_research_tpu_torch] accepted-and-ignored Trainer flags: {unknown}")
-    if getattr(args, "devices", 1) > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices}: data-parallel training across cards is not "
-            "ported yet (ROADMAP item 8); run with one device")
+    n = getattr(args, "devices", 1)
+    if n > 1 and split is None:
+        raise NotImplementedError(f"--devices {n}: this command runs on one device "
+                                  "(its JAX twin takes no mesh); run it with --devices 1")
     args.device = resolve_device(args.device)
+    args.mesh = None
+    if n > 1:
+        if args.device.type == "cuda" and n > torch.cuda.device_count():
+            raise ValueError(f"--devices {n}: this host has {torch.cuda.device_count()} cards")
+        if getattr(args, split) % n:
+            raise ValueError(f"-{split} {getattr(args, split)} does not divide over "
+                             f"--devices {n}")
+        if dist.is_initialized():
+            args.mesh = make_mesh(data=n, device=args.device)
+            args.device = args.mesh.device
     return args
+
+
+def rank0(args) -> bool:
+    """Whether this process prints and writes: one-process runs and rank 0."""
+    return args.mesh is None or args.mesh.rank == 0
+
+
+def run_cli(main: Callable, build_parser: Callable, run: Callable, argv=None,
+            split: Optional[str] = None):
+    """A command's main: parse argv and return run(args). Under `--devices N`
+    outside a process group, spawn N ranks that each call main(argv) and
+    return rank 0's result (the other ranks' runs return None)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_with_passthrough(build_parser(), argv, split)
+    n = getattr(args, "devices", 1)
+    if n > 1 and args.mesh is None:
+        if args.device.type == "cpu":
+            return launch.spawn(main, (argv,), ["cpu"] * n, backend="gloo")
+        return launch.spawn(main, (argv,), [f"cuda:{r}" for r in range(n)])
+    return run(args)
 
 
 def compute_dtype(args) -> torch.dtype:
@@ -178,29 +227,36 @@ def make_trainer(args, policy: ResizePolicy, dropblock_kind: str, remat: bool = 
         profiler=args.profiler,
         detect_anomaly=args.detect_anomaly,
     )
-    return Trainer(model, policy, tcfg, device=args.device)
+    return Trainer(model, policy, tcfg, mesh=args.mesh, device=args.device)
 
 
-def make_output_dir(args) -> str:
+def make_output_dir(args) -> Optional[str]:
     """Seed the run (unless -seed is -1) and create -save_path,
-    suffix-retried, as every CLI of the reference starts."""
+    suffix-retried, as every CLI of the reference starts. None on a rank
+    other than 0, which writes nothing."""
     if args.seed != -1:
         seed_everything(args.seed)
+    if not rank0(args):
+        return None
     dest = create_dir(args.save_path)
     if dest is None:
         raise SystemExit(1)
     return dest
 
 
-def fit_and_score(trainer: Trainer, dest: str, train_ds, val_ds, test_ds, size_plan=None,
-                  resume_from: Optional[str] = None) -> str:
+def fit_and_score(trainer: Trainer, dest: Optional[str], train_ds, val_ds, test_ds,
+                  size_plan=None, resume_from: Optional[str] = None) -> Optional[str]:
     """-mode train after the data is read: fit into dest/model_info, reload
     the best checkpoint and write the final metrics into dest/statistics
-    (training.py:227-231)."""
-    model_info = join(dest, "model_info")
-    os.makedirs(model_info)
+    (training.py:227-231). dest None: a rank other than 0, which takes part
+    in the fit only."""
+    model_info = None if dest is None else join(dest, "model_info")
+    if dest is not None:
+        os.makedirs(model_info)
     _, history, keeper = trainer.fit(train_ds, val_ds, model_info, size_plan=size_plan,
                                      resume_from=resume_from)
+    if dest is None:
+        return None
     params, _, _ = load_checkpoint(keeper.best_path)
     statistics = join(dest, "statistics")
     os.makedirs(statistics)
@@ -208,10 +264,13 @@ def fit_and_score(trainer: Trainer, dest: str, train_ds, val_ds, test_ds, size_p
     return dest
 
 
-def score_checkpoint(args, trainer_for) -> str:
+def score_checkpoint(args, trainer_for) -> Optional[str]:
     """-mode test: the final metrics of -model_path (a JAX msgpack
     checkpoint, a reference PL .ckpt or the port's own) on the val and test
-    splits, under the trainer that trainer_for(args, remat=False) builds."""
+    splits, under the trainer that trainer_for(args, remat=False) builds.
+    Under a mesh rank 0 predicts alone."""
+    if not rank0(args):
+        return None
     stats = make_output_dir(args)
     _, val_ds, test_ds = load_datasets(args.data_path, with_train=False)
     trainer = trainer_for(args, remat=False)

@@ -49,13 +49,17 @@ def _host(*tensors):
     return tuple(t.cpu().numpy() for t in tensors)
 
 
-def test_uncertainty(args) -> str:
+def test_uncertainty(args) -> str | None:
+    """Both phases; under a mesh every rank runs the engine on its members
+    and rank 0 alone writes (the other ranks return None)."""
     if args.seed != -1:
         seed_everything(args.seed)
-    stats = create_dir(args.save_path)
-    if stats is None:
+    writes = common.rank0(args)
+    stats = create_dir(args.save_path) if writes else None
+    if writes and stats is None:
         raise SystemExit(1)
-    os.symlink(os.path.abspath(args.model_path), join(stats, "model_ckpt_symlink.ckpt"))
+    if writes:
+        os.symlink(os.path.abspath(args.model_path), join(stats, "model_ckpt_symlink.ckpt"))
 
     _, val_ds, test_ds = common.load_datasets(args.data_path, with_train=False)
     model = common.build_unet(
@@ -63,22 +67,26 @@ def test_uncertainty(args) -> str:
         use_scheduler=False, drop_prob=args.drop_prob)
     model.load_state_dict(load_model_checkpoint(args.model_path, model.cfg)[0])
     engine = MCDropBlockEngine(model, num_iterations=args.iter_num, return_num=args.save_num,
-                               resize=args.resize, chunk=args.chunk, device=args.device)
+                               resize=args.resize, chunk=args.chunk, device=args.device,
+                               mesh=args.mesh)
     seed = args.seed if args.seed != -1 else 0
 
     # phase 1: save tensors (Dropblock_Uncertainty.py:152-165)
-    tens = join(stats, "tensors")
-    os.makedirs(tens)
+    tens = join(stats, "tensors") if writes else None
+    if writes:
+        os.makedirs(tens)
     means = {}
     for i, (im, gt, mask) in enumerate(batch_iterator(val_ds, 1, False, device=args.device)):
         mean, std, saved = _host(*engine.predict(im, gt, mask, args.drop_prob,
                                                  generator=image_generator(seed, i))[:3])
+        means[i] = mean
+        if not writes:
+            continue
         im_dir = join(tens, f"image_{i}")
         os.makedirs(im_dir)
         artifacts.save_tensor_batched(mean, join(im_dir, "mean.pt"))
         artifacts.save_tensor_batched(std, join(im_dir, "std.pt"))
         artifacts.save_stacked_tensors(saved, join(im_dir, "tensors.pt"))
-        means[i] = mean
         print(f"saved MC tensors for image {i}")
 
     # phase 2: evaluate the MC mean (Dropblock_Uncertainty.py:167-172)
@@ -93,6 +101,10 @@ def test_uncertainty(args) -> str:
                     im, gt, mask, args.drop_prob, generator=image_generator(seed, 100_000 + i)))
             yield i, mean, im2, gt2, mask2
 
+    if not writes:
+        for _ in mc_predict(val_ds):  # the ensembles rank 0's scoring runs
+            pass
+        return None
     statistics = join(stats, "statistics")
     os.makedirs(statistics)
     final_test_metrics(mc_predict, val_ds, test_ds, statistics, disable_test=True)
@@ -125,7 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    return test_uncertainty(common.parse_with_passthrough(build_parser(), argv))
+    return common.run_cli(main, build_parser, test_uncertainty, argv, split="chunk")
 
 
 if __name__ == "__main__":

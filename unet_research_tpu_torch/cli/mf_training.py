@@ -20,8 +20,10 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
+import torch
 
 from unet_research_tpu_torch.cli import common
+from unet_research_tpu_torch.parallel.mesh import broadcast_
 from unet_research_tpu_torch.train import POLICIES, Trainer, make_size_plan
 
 
@@ -29,24 +31,29 @@ def make_trainer(args, remat: bool = True) -> Trainer:
     return common.make_trainer(args, POLICIES[args.policy], "independent", remat)
 
 
-def size_plan_for(args, n_train: int) -> np.ndarray:
+def size_plan_for(args, n_train: int, mesh=None) -> np.ndarray:
     """The per-item size plan (make_size_plan from a generator seeded with
     -seed), cycled or truncated to the n_train items, as JAX
-    mf_training.py:61-71 does."""
+    mf_training.py:61-71 does. Under `mesh` every rank takes rank 0's (an
+    unseeded -seed -1 draws differently on each)."""
     plan_rng = np.random.default_rng(args.seed if args.seed != -1 else None)
     size_plan = make_size_plan(args.policy, args.orig_train_size, args.num_augmentations, plan_rng)
     if len(size_plan) != n_train:
-        print(f"[mf_training] size plan covers {len(size_plan)} items but train set"
-              f" has {n_train}; plan will be cycled/truncated like batch_idx")
+        if mesh is None or mesh.rank == 0:
+            print(f"[mf_training] size plan covers {len(size_plan)} items but train set"
+                  f" has {n_train}; plan will be cycled/truncated like batch_idx")
         reps = -(-n_train // len(size_plan))
         size_plan = np.tile(size_plan, reps)[:n_train]
+    if mesh is not None:
+        plan = torch.from_numpy(size_plan.astype(np.int64)).to(mesh.device)
+        size_plan = broadcast_(plan, mesh).cpu().numpy()
     return size_plan
 
 
 def training(args) -> str:
     dest = common.make_output_dir(args)
     train_ds, val_ds, test_ds = common.load_datasets(args.data_path)
-    size_plan = size_plan_for(args, len(train_ds))
+    size_plan = size_plan_for(args, len(train_ds), args.mesh)
     return common.fit_and_score(make_trainer(args), dest, train_ds, val_ds, test_ds,
                                 size_plan=size_plan)
 
@@ -68,7 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    return common.run_mode(common.parse_with_passthrough(build_parser(), argv), training, testing)
+    return common.run_cli(main, build_parser, lambda args: common.run_mode(args, training, testing),
+                          argv, split="train_batch")
 
 
 if __name__ == "__main__":

@@ -60,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    return common.run_mode(common.parse_with_passthrough(build_parser(), argv), training, testing)
+    return common.run_cli(main, build_parser, lambda args: common.run_mode(args, training, testing),
+                          argv, split="train_batch")
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ The reference leans on DataLoader worker processes
 memory as uint8, so a batch is a numpy slice normalised to float32, copied
 from pinned memory with `non_blocking=True`, `prefetch` batches ahead of
 the one the caller is using: the copies overlap the previous steps' device
-work. `shard_batch` (data-parallel feeding) waits for ROADMAP item 8.
+work. Under a mesh each rank takes, and uploads, only its rows of every
+global batch (`shard_batch`, data-parallel feeding).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from unet_research_tpu_torch.data.dataset import ArrayDataset
 from unet_research_tpu_torch.device import resolve_device
+from unet_research_tpu_torch.parallel.mesh import shard_rows
 
 
 def to_device(arrays, device: torch.device) -> tuple:
@@ -34,7 +36,7 @@ def to_device(arrays, device: torch.device) -> tuple:
 
 def batch_iterator(ds: ArrayDataset, batch_size: int, shuffle: bool,
                    rng: Optional[np.random.Generator] = None, drop_last: bool = False,
-                   device=None, prefetch: int = 1) -> Iterator[tuple]:
+                   device=None, prefetch: int = 1, mesh=None) -> Iterator[tuple]:
     """Yield (image, target, mask) float32 NHWC batches on `device` (the
     card unless the caller asks for the CPU).
 
@@ -42,7 +44,9 @@ def batch_iterator(ds: ArrayDataset, batch_size: int, shuffle: bool,
     package does, so one seed gives one order in both; shuffle=False keeps
     the order so batch_idx can index the MF size plans. drop_last drops a
     final partial batch. prefetch: how many batches beyond the one yielded
-    are already copied to the device."""
+    are already copied to the device. mesh: yield this rank's rows of each
+    batch (every rank shuffles alike from an equally seeded rng); a batch
+    size the ranks do not divide raises ValueError before the first batch."""
     device = resolve_device(device)
     n = len(ds)
     order = np.arange(n)
@@ -51,13 +55,19 @@ def batch_iterator(ds: ArrayDataset, batch_size: int, shuffle: bool,
             rng = np.random.default_rng()
         rng.shuffle(order)
     stop = n - n % batch_size if drop_last else n
+    if mesh is not None:
+        for size in {min(batch_size, stop - s) for s in range(0, stop, batch_size)}:
+            shard_rows(size, mesh)
     starts = iter(range(0, stop, batch_size))
     pending: deque = deque()
 
     def make_next() -> None:
         s = next(starts, None)
         if s is not None:
-            pending.append(to_device(ds[order[s:s + batch_size]], device))
+            idx = order[s:s + batch_size]
+            if mesh is not None:
+                idx = shard_batch(idx, mesh)
+            pending.append(to_device(ds[idx], device))
 
     for _ in range(prefetch + 1):
         make_next()
@@ -65,3 +75,13 @@ def batch_iterator(ds: ArrayDataset, batch_size: int, shuffle: bool,
         out = pending.popleft()
         make_next()
         yield out
+
+
+def shard_batch(batch, mesh):
+    """This rank's rows of a global batch: an array or tensor, or a tuple of
+    them, sliced on dim 0 (twin of JAX shard_batch, which places a host
+    batch with the 'data' sharding)."""
+    if isinstance(batch, tuple):
+        return tuple(shard_batch(a, mesh) for a in batch)
+    lo, hi = shard_rows(len(batch), mesh)
+    return batch[lo:hi]

@@ -18,7 +18,8 @@ carries one more (bare) DropBlock site. Norm modules hold parameters only:
 GroupNorm is computed by `group_norm_affine` (float32 statistics, the apply
 in the storage dtype), as in the JAX model.
 
-`forward(x, drop_prob=None, site_keys=None, train=False)` takes and returns NHWC.
+`forward(x, drop_prob=None, site_keys=None, train=False, mesh=None)` takes and
+returns NHWC; under a mesh x is this rank's rows of a global batch.
 `drop_prob=None` switches DropBlock off; otherwise `site_keys` is an (S, 2)
 int64 tensor of uint32 key words, one row per mask site in call order (see
 `num_mask_sites`), the keys the JAX model draws with `make_rng`. Activations
@@ -57,12 +58,15 @@ from unet_research_tpu_torch.ops.cuda.dropblock_kernel import (
 )
 from unet_research_tpu_torch.ops.cuda.pair_conv import conv3x3_pair, conv3x3_pair_valid
 from unet_research_tpu_torch.ops.dropblock import (
+    batch_keep,
     dropblock_dependent,
     dropblock_gamma_dependent,
     dropblock_gamma_independent,
     dropblock_independent,
+    keep_scale,
 )
 from unet_research_tpu_torch.ops.image import center_crop, crop_to, pad_to_multiple
+from unet_research_tpu_torch.parallel.mesh import psum, rank_offset
 
 _ACTIVATIONS = ("relu", "leaky_relu", "elu", "gelu", "silu", "tanh", "sigmoid", "none")
 
@@ -285,14 +289,20 @@ class UNet(nn.Module):
         merges = cfg.model_depth if cfg.connection != "none" else 0
         return convs + merges
 
-    def forward(self, x, drop_prob=None, site_keys=None, train: bool = False):
+    def forward(self, x, drop_prob=None, site_keys=None, train: bool = False, mesh=None):
         """x: NHWC float batch -> (N, H, W, output_channels) float32 in [0, 1].
 
         train: the JAX model's static `train` (models/unet.py:720-724):
         BatchNorm normalises with batch statistics and updates its running
         ones, and the mask sites take the mask producer instead of the
-        forward-only fused kernel. DropBlock is switched by drop_prob."""
-        return _Pass(self, drop_prob, site_keys, train).run(x)
+        forward-only fused kernel. DropBlock is switched by drop_prob.
+        mesh: x is this rank's rows of a global batch, every rank holding as
+        many (parallel/mesh.py). The pass then computes those rows of the
+        global batch's forward, as JAX's sharded model does: every mask
+        site draws at the rows' global indices, and the whole-batch
+        DropBlock rescale and BatchNorm's batch statistics (train mode) sum
+        over the ranks. Every rank must run the same pass."""
+        return _Pass(self, drop_prob, site_keys, train, mesh).run(x)
 
 
 def draw_site_keys(num_sites: int, generator: torch.Generator) -> torch.Tensor:
@@ -308,13 +318,15 @@ class _Pass:
     runs (`take`), so a block that remat runs again in the backward draws
     the same masks."""
 
-    def __init__(self, model: UNet, drop_prob, site_keys, train: bool):
+    def __init__(self, model: UNet, drop_prob, site_keys, train: bool, mesh):
         cfg = model.cfg
         db = cfg.dropblock
         self.model, self.cfg, self.db = model, cfg, db
         self.dtype = cfg.dtype
         self.drop_prob = drop_prob
         self.train = train
+        self.mesh = mesh
+        self.sample_offset = 0  # the global row of x's first sample, set by run
         # set when the forward is done: a block that runs after that is a
         # remat re-run, which must not update BatchNorm's running statistics
         self.recomputing = False
@@ -390,23 +402,36 @@ class _Pass:
             return group_norm_affine(x, mod.weight, mod.bias, cfg.group_norm_groups,
                                      1e-5, self.dtype, sums=sums)
         if cfg.norm == "batch":
-            # torch BatchNorm2d: eps 1e-5, momentum 0.1. In train mode the
-            # batch statistics normalise and the running ones update (torch's
-            # unbiased variance; flax's is biased), once: a remat re-run
-            # updates throw-away copies
-            x32 = _nchw(x.to(torch.float32))
+            x32 = x.to(torch.float32)
             if self.train:
-                mean, var = mod.running_mean, mod.running_var
-                if self.recomputing:
-                    mean, var = mean.clone(), var.clone()
-                else:
-                    mod.num_batches_tracked.add_(1)
-                y = F.batch_norm(x32, mean, var, mod.weight, mod.bias, True, 0.1, 1e-5)
-            else:
-                y = F.batch_norm(x32, mod.running_mean, mod.running_var,
-                                 mod.weight, mod.bias, False, 0.0, 1e-5)
+                return self.batch_norm_train(x32, mod).to(self.dtype)
+            y = F.batch_norm(_nchw(x32), mod.running_mean, mod.running_var,
+                             mod.weight, mod.bias, False, 0.0, 1e-5)
             return _nhwc(y).to(self.dtype)
         return x
+
+    def batch_norm_train(self, x, mod):
+        """Train-mode BatchNorm of NHWC float32 x in flax's arithmetic: the
+        batch's per-channel mean and biased variance E[x^2] - E[x]^2
+        (clamped at 0) from the sums of x and x^2, eps 1e-5. Under a mesh
+        the sums and the count are the global batch's (a differentiable
+        psum). The running statistics update as torch's BatchNorm2d does
+        (momentum 0.1, the unbiased variance; flax's is biased), once: a
+        remat re-run leaves them alone."""
+        n, h, w, c = x.shape
+        sums = torch.stack([x.sum(dim=(0, 1, 2)), (x * x).sum(dim=(0, 1, 2))])
+        count = n * h * w
+        if self.mesh is not None:
+            sums = psum(sums, self.mesh)
+            count *= self.mesh.size
+        mean = sums[0] / count
+        var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
+        if not self.recomputing:
+            with torch.no_grad():
+                mod.running_mean.mul_(0.9).add_(0.1 * mean)
+                mod.running_var.mul_(0.9).add_(0.1 * var * (count / (count - 1)))
+                mod.num_batches_tracked.add_(1)
+        return (x - mean) * (torch.rsqrt(var + 1e-5) * mod.weight) + mod.bias
 
     def act(self, x):
         a = self.cfg.activation
@@ -447,22 +472,15 @@ class _Pass:
         out, keep = dropblock_fused_apply(
             x.contiguous(), ab, key, gamma_fn(h, w, db.block_size, self.drop_prob),
             db.block_size, act=cfg.activation if with_act else "none",
-            slope=cfg.negative_slope)
+            slope=cfg.negative_slope, sample_offset=self.sample_offset)
         out = out.to(self.dtype)
         if rescale == "skip":
             return out
         # the per-sample and whole-batch scales of the JAX model (:410-422)
-        if db.kind == "dependent":
-            per = float(h * w * c) / keep
-            whole = float(n * h * w * c) / keep.sum()
-        else:
-            kf = keep / float(h * w * c)
-            per = torch.where(kf != 0, 1.0 / kf, torch.ones_like(kf))
-            kfw = keep.sum() / float(n * h * w * c)
-            whole = torch.where(kfw != 0, 1.0 / kfw, torch.ones_like(kfw))
         if rescale == "defer":
-            return out, per
-        return out * whole.to(out.dtype)
+            return out, keep_scale(db.kind, keep, float(h * w * c))
+        total, numel = batch_keep(keep, n * h * w * c, self.mesh)
+        return out * keep_scale(db.kind, total, numel).to(out.dtype)
 
     def dropblock(self, x, key, rescale: str = "apply"):
         """A bare mask site (the skip merge, or after a norm). Under autograd
@@ -473,7 +491,7 @@ class _Pass:
             return self.fused_site(x, key, None, rescale, with_act=False)
         fn = dropblock_dependent if self.db.kind == "dependent" else dropblock_independent
         return fn(x, key, self.drop_prob, self.db.block_size,
-                  mask_impl=self.db.mask_impl, rescale=rescale)
+                  mask_impl=self.db.mask_impl, rescale=rescale, mesh=self.mesh)
 
     def norm_db_act(self, x, key, norm_mod, rescale: str, sums=None):
         """The conv epilogue norm -> DropBlock -> activation."""
@@ -552,6 +570,7 @@ class _Pass:
     def run(self, x):
         cfg = self.cfg
         x = x.to(device=self.model.output_conv[0].weight.device, dtype=self.dtype)
+        self.sample_offset = rank_offset(self.mesh, x.shape[0])
         x, orig_hw = pad_to_multiple(x, 2 ** cfg.model_depth)
         x = x.contiguous()
         want_skip_scale = self.fold and cfg.connection != "none"

@@ -7,9 +7,10 @@
 //
 // What it computes, per (n, h, w, c) of an NHWC tensor:
 //   seed(n,h,w,c)    = interior(h, w) && u(idx) < gamma,
-//                      idx = ((n*H + h)*W + w)*C + c, u = the port's counter
+//                      idx = (((o+n)*H + h)*W + w)*C + c, u = the port's counter
 //                      hash (ops/dropblock.py::hash_uniform) keyed by two
-//                      uint32 words, interior = [p, H-1-p] x [p, W-1-p];
+//                      uint32 words, interior = [p, H-1-p] x [p, W-1-p],
+//                      o = sample_offset (a rank's first global row);
 //   dropped(n,h,w,c) = OR of seed over the b x b window centred at (h, w);
 //   K1: out = act(dropped ? 0 : (x*a + b)), a/b per (n, c), rounded in the
 //       storage type after each op as the plain version does;
@@ -152,8 +153,8 @@ template <typename T, int MODE, int P, int TW>
 __device__ __forceinline__ void dropblock_tile(
         const T* __restrict__ x, T* __restrict__ out, int8_t* __restrict__ mask,
         const float* __restrict__ ab, unsigned long long* __restrict__ keep,
-        const long long* __restrict__ key, int N, int H, int W, int C, uint32_t threshold,
-        int p_rt, int act, float slope) {
+        const long long* __restrict__ key, int N, int H, int W, int C, int sample_offset,
+        uint32_t threshold, int p_rt, int act, float slope) {
     constexpr int MAXP = P > 0 ? P : 8;
     constexpr int SH = TH + 2 * MAXP;
     constexpr int SWM = TW + 2 * MAXP;
@@ -180,7 +181,10 @@ __device__ __forceinline__ void dropblock_tile(
     const uint32_t lim = (threshold << 8) - 1u;
 
     // 1. seed words of the tile and its halo, one position per thread. The
-    //    flat index runs in uint32: it is < 2^32 wherever a seed can sit.
+    //    flat index is global: sample n of this launch is row
+    //    sample_offset + n of the batch the counter spans (a rank's rows of
+    //    a global batch), and it runs in uint32: the wrapper checks that
+    //    (sample_offset + N) * H * W * C < 2^32.
     const int plane_s = sh * sw;
     for (int q = tid; q < plane_s; q += THREADS) {
         const int r = q / sw;
@@ -190,7 +194,8 @@ __device__ __forceinline__ void dropblock_tile(
         uint32_t word0 = 0, word1 = 0;
         if (threshold != 0 && hh >= p && hh <= H - 1 - p && ww >= p && ww <= W - 1 - p) {
             const uint32_t base_k =
-                ((((uint32_t)n * H + (uint32_t)hh) * W + (uint32_t)ww) * C + cs) * HASH_K;
+                ((((uint32_t)(sample_offset + n) * H + (uint32_t)hh) * W + (uint32_t)ww) * C + cs)
+                * HASH_K;
             word0 = seed_word(base_k, 0, k0, k1, lim) & cm0;
             if (nch > 32) word1 = seed_word(base_k, 32, k0, k1, lim) & cm1;
         }
@@ -304,19 +309,19 @@ template <typename T, int P, int TW>
 __global__ void __launch_bounds__(THREADS, 4)
 dropblock_apply_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __restrict__ ab,
                        unsigned long long* __restrict__ keep, const long long* __restrict__ key,
-                       int N, int H, int W, int C, uint32_t threshold, int p, int act,
-                       float slope) {
-    dropblock_tile<T, 1, P, TW>(x, out, nullptr, ab, keep, key, N, H, W, C, threshold, p, act,
-                                slope);
+                       int N, int H, int W, int C, int sample_offset, uint32_t threshold, int p,
+                       int act, float slope) {
+    dropblock_tile<T, 1, P, TW>(x, out, nullptr, ab, keep, key, N, H, W, C, sample_offset,
+                                threshold, p, act, slope);
 }
 
 template <int P, int TW>
 __global__ void __launch_bounds__(THREADS, 4)
 dropblock_mask_kernel(int8_t* __restrict__ mask, unsigned long long* __restrict__ keep,
                       const long long* __restrict__ key, int N, int H, int W, int C,
-                      uint32_t threshold, int p) {
+                      int sample_offset, uint32_t threshold, int p) {
     dropblock_tile<float, 0, P, TW>(nullptr, nullptr, mask, nullptr, keep, key, N, H, W, C,
-                                    threshold, p, 0, 0.0f);
+                                    sample_offset, threshold, p, 0, 0.0f);
 }
 
 dim3 grid_for(int N, int H, int W, int C, int tw) {
@@ -325,16 +330,16 @@ dim3 grid_for(int N, int H, int W, int C, int tw) {
 
 template <typename T>
 void launch_apply(const void* x, void* out, const float* ab, void* keep, const void* key, int N,
-                  int H, int W, int C, unsigned threshold, int p, int act, float slope,
-                  cudaStream_t s) {
+                  int H, int W, int C, int sample_offset, unsigned threshold, int p, int act,
+                  float slope, cudaStream_t s) {
     if (p == 3) {
         dropblock_apply_kernel<T, 3, 64><<<grid_for(N, H, W, C, 64), THREADS, 0, s>>>(
             (const T*)x, (T*)out, ab, (unsigned long long*)keep, (const long long*)key, N, H, W,
-            C, threshold, p, act, slope);
+            C, sample_offset, threshold, p, act, slope);
     } else {
         dropblock_apply_kernel<T, 0, 32><<<grid_for(N, H, W, C, 32), THREADS, 0, s>>>(
             (const T*)x, (T*)out, ab, (unsigned long long*)keep, (const long long*)key, N, H, W,
-            C, threshold, p, act, slope);
+            C, sample_offset, threshold, p, act, slope);
     }
 }
 
@@ -345,35 +350,39 @@ void launch_apply(const void* x, void* out, const float* ab, void* keep, const v
 // is drawn where the hash's top 24 bits, as an integer, are below it, which
 // is exactly u < gamma for the float32 uniform u = (bits >> 8) * 2^-24.
 // ab: (2, N, C) float32 or null. keep: (N,) 64-bit, zeroed by the caller.
-// key: two int64 words on the device. x and out 16-byte aligned. Odd
-// block_size <= 17. Returns cudaGetLastError().
+// key: two int64 words on the device. sample_offset: the global index of
+// sample 0, where its hash counters start ((sample_offset + N) * H * W * C
+// < 2^32); keep and the output stay indexed by the local sample. x and out
+// 16-byte aligned. Odd block_size <= 17. Returns cudaGetLastError().
 extern "C" int dropblock_fused_apply_launch(const void* x, void* out, const float* ab,
                                             void* keep, const void* key, int N, int H,
-                                            int W, int C, unsigned threshold,
+                                            int W, int C, int sample_offset, unsigned threshold,
                                             int block_size, int act, float slope, int dtype,
                                             void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     const int p = block_size / 2;
     if (dtype == 0)
-        launch_apply<float>(x, out, ab, keep, key, N, H, W, C, threshold, p, act, slope, s);
+        launch_apply<float>(x, out, ab, keep, key, N, H, W, C, sample_offset, threshold, p, act,
+                            slope, s);
     else
-        launch_apply<__nv_bfloat16>(x, out, ab, keep, key, N, H, W, C, threshold, p, act, slope, s);
+        launch_apply<__nv_bfloat16>(x, out, ab, keep, key, N, H, W, C, sample_offset, threshold,
+                                    p, act, slope, s);
     return (int)cudaGetLastError();
 }
 
 extern "C" int dropblock_mask_launch(void* mask, void* keep, const void* key, int N, int H,
-                                     int W, int C, unsigned threshold, int block_size,
-                                     void* stream) {
+                                     int W, int C, int sample_offset, unsigned threshold,
+                                     int block_size, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     const int p = block_size / 2;
     if (p == 3) {
         dropblock_mask_kernel<3, 64><<<grid_for(N, H, W, C, 64), THREADS, 0, s>>>(
             (int8_t*)mask, (unsigned long long*)keep, (const long long*)key, N, H, W, C,
-            threshold, p);
+            sample_offset, threshold, p);
     } else {
         dropblock_mask_kernel<0, 32><<<grid_for(N, H, W, C, 32), THREADS, 0, s>>>(
             (int8_t*)mask, (unsigned long long*)keep, (const long long*)key, N, H, W, C,
-            threshold, p);
+            sample_offset, threshold, p);
     }
     return (int)cudaGetLastError();
 }

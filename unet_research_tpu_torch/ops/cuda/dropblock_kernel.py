@@ -46,9 +46,9 @@ def _library():
     if _lib is None:
         lib = load_library("dropblock")
         p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-        lib.dropblock_fused_apply_launch.argtypes = [p, p, p, p, p, i, i, i, i, u, i, i, f, i, p]
+        lib.dropblock_fused_apply_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, u, i, i, f, i, p]
         lib.dropblock_fused_apply_launch.restype = i
-        lib.dropblock_mask_launch.argtypes = [p, p, p, i, i, i, i, u, i, p]
+        lib.dropblock_mask_launch.argtypes = [p, p, p, i, i, i, i, i, u, i, p]
         lib.dropblock_mask_launch.restype = i
         _lib = lib
     return _lib
@@ -61,14 +61,14 @@ def seed_threshold(gamma) -> int:
     return min(max(math.ceil(f32(gamma) * float(1 << 24)), 0), 1 << 24)
 
 
-def _check_args(shape, key_words, block_size):
+def _check_args(shape, key_words, block_size, sample_offset):
     if not dropblock_kernel_supported(block_size):
         raise ValueError("dropblock kernel requires odd 1 < block_size <= 17")
     if len(shape) != 4:
         raise ValueError(f"expected an NHWC shape, got {tuple(shape)}")
     n, h, w, c = shape
-    if n * h * w * c >= 2**32:
-        raise ValueError("dropblock kernel: the flat NHWC index must fit in uint32")
+    if sample_offset < 0 or (sample_offset + n) * h * w * c >= 2**32:
+        raise ValueError("dropblock kernel: the global flat NHWC index must fit in uint32")
     if tuple(key_words.shape) != (2,) or key_words.dtype != torch.int64:
         raise ValueError("key_words must be an int64 tensor of shape (2,)")
 
@@ -84,11 +84,11 @@ def _apply_act(y, act: str, slope: float):
 
 
 def dropblock_fused_apply_plain(x, ab, key_words, gamma, block_size: int,
-                                act: str = "relu", slope: float = 0.01):
+                                act: str = "relu", slope: float = 0.01, sample_offset: int = 0):
     """K1's plain version: the same function in PyTorch ops. x*a and then +b
     are each rounded in x's dtype, as the JAX GroupNorm apply does."""
     n, h, w, c = x.shape
-    dropped = dropped_blocks(tuple(x.shape), key_words, gamma, block_size)
+    dropped = dropped_blocks(tuple(x.shape), key_words, gamma, block_size, sample_offset)
     y = x
     if ab is not None:
         y = (x * ab[0].to(x.dtype)[:, None, None, :]) + ab[1].to(x.dtype)[:, None, None, :]
@@ -99,19 +99,23 @@ def dropblock_fused_apply_plain(x, ab, key_words, gamma, block_size: int,
 
 
 def dropblock_fused_apply(x, ab, key_words, gamma, block_size: int,
-                          act: str = "relu", slope: float = 0.01):
+                          act: str = "relu", slope: float = 0.01, sample_offset: int = 0):
     """act((x*a + b) * keep_mask) and per-sample keep counts in one pass.
 
     x: (N, H, W, C) float32/bfloat16, contiguous NHWC. ab: (2, N, C) float32
     GroupNorm-affine coefficients, or None (the bare skip-merge site).
     key_words: int64 (2,) holding two uint32 words, on x's device. gamma: the
-    seed probability (rounded to float32). Returns (out in x.dtype, keep (N,)
-    float32). Forward only. CPU tensors take the plain version."""
-    _check_args(x.shape, key_words, block_size)
+    seed probability (rounded to float32). sample_offset: the global index
+    of sample 0 (a rank's first row of a global batch), where its hash
+    counters start; rows [k, k+n) of an N-sample launch equal the n-sample
+    launch at offset k. Returns (out in x.dtype, keep (N,) float32). Forward
+    only. CPU tensors take the plain version."""
+    _check_args(x.shape, key_words, block_size, sample_offset)
     if act not in _ACTS:
         raise ValueError(f"unsupported activation {act!r}")
     if not x.is_cuda:
-        return dropblock_fused_apply_plain(x, ab, key_words, gamma, block_size, act, slope)
+        return dropblock_fused_apply_plain(x, ab, key_words, gamma, block_size, act, slope,
+                                           sample_offset)
     if x.dtype not in _DTYPES or not x.is_contiguous():
         raise ValueError("dropblock_fused_apply: x must be contiguous NHWC float32/bfloat16")
     n, h, w, c = x.shape
@@ -127,7 +131,8 @@ def dropblock_fused_apply(x, ab, key_words, gamma, block_size: int,
     keep = torch.zeros(n, dtype=torch.int64, device=x.device)
     status = _library().dropblock_fused_apply_launch(
         x.data_ptr(), out.data_ptr(), None if ab is None else ab.data_ptr(),
-        keep.data_ptr(), key_words.data_ptr(), n, h, w, c, seed_threshold(gamma), block_size,
+        keep.data_ptr(), key_words.data_ptr(), n, h, w, c, sample_offset, seed_threshold(gamma),
+        block_size,
         _ACTS[act], float(slope), _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     check(status, "dropblock_fused_apply")
@@ -138,23 +143,25 @@ def dropblock_fused_apply(x, ab, key_words, gamma, block_size: int,
 dropblock_fused_apply.launches = 0
 
 
-def dropblock_mask_plain(shape, key_words, gamma, block_size: int):
+def dropblock_mask_plain(shape, key_words, gamma, block_size: int, sample_offset: int = 0):
     """K2's plain version: int8 keep-mask (N, H, W, C) and keep counts."""
-    keep_mask = (~dropped_blocks(tuple(shape), key_words, gamma, block_size)).to(torch.int8)
+    keep_mask = (~dropped_blocks(tuple(shape), key_words, gamma, block_size,
+                                 sample_offset)).to(torch.int8)
     return keep_mask, keep_mask.sum(dim=(1, 2, 3)).to(torch.float32)
 
 
-def dropblock_mask(shape, key_words, gamma, block_size: int):
+def dropblock_mask(shape, key_words, gamma, block_size: int, sample_offset: int = 0):
     """Dense int8 keep-mask (N, H, W, C) and keep counts (N,) float32, on
-    key_words' device. CPU key words take the plain version."""
-    _check_args(shape, key_words, block_size)
+    key_words' device, with the samples at global rows sample_offset + n (as
+    in dropblock_fused_apply). CPU key words take the plain version."""
+    _check_args(shape, key_words, block_size, sample_offset)
     if not key_words.is_cuda:
-        return dropblock_mask_plain(shape, key_words, gamma, block_size)
+        return dropblock_mask_plain(shape, key_words, gamma, block_size, sample_offset)
     n, h, w, c = (int(s) for s in shape)
     mask = torch.empty((n, h, w, c), dtype=torch.int8, device=key_words.device)
     keep = torch.zeros(n, dtype=torch.int64, device=key_words.device)
     status = _library().dropblock_mask_launch(
-        mask.data_ptr(), keep.data_ptr(), key_words.data_ptr(), n, h, w, c,
+        mask.data_ptr(), keep.data_ptr(), key_words.data_ptr(), n, h, w, c, sample_offset,
         seed_threshold(gamma), block_size,
         torch.cuda.current_stream(key_words.device).cuda_stream)
     check(status, "dropblock_mask")

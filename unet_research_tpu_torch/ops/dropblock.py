@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from unet_research_tpu_torch.parallel.mesh import psum, rank_offset
+
 _M32 = 0xFFFFFFFF
 
 
@@ -62,20 +64,24 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
 
 
-def hash_uniform(key_words: torch.Tensor, shape) -> torch.Tensor:
+def hash_uniform(key_words: torch.Tensor, shape, sample_offset: int = 0) -> torch.Tensor:
     """Counter-hash uniforms in [0, 1), float32, on key_words' device.
 
     The murmur-style mixer of the JAX package (ops/dropblock.py:91-113) over
     the flat row-major index of `shape`, keyed by the first and last of the
     uint32 key words (an int64 tensor). Bit-identical to JAX's
-    `_hash_uniform` for the same key words."""
+    `_hash_uniform` for the same key words. sample_offset: the global index
+    of row 0 (a rank's first row of a global batch): the counter starts at
+    sample_offset * prod(shape[1:]), so rows [k, k+n) of an N-row draw equal
+    the n-row draw at offset k, as XLA's partitioned iota gives them."""
     kd = key_words.reshape(-1).to(torch.int64) & _M32
-    n = 1
-    for s in shape:
-        n *= int(s)
-    if n >= 2**32:
-        raise ValueError(f"hash_uniform: {n} elements exceed the uint32 counter")
-    x = torch.arange(n, dtype=torch.int64, device=kd.device).reshape(tuple(shape))
+    inner = 1
+    for s in shape[1:]:
+        inner *= int(s)
+    start, stop = sample_offset * inner, (sample_offset + int(shape[0])) * inner
+    if stop > 2**32:
+        raise ValueError(f"hash_uniform: {stop} counters exceed the uint32 counter")
+    x = torch.arange(start, stop, dtype=torch.int64, device=kd.device).reshape(tuple(shape))
     x = _mul32(x, 2654435761) ^ kd[0]
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)
@@ -104,28 +110,30 @@ def interior_mask(h: int, w: int, p: int, device) -> torch.Tensor:
             & ((cols >= p) & (cols <= w - 1 - p))[None, :])
 
 
-def dropped_blocks(shape, key_words: torch.Tensor, gamma, block_size: int) -> torch.Tensor:
+def dropped_blocks(shape, key_words: torch.Tensor, gamma, block_size: int,
+                   sample_offset: int = 0) -> torch.Tensor:
     """bool (N, H, W, C): the positions an odd-b DropBlock drops.
 
     Seeds are Bernoulli(gamma) from `hash_uniform` at the flat NHWC index,
     kept only in the interior (b//2 border excluded), then expanded to b x b
     blocks. Drawing over the full grid and masking the border equals the
     reference's valid-centre draw + zero pad for odd b (ops/dropblock.py:214-224
-    of the JAX package). This is the mask both Hopper kernels compute."""
+    of the JAX package). This is the mask both Hopper kernels compute.
+    sample_offset: see hash_uniform."""
     n, h, w, c = shape
-    seeds = hash_uniform(key_words, shape) < f32(gamma)
+    seeds = hash_uniform(key_words, shape, sample_offset) < f32(gamma)
     seeds &= interior_mask(h, w, block_size // 2, seeds.device)[None, :, :, None]
     return _block_expand(seeds, block_size)
 
 
-def _dropped(shape, key_words, gamma, block_size) -> torch.Tensor:
+def _dropped(shape, key_words, gamma, block_size, sample_offset) -> torch.Tensor:
     if block_size % 2 == 1:
-        return dropped_blocks(shape, key_words, gamma, block_size)
+        return dropped_blocks(shape, key_words, gamma, block_size, sample_offset)
     # even b: seeds over the (H-b+1, W-b+1) valid centres in their own index
     # space, ZeroPad2d(b//2), crop the trailing row/column (JAX :225-230)
     n, h, w, c = shape
     b, p = block_size, block_size // 2
-    seeds = hash_uniform(key_words, (n, h - b + 1, w - b + 1, c)) < f32(gamma)
+    seeds = hash_uniform(key_words, (n, h - b + 1, w - b + 1, c), sample_offset) < f32(gamma)
     seeds = F.pad(seeds, (0, 0, p, p, p, p))[:, :h, :w, :]
     return _block_expand(seeds, b)
 
@@ -136,59 +144,79 @@ def _kernel_path(impl: str, block_size: int) -> bool:
     return impl in ("kernel", "fused") and dropblock_kernel_supported(block_size)
 
 
-def _mask_and_keep(x, key_words, gamma, block_size, impl):
+def _mask_and_keep(x, key_words, gamma, block_size, impl, sample_offset):
     """(int8 keep-mask, per-sample keep counts float32 (N,))."""
     if _kernel_path(impl, block_size):
         from unet_research_tpu_torch.ops.cuda.dropblock_kernel import dropblock_mask
 
-        return dropblock_mask(tuple(x.shape), key_words, gamma, block_size)
-    keep_mask = (~_dropped(tuple(x.shape), key_words, gamma, block_size)).to(torch.int8)
+        return dropblock_mask(tuple(x.shape), key_words, gamma, block_size, sample_offset)
+    keep_mask = (~_dropped(tuple(x.shape), key_words, gamma, block_size,
+                           sample_offset)).to(torch.int8)
     return keep_mask, keep_mask.sum(dim=(1, 2, 3)).to(torch.float32)
 
 
 def dropblock_dependent(x: torch.Tensor, key_words: torch.Tensor, drop_prob,
                         block_size: int, mask_impl: str | None = None,
-                        rescale: str = "apply"):
+                        rescale: str = "apply", mesh=None):
     """DropBlock2D-equivalent (utils_modules.py:36-82), NHWC.
 
     rescale: 'apply' multiplies in numel/sum over the whole batch (the
     reference op); 'defer' returns (x*mask, per-sample (N,) scale numel/sum);
-    'skip' omits the count (the model's fold_rescale algebra)."""
+    'skip' omits the count (the model's fold_rescale algebra). mesh: x is
+    this rank's rows of the global batch (parallel/mesh.py): the masks are
+    drawn at their global rows and 'apply' counts over the global batch."""
     impl = _resolve_impl(mask_impl)
     n, h, w, c = x.shape
     gamma = dropblock_gamma_dependent(h, w, block_size, drop_prob)
-    keep_mask, keep = _mask_and_keep(x, key_words, gamma, block_size, impl)
+    keep_mask, keep = _mask_and_keep(x, key_words, gamma, block_size, impl,
+                                     rank_offset(mesh, n))
     out = x * keep_mask.to(x.dtype)
     if rescale == "skip":
         return out
     if rescale == "defer":
-        return out, float(h * w * c) / keep
-    scale = float(n * h * w * c) / keep.sum()
-    return out * scale.to(x.dtype)
+        return out, keep_scale("dependent", keep, float(h * w * c))
+    total, numel = batch_keep(keep, n * h * w * c, mesh)
+    return out * keep_scale("dependent", total, numel).to(x.dtype)
 
 
 def dropblock_independent(x: torch.Tensor, key_words: torch.Tensor, drop_prob,
                           block_size: int, mask_impl: str | None = None,
-                          rescale: str = "apply"):
+                          rescale: str = "apply", mesh=None):
     """Dropblock2d_ichan-equivalent (utils_modules.py:107-139), NHWC: the
     guarded 1/mean rescale (identity when everything was dropped). Odd b
-    only, as in the reference."""
+    only, as in the reference. mesh: as in dropblock_dependent."""
     if block_size % 2 == 0:
         raise ValueError("dropblock_independent requires an odd block_size")
     impl = _resolve_impl(mask_impl)
     n, h, w, c = x.shape
     gamma = dropblock_gamma_independent(h, w, block_size, drop_prob)
-    keep_mask, keep = _mask_and_keep(x, key_words, gamma, block_size, impl)
+    keep_mask, keep = _mask_and_keep(x, key_words, gamma, block_size, impl,
+                                     rank_offset(mesh, n))
     out = x * keep_mask.to(x.dtype)
     if rescale == "skip":
         return out
     if rescale == "defer":
-        return out, _guarded_inverse(keep / float(h * w * c))
-    scale = _guarded_inverse(keep.sum() / float(n * h * w * c))
-    return out * scale.to(x.dtype)
+        return out, keep_scale("independent", keep, float(h * w * c))
+    total, numel = batch_keep(keep, n * h * w * c, mesh)
+    return out * keep_scale("independent", total, numel).to(x.dtype)
 
 
-def _guarded_inverse(frac: torch.Tensor) -> torch.Tensor:
+def batch_keep(keep: torch.Tensor, numel: int, mesh):
+    """(kept positions, positions) of the whole batch from the per-sample
+    keep counts and the batch's numel: the global batch's under a mesh, where
+    every rank holds as many rows."""
+    if mesh is None:
+        return keep.sum(), float(numel)
+    return psum(keep.sum(), mesh), float(numel * mesh.size)
+
+
+def keep_scale(kind: str, kept: torch.Tensor, numel: float) -> torch.Tensor:
+    """The rescale for `kept` of `numel` positions: numel/kept for the
+    dependent variant, the zero-guarded 1/(kept/numel) for the independent
+    one (identity when everything was dropped)."""
+    if kind == "dependent":
+        return numel / kept
+    frac = kept / numel
     return torch.where(frac != 0, 1.0 / frac, torch.ones_like(frac))
 
 

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from unet_research_tpu_torch.parallel.mesh import psum
+
 _TINY = 1.1754944e-38  # the smallest normal float32
 
 
@@ -36,12 +38,21 @@ def bce_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return -torch.mean(t * _safe_log(p) + (1.0 - t) * _safe_log(1.0 - p))
 
 
-def masked_rescaled_bce(seg: torch.Tensor, gt: torch.Tensor,
-                        mask: torch.Tensor) -> torch.Tensor:
+def masked_rescaled_bce(seg: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
+                        mesh=None) -> torch.Tensor:
     """Masked BCE with the reference's numel/nonzero rescale
-    (utils/utils_training.py:28-33)."""
+    (utils/utils_training.py:28-33): -sum(terms) / count_nonzero(mask).
+
+    mesh: the tensors are this rank's rows of a global batch
+    (parallel/mesh.py). The count is then the global batch's, and the rank
+    returns its share -sum_r(terms) / nonzero_global: the ranks' shares, and
+    their gradients, sum to the global batch's loss and gradient (a mean of
+    per-rank losses would be another function wherever two ranks' masks
+    differ)."""
     seg = seg * mask
     gt = gt * mask
     loss = bce_loss(seg, gt)
     nonzero = (mask != 0).sum(dtype=torch.float32)
+    if mesh is not None:
+        nonzero = psum(nonzero, mesh)
     return loss * (seg.numel() / nonzero)

@@ -1,0 +1,157 @@
+"""The data-parallel mesh and its collectives (twin of
+unet_research_tpu/parallel/mesh.py).
+
+JAX gets a global-batch step from `jit` + `NamedSharding`: XLA partitions
+the loss, the DropBlock hash's iota and the batch statistics, and inserts
+the gradient psum. Here ranks of a `torch.distributed` process group each
+hold a contiguous block of the global batch's rows, and the callers make
+each global quantity global by hand with the collectives below: the loss
+normaliser and the whole-batch DropBlock keep counts (`psum`), BatchNorm's
+batch sums (`psum`, differentiable), the gradients (`all_reduce_grads_`,
+one flat buffer), the MC ensemble's member outputs (`all_gather`), the seed
+and the initial weights (`broadcast_`).
+
+Every collective is an all-reduce or a broadcast of a tensor on the mesh's
+device, so it runs on NCCL (one rank per card) and on gloo (CPU tensors,
+or CUDA tensors through the host: the way two ranks share one card, which
+NCCL refuses).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from unet_research_tpu_torch.device import resolve_device
+
+
+class Mesh:
+    """A ('data', 'model') mesh over the ranks of the default process group.
+    The 'model' axis is reserved, as in JAX, and has size 1. `device` is
+    this rank's device: every collective's tensors live there."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, group, data: int, model: int, rank: int, device: torch.device):
+        self.group = group
+        self.shape = {"data": data, "model": model}
+        self.rank = rank
+        self.device = device
+
+    @property
+    def size(self) -> int:
+        return self.shape["data"] * self.shape["model"]
+
+
+def multihost_initialize(init_method: str, world_size: int, rank: int,
+                         backend: Optional[str] = None) -> None:
+    """Join the default process group (thin wrapper over
+    torch.distributed.init_process_group). backend: 'nccl' for ranks on
+    cards, 'gloo' on the CPU when None; an explicit 'gloo' is honoured on
+    cards (two ranks sharing one card). A failed init raises."""
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    dist.init_process_group(backend, init_method=init_method, world_size=world_size, rank=rank)
+
+
+def make_mesh(data: Optional[int] = None, model: int = 1, device=None) -> Mesh:
+    """A ('data', 'model') mesh spanning the initialised process group; data
+    defaults to every rank. device: this rank's device (the current card
+    unless the caller passes another)."""
+    if model != 1:
+        raise NotImplementedError("the 'model' axis is reserved: nothing shards on it")
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call multihost_initialize first")
+    world = dist.get_world_size()
+    if data is None:
+        data = world // model
+    n = data * model
+    if n > world:
+        raise ValueError(f"need {n} ranks, the process group has {world}")
+    if n < world:
+        raise ValueError(f"a mesh of {n} ranks in a group of {world}: the mesh spans the group")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return Mesh(dist.group.WORLD, data, model, dist.get_rank(), dev)
+
+
+def shard_rows(n: int, mesh: Mesh) -> tuple[int, int]:
+    """This rank's contiguous rows [r*n/R, (r+1)*n/R) of n global rows."""
+    if n % mesh.size:
+        raise ValueError(f"a batch of {n} does not divide over {mesh.size} ranks")
+    per = n // mesh.size
+    return mesh.rank * per, (mesh.rank + 1) * per
+
+
+def rank_offset(mesh: Optional[Mesh], n: int) -> int:
+    """The global index of this rank's first row when each rank holds n rows
+    (0 without a mesh): where its DropBlock counters start."""
+    return 0 if mesh is None else mesh.rank * n
+
+
+def _all_reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    y = x.detach().contiguous().clone()
+    dist.all_reduce(y, group=mesh.group)
+    return y
+
+
+class _PSum(torch.autograd.Function):
+    """Sum over the ranks; the backward sums the cotangents over the ranks
+    too (the loss is the sum of the ranks' losses)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _all_reduce(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh), None
+
+
+def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """x summed over the mesh's ranks, differentiable (JAX lax.psum)."""
+    return _PSum.apply(x, mesh)
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's x concatenated on dim 0 in rank order: an all-reduce of
+    a zero-filled (R, ...) buffer in which each rank writes its slot
+    (exact: the other slots add zeros)."""
+    buf = torch.zeros((mesh.size,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    buf[mesh.rank] = x
+    dist.all_reduce(buf, group=mesh.group)
+    return buf.reshape((mesh.size * x.shape[0],) + tuple(x.shape[1:]))
+
+
+@torch.no_grad()
+def broadcast_(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Rank 0's x into x on every rank, in place."""
+    dist.broadcast(x, src=0, group=mesh.group)
+    return x
+
+
+def broadcast_int(value: int, mesh: Mesh) -> int:
+    """Rank 0's integer on every rank."""
+    return int(broadcast_(torch.tensor([value], dtype=torch.int64, device=mesh.device), mesh))
+
+
+@torch.no_grad()
+def all_reduce_grads_(grads: list, mesh: Mesh) -> None:
+    """Sum each gradient over the ranks, in place, with one all-reduce of
+    one flat float32 buffer."""
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
+    dist.all_reduce(flat, group=mesh.group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def barrier(mesh: Mesh) -> None:
+    """Wait for every rank (an all-reduce of one element on the mesh's
+    device, which both backends take)."""
+    dist.all_reduce(torch.zeros(1, device=mesh.device), group=mesh.group)

@@ -15,11 +15,21 @@ LightningModule overrides, base_model_tests/training.py:198-231):
 - an LR finder reproducing PL's trainer.tune(auto_lr_find=True) exponential
   sweep and steepest-gradient suggestion (training.py:217-220).
 
+With `mesh` (parallel/mesh.py), the twin of JAX's `mesh=`: the step is
+data-parallel over the ranks of a process group and computes JAX's
+global-batch step. `train_batch` is the global batch; each rank takes its
+rows of every batch of the shared shuffled order, draws its masks at their
+global rows, normalises the loss and BatchNorm by the global batch, and
+sums the gradients over the ranks in one all-reduce before the clip, so
+every rank holds the same parameters. The seed and the initial weights are
+rank 0's. Validation splits the items over the ranks; rank 0 alone writes
+checkpoints and prints.
+
 Differences from the JAX trainer: there is no one-program-per-epoch scan
-(its step math is the per-step math) and no mesh yet. The DropBlock site
-keys of each step are drawn from a torch.Generator seeded with the run's
-seed, where JAX folds the step into a PRNG key, so the two packages draw
-different masks from one seed; `train_step` takes explicit `site_keys`.
+(its step math is the per-step math). The DropBlock site keys of each step
+are drawn from a torch.Generator seeded with the run's seed, where JAX
+folds the step into a PRNG key, so the two packages draw different masks
+from one seed; `train_step` takes explicit `site_keys`.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from unet_research_tpu_torch.data.loading import batch_iterator, to_device
 from unet_research_tpu_torch.device import resolve_device
 from unet_research_tpu_torch.models.unet import UNet, draw_site_keys
 from unet_research_tpu_torch.ops.losses import masked_rescaled_bce
+from unet_research_tpu_torch.parallel.mesh import barrier, broadcast_, broadcast_int, psum
 from unet_research_tpu_torch.train.checkpoint import BestCheckpointKeeper, load_checkpoint
 from unet_research_tpu_torch.train.policies import ResizePolicy
 from unet_research_tpu_torch.train.schedule import EarlyStopping, ReduceLROnPlateau
@@ -77,15 +88,20 @@ def drop_prob_at(step: int, db) -> np.float32:
 
 class Trainer:
     """Drives one model and one resize policy end to end, on `device` (the
-    card unless the caller asks for the CPU; the model must live there)."""
+    card unless the caller asks for the CPU; the model must live there).
+    mesh: data-parallel over its ranks (module docstring); the mesh's size
+    must divide `train_batch`."""
 
     def __init__(self, model: UNet, policy: ResizePolicy, cfg: TrainerConfig, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError("data-parallel training is not ported yet")
+        if mesh is not None and cfg.train_batch % mesh.size:
+            raise ValueError(f"train_batch {cfg.train_batch} does not divide over the "
+                             f"{mesh.size} ranks of the mesh")
         self.model = model
         self.policy = policy
         self.cfg = cfg
+        self.mesh = mesh
+        self.rank0 = mesh is None or mesh.rank == 0
         self.device = resolve_device(device)
         where = model.output_conv[0].weight.device
         if where.type != self.device.type:
@@ -102,17 +118,24 @@ class Trainer:
 
     def create_state(self, params: Optional[dict] = None, lr: Optional[float] = None) -> TrainState:
         """Load `params` (a state_dict) into the model, if given, and start a
-        fresh optimizer on its parameters."""
+        fresh optimizer on its parameters. Under a mesh every rank then holds
+        rank 0's weights."""
         if params is not None:
             self.model.load_state_dict(params)
-        return TrainState(self.model, lr or self.cfg.lr, self.cfg.momentum, self.cfg.clip_norm)
+        if self.mesh is not None:
+            for t in self.model.state_dict().values():
+                broadcast_(t, self.mesh)
+        return TrainState(self.model, lr or self.cfg.lr, self.cfg.momentum, self.cfg.clip_norm,
+                          mesh=self.mesh)
 
     # ------------------------------------------------------------------
     def train_step(self, state: TrainState, im, gt, mask, lr: float, size: int = -1,
                    site_keys: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One update; returns the loss (float32, on the device, detached).
         site_keys: the (S, 2) DropBlock keys, drawn from `key_generator`
-        when None."""
+        when None. Under a mesh im/gt/mask are this rank's rows of the global
+        batch (data/loading.py::shard_batch) and the loss is the global
+        batch's."""
         kwargs = {}
         if self.has_dropblock:
             if site_keys is None:
@@ -121,13 +144,14 @@ class Trainer:
                           site_keys=site_keys)
 
         def forward(x):
-            return self.model(x, train=True, **kwargs)
+            return self.model(x, train=True, mesh=self.mesh, **kwargs)
 
         seg, gt2, mask2 = self.policy.train_io(forward, im, gt, mask, size)
-        loss = masked_rescaled_bce(seg, gt2, mask2)
+        loss = masked_rescaled_bce(seg, gt2, mask2, mesh=self.mesh)
         loss.backward()
         state.apply_gradients(lr)
-        return loss.detach()
+        loss = loss.detach()
+        return loss if self.mesh is None else psum(loss, self.mesh)
 
     def train_step_indexed(self, state: TrainState, data, oi: int, lr: float,
                            size: int = -1) -> torch.Tensor:
@@ -155,6 +179,8 @@ class Trainer:
         'train_loss_epoch' / 'val_loss_epoch' / 'lr', as PL logs them."""
         cfg = self.cfg
         seed = cfg.seed if cfg.seed != -1 else int(time.time()) % (2**31)
+        if self.mesh is not None:
+            seed = broadcast_int(seed, self.mesh)  # one shuffle and one set of site keys
         np_rng = np.random.default_rng(seed)
         self.key_generator = torch.Generator().manual_seed(seed)
 
@@ -172,16 +198,17 @@ class Trainer:
             lr = cfg.lr
             if cfg.auto_lr_find:
                 lr = lr_find(self, None, train_ds, size_plan, seed)
-                if cfg.verbose:
+                if cfg.verbose and self.rank0:
                     print(f"LR finder suggestion: {lr:.3e}")
             state = self.create_state(None, lr)
         plateau = ReduceLROnPlateau(lr)
         early = EarlyStopping(patience=cfg.early_stop_patience)
-        keeper = BestCheckpointKeeper(model_info_dir)
+        keeper = BestCheckpointKeeper(model_info_dir) if self.rank0 else None
         history = {"train_loss_epoch": [], "val_loss_epoch": [], "lr": []}
+        verbose = cfg.verbose and self.rank0
 
         prof = None
-        if cfg.profiler == "trace":
+        if cfg.profiler == "trace" and self.rank0:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -204,7 +231,7 @@ class Trainer:
                 batches = ((i, int(oi)) for i, oi in enumerate(order))
             else:
                 batches = enumerate(batch_iterator(train_ds, cfg.train_batch, shuffle, np_rng,
-                                                   device=self.device))
+                                                   device=self.device, mesh=self.mesh))
             step_losses = []
             for batch_idx, item in batches:
                 size = int(size_plan[batch_idx]) if size_plan is not None else -1
@@ -226,16 +253,19 @@ class Trainer:
             if (epoch + 1) % cfg.check_val_every_n_epoch == 0:
                 val_loss = self._mean_val_loss(val_ds, cfg.val_batch)
                 history["val_loss_epoch"].append(val_loss)
-                keeper.update(epoch, val_loss, self.model.state_dict(),
-                              meta={**(ckpt_meta or {}), "lr": lr, "step": state.step},
-                              optimizer=state.optimizer.state_dict())
+                if keeper is not None:
+                    keeper.update(epoch, val_loss, self.model.state_dict(),
+                                  meta={**(ckpt_meta or {}), "lr": lr, "step": state.step},
+                                  optimizer=state.optimizer.state_dict())
+                if self.mesh is not None:
+                    barrier(self.mesh)  # the other ranks wait for rank 0's checkpoint
                 lr = plateau.step(val_loss)
                 stop = early.step(val_loss)
-                if cfg.verbose:
+                if verbose:
                     print(f"epoch {epoch:3d} train_loss {train_loss:.4f} "
                           f"val_loss {val_loss:.4f} lr {lr:.2e} ({time.time() - t0:.1f}s)")
                 if stop:
-                    if cfg.verbose:
+                    if verbose:
                         print(f"early stopping at epoch {epoch}")
                     break
         if prof is not None:
@@ -243,7 +273,7 @@ class Trainer:
             trace_dir = os.path.join(model_info_dir, "..", "profile")
             os.makedirs(trace_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-        if cfg.profiler == "simple" and cfg.verbose:
+        if cfg.profiler == "simple" and verbose:
             n_epochs = len(history["train_loss_epoch"])
             total = time.time() - t_fit
             print(f"[profiler simple] {n_epochs} epochs in {total:.1f}s "
@@ -251,9 +281,20 @@ class Trainer:
         return state, history, keeper
 
     def _mean_val_loss(self, ds: ArrayDataset, batch: int) -> float:
-        losses = [self.eval_step(im, gt, mask)
-                  for im, gt, mask in batch_iterator(ds, batch, False, device=self.device)]
-        return float(np.mean(torch.stack(losses).cpu().numpy()))
+        """The mean of the batches' losses. Under a mesh rank r takes batches
+        r, r + R, ...; the ranks' sums of losses and counts are all-reduced,
+        so every rank reads the same mean."""
+        starts = range(0, len(ds), batch)
+        if self.mesh is not None:
+            starts = starts[self.mesh.rank::self.mesh.size]
+        total = torch.zeros(2, dtype=torch.float64, device=self.device)
+        for s in starts:
+            im, gt, mask = to_device(ds[np.arange(s, min(s + batch, len(ds)))], self.device)
+            total[0] += self.eval_step(im, gt, mask).to(torch.float64)
+            total[1] += 1
+        if self.mesh is not None:
+            total = psum(total, self.mesh)
+        return float(total[0] / total[1])
 
     # ------------------------------------------------------------------
     def validate(self, params: Optional[dict], val_ds: ArrayDataset) -> float:
@@ -282,7 +323,9 @@ def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,
     EWMA-smoothed losses, divergence stop at 4x the best, steepest-negative-
     gradient suggestion skipping the first 10 and the last point. The probe
     starts from `params` (the model's current weights when None) and the
-    model's weights are put back afterwards, as PL restores them."""
+    model's weights are put back afterwards, as PL restores them. Under the
+    trainer's mesh the probe steps are data-parallel steps, whose global
+    losses take the same decisions on every rank."""
     saved = copy.deepcopy(trainer.model.state_dict())
     lrs = min_lr * (max_lr / min_lr) ** (np.arange(num_training) / (num_training - 1))
     state = trainer.create_state(params, float(lrs[0]))
@@ -303,7 +346,8 @@ def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,
                 batches = enumerate(order)
             else:
                 batches = enumerate(batch_iterator(train_ds, trainer.cfg.train_batch, shuffle,
-                                                   np_rng, device=trainer.device))
+                                                   np_rng, device=trainer.device,
+                                                   mesh=trainer.mesh))
             for batch_idx, item in batches:
                 if i >= num_training:
                     break

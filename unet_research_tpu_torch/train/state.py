@@ -13,6 +13,11 @@ sgd(momentum)) with an injected learning rate:
 The learning rate is set before every step, so the plateau schedule and
 the LR finder change it between steps. `step` counts the updates; the
 DropBlock ramp reads it. Parameters are updated in place.
+
+Under a mesh (parallel/mesh.py) each rank's gradients are its share of the
+global batch's; one all-reduce of one flat buffer sums them before the
+clip, so the clip and the momentum run alike on every rank and the
+parameters stay identical across ranks (JAX's gradient psum).
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from unet_research_tpu_torch.parallel.mesh import all_reduce_grads_
 
 
 def clip_by_global_norm(grads: list, max_norm: float) -> None:
@@ -37,9 +44,10 @@ class TrainState:
     """Parameters (the model's), optimizer (SGD + momentum) and step."""
 
     def __init__(self, model: torch.nn.Module, lr: float, momentum: float = 0.99,
-                 clip_norm: Optional[float] = None):
+                 clip_norm: Optional[float] = None, mesh=None):
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.clip_norm = clip_norm
+        self.mesh = mesh
         self.optimizer = torch.optim.SGD(self.params, lr=lr, momentum=momentum,
                                          dampening=0.0, nesterov=False)
         self.step = 0
@@ -53,6 +61,8 @@ class TrainState:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         grads = [p.grad for p in self.params if p.grad is not None]
+        if self.mesh is not None:
+            all_reduce_grads_(grads, self.mesh)
         if self.clip_norm is not None:
             clip_by_global_norm(grads, self.clip_norm)
         self.optimizer.step()

@@ -8,6 +8,14 @@ generator, and members of a chunk draw different masks through their flat
 batch index in the counter hash. Optional square-pad + resize first
 (Dropblock_Uncertainty.py:52-61). The statistics are the per-pixel mean and
 unbiased std of the masked segmentations.
+
+With a mesh (parallel/mesh.py, the twin of JAX's `mesh=`), a chunk whose
+size the ranks divide is split: every rank draws the same site keys, runs
+its size/R members at their global rows of the chunk and the members'
+outputs are gathered in rank order; a chunk they do not divide (the saved
+members, a remainder) runs whole on every rank, as JAX shards only those.
+Every rank then runs the one-process merge on the same member outputs and
+holds the same statistics.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import torch
 from unet_research_tpu_torch.device import resolve_device
 from unet_research_tpu_torch.models.unet import UNet, draw_site_keys
 from unet_research_tpu_torch.ops.image import engine_input
+from unet_research_tpu_torch.parallel.mesh import all_gather
 from unet_research_tpu_torch.uncertainty.ensemble import streaming_ensemble_batched
 
 
@@ -24,12 +33,17 @@ class MCDropBlockEngine:
     """Build once per model, call `predict` per image.
 
     generator: the torch.Generator the site keys are drawn from (seeded 0
-    when None), unless a call of `predict` passes its own."""
+    when None), unless a call of `predict` passes its own; under a mesh each
+    rank's generator must be seeded alike. mesh: split the chunks over its
+    ranks (module docstring); its size must divide `chunk`."""
 
     def __init__(self, model: UNet, num_iterations: int = 1000, return_num: int = 25,
                  resize: int = -1, chunk: int = 25, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, mesh=None):
+        if mesh is not None and chunk % mesh.size:
+            raise ValueError(f"chunk {chunk} must divide over the {mesh.size} ranks of the mesh")
         self.model = model
+        self.mesh = mesh
         self.num_iterations = num_iterations
         self.return_num = min(return_num, num_iterations)
         self.resize = resize
@@ -51,8 +65,11 @@ class MCDropBlockEngine:
 
         def batch(size: int):
             keys = draw_site_keys(num_sites, generator).to(self.device)
-            xb = im.expand((size,) + tuple(im.shape[1:]))
-            return self.model(xb, drop_prob=drop_prob, site_keys=keys) * mask
+            mesh = self.mesh if self.mesh is not None and size % self.mesh.size == 0 else None
+            local = size if mesh is None else size // mesh.size
+            xb = im.expand((local,) + tuple(im.shape[1:]))
+            out = self.model(xb, drop_prob=drop_prob, site_keys=keys, mesh=mesh) * mask
+            return out if mesh is None else all_gather(out, mesh)
 
         with torch.inference_mode():
             mean, std, saved = streaming_ensemble_batched(
