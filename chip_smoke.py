@@ -16,8 +16,16 @@ autograd at the train shapes (bf16 and float32), one train step through the
 kernel route against the plain routes, Trainer.fit of the canonical model
 (bf16, remat, dependent DropBlock b=7 ramped 0 -> 0.15 over 8 steps,
 pair + kernel masks, SGD lr 1e-3 momentum 0.99 clip 0.5) for 3 epochs of 8
-synthetic 584x565 images with its launch counts, and one lr_find sweep,
-then data parallelism on the one card (`dp`): K1/K2 at a sample offset
+synthetic 584x565 images with its launch counts (scanned epochs: a CUDA
+graph of the step replayed over each epoch), and one lr_find sweep, then
+`train-scan`: the same fit with the ramp over 12 steps (across the first
+epoch boundary), scanned and stepped from the same weights and seed, with
+both fits' launches, losses and parameters (within 1e-4 and a tenth of the
+fit's own movement), one replay's kernels against one eager step's
+(profiler kernel events), an epoch of replays' kernels against the launch
+counts it is credited with, the capture's seconds, a replayed and an eager
+step's ms, a replayed epoch's idle share (the union of its kernels'
+intervals over its wall time), both fits' steps/s and peak memory, then data parallelism on the one card (`dp`): K1/K2 at a sample offset
 (8 of 16, 1 of 2) against their plain versions and the full launch's
 rows; two gloo ranks sharing the card (parallel/launch.py; NCCL refuses
 two ranks on one card) take one train step at a global batch of 2 in
@@ -74,7 +82,9 @@ Every phase prints one JSON line; the last line is
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit). Needs
 one CUDA card; exits non-zero without one.
 
-Tolerances: masks and keep counts exact (one counter hash on both sides);
+Tolerances: masks and keep counts exact (one counter hash on both sides;
+K2 reading its threshold from a device word too, against the scalar launch
+and the plain version at the thresholds of a ramp);
 K1 outputs within 2 bf16 ulps; K3 max |y - plain| / max |plain| <= 1e-2 in
 bf16, and the moment sums within 1e-3 of the plain version's float32 sums
 relative to their largest magnitude (float32 atomics in run-dependent
@@ -91,6 +101,12 @@ dK within 4e-3 of the float32 correlation of the same x and folded
 cotangent (one rounding to bf16 is at most 2^-9 of the largest magnitude). One train step: the kernel
 route's loss and gradient (global relative L2 over all parameters) within
 twice the plain bf16 route's distance from the plain float32 route.
+Scanned against stepped fit: epoch losses within 2e-3 relative and the
+parameters' relative L2 within 2e-3 (JAX's own scan-against-step
+tolerance: K3's float32 atomics and cuDNN's wgrad may order sums
+differently in two runs, and the scanned update rounds p - lr * v once
+more), equal launches per kernel, one replay's kernels equal by name and
+number to one eager step's.
 Data parallelism: K1/K2 at an offset bit-equal; the float32 step's loss
 within 2e-5 relative and parameters within rtol 2e-4 / atol 2e-6 of the
 one-process step (tests/test_mesh.py's); the bf16 update (relative L2)
@@ -103,6 +119,7 @@ bit-equal to the plain step (cuDNN deterministic, cuDNN convs).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import csv
 import inspect
@@ -155,7 +172,11 @@ from unet_research_tpu_torch.parallel.mesh import (  # noqa: E402
 from unet_research_tpu_torch.data import augment as data_augment  # noqa: E402
 from unet_research_tpu_torch.ops.losses import masked_rescaled_bce  # noqa: E402
 from unet_research_tpu_torch.train import POLICIES, Trainer, TrainerConfig, lr_find  # noqa: E402
-from unet_research_tpu_torch.ops.dropblock import dropblock_gamma_dependent  # noqa: E402
+from unet_research_tpu_torch.train.loop import drop_prob_at  # noqa: E402
+from unet_research_tpu_torch.ops.dropblock import (  # noqa: E402
+    dropblock_gamma_dependent,
+    dropblock_gamma_independent,
+)
 from unet_research_tpu_torch.ops.image import rotate_bilinear  # noqa: E402
 from unet_research_tpu_torch.uncertainty.mc_dropblock import MCDropBlockEngine  # noqa: E402
 from unet_research_tpu_torch.uncertainty.rotational import RotationalEngine  # noqa: E402
@@ -355,14 +376,51 @@ def check_k2() -> dict:
         raise AssertionError(f"K2 {shape}: mask or keep counts differ from the plain version")
     emit({"phase": "K2", "shape": list(shape), "mask_exact": True, "keep_exact": True})
     del mask, ref
+    # the threshold as a device word, computed on the card from the drop
+    # probability as a train step computes it: equal to the host's number at
+    # every site size of the canonical model and both gamma functions along
+    # a ramp, then K2 given it, at the drop probabilities of a ramp 0 ->
+    # P_DROP over 8 steps, at the training shape of the top site and at
+    # batch 2
+    ramp = tunet.DropBlockConfig(start_drop_prob=0.0, max_drop_prob=P_DROP, nr_steps=8)
+
+    def device_word(gamma_fn, h, w, step):
+        dp = torch.full((), float(drop_prob_at(step, ramp)), dtype=torch.float32, device=DEV)
+        return dbk.seed_threshold(gamma_fn(h, w, BLOCK, dp))
+
+    for gamma_fn in (dropblock_gamma_dependent, dropblock_gamma_independent):
+        for level in range(5):
+            h, w = H >> level, W >> level
+            for step in range(10):
+                host = dbk.seed_threshold(gamma_fn(h, w, BLOCK, drop_prob_at(step, ramp)))
+                if int(device_word(gamma_fn, h, w, step)) != host:
+                    raise AssertionError(f"{gamma_fn.__name__} at {h}x{w}, step {step}: the "
+                                         "card's seed threshold differs from the host's")
+    checked = []
+    for n in (1, 2):
+        for step in (0, 1, 4, 7, 9):
+            gamma = dropblock_gamma_dependent(H, W, BLOCK, drop_prob_at(step, ramp))
+            thr = device_word(dropblock_gamma_dependent, H, W, step)
+            got = dbk.dropblock_mask((n, H, W, 64), key, None, BLOCK, threshold=thr)
+            scalar = dbk.dropblock_mask((n, H, W, 64), key, gamma, BLOCK)
+            plain = dbk.dropblock_mask_plain((n, H, W, 64), key, gamma, BLOCK)
+            if not all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(got, scalar, plain)):
+                raise AssertionError(f"K2 with a device threshold at step {step}, batch {n}: "
+                                     "mask or keep counts differ from the scalar launch or "
+                                     "the plain version")
+            checked.append([n, step, int(thr)])
+    emit({"phase": "K2-threshold", "checked": checked, "mask_exact": True, "keep_exact": True})
+    thr = torch.tensor(dbk.seed_threshold(GAMMA), dtype=torch.int64, device=DEV)
+    threshold_ms = time_ms(lambda: dbk.dropblock_mask(shape, key, None, BLOCK, threshold=thr), 10)
     ms = time_ms(lambda: dbk.dropblock_mask(shape, key, GAMMA, BLOCK), 10)
     plain = time_ms(lambda: dbk.dropblock_mask_plain(shape, key, GAMMA, BLOCK), 3, 1)
     bound, by = bound_ms(float(np.prod(shape)))
     row = {"name": "dropblock_mask", "route": "cuda",
            "source": "unet_research_tpu_torch/ops/cuda/csrc/dropblock.cu",
            "replaces": "unet_research_tpu/ops/pallas/dropblock_kernel.py:347",
-           "shape": list(shape), "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
-           "bound_ms": bound, "bound_by": by, "library_ms": None}
+           "shape": list(shape), "max_abs_err": 0.0, "ms": ms, "threshold_ms": threshold_ms,
+           "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": None}
     emit({"phase": "K2-time", **row})
     return row
 
@@ -816,9 +874,9 @@ def train_dataset(n: int, seed: int) -> ArrayDataset:
     return ArrayDataset(*((a * 255).round().astype(np.uint8) for a in (ims, gts, fovs)))
 
 
-def train_model(state, **overrides):
+def train_model(state, nr_steps: int = 8, **overrides):
     db = tunet.DropBlockConfig(kind="dependent", block_size=BLOCK, use_scheduler=True,
-                               start_drop_prob=0.0, max_drop_prob=P_DROP, nr_steps=8,
+                               start_drop_prob=0.0, max_drop_prob=P_DROP, nr_steps=nr_steps,
                                mask_impl=overrides.pop("mask_impl", "kernel"))
     cfg = tunet.canonical_config(dropblock=db, **{"dtype": torch.bfloat16, "remat": True,
                                                   "conv_impl": "pair", **overrides})
@@ -912,6 +970,193 @@ def run_train_slice(state) -> dict:
           "seconds": time.perf_counter() - t0})
     shutil.rmtree(out_dir, ignore_errors=True)
     return got, steps
+
+
+def profiled(fn) -> list:
+    """torch.profiler's device events of one call of fn, after one call
+    under the profiler's warm-up: the first kernels of a traced window can
+    go unrecorded while the tracer starts (seen on the first two kernels of
+    a graph replay)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts,
+                                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                                                 repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_events(events) -> list:
+    """The kernel events, copies and memsets left out: eagerly they are copy
+    and memset events, in a graph replay the graph's own memcpy and memset
+    kernels."""
+    return [ev for ev in events if not ev.name.lower().startswith(("memcpy", "memset"))]
+
+
+def kernel_names(events) -> collections.Counter:
+    """Kernel events (kernel_events) by name and number."""
+    return collections.Counter(ev.name for ev in kernel_events(events))
+
+
+def busy_ms(events) -> float:
+    """The union of the kernel events' intervals (kernel_events), in ms: the
+    time the card ran a kernel, however the recorded intervals overlap."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted((ev.time_range.start, ev.time_range.end)
+                              for ev in kernel_events(events)):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
+
+
+# the kernel behind each launch count that a graph replay is credited with
+# (ops/cuda/launches.py), by a part of its name in the profiler's events
+REPLAYED_KERNELS = {"dropblock_mask_kernel": "dropblock_mask",
+                    "dropblock_apply_kernel": "dropblock_fused_apply",
+                    "conv3x3_wgmma_kernel": "path:wgmma", "conv3x3_kernel<": "path:cuda_cores",
+                    "conv3x3_fold_kernel": "conv3x3_pair_fold", "shear_fan_kernel": "rotate_fan"}
+
+
+def run_train_scan(state) -> None:
+    """Trainer.fit of the canonical model with scanned epochs (a CUDA graph of
+    the step replayed over each epoch) and stepping, from the same weights
+    and seed, over a ramp that spans the first epoch boundary: losses and
+    parameters within JAX's scan-against-step tolerance, equal launches,
+    one replay's kernels those of one eager step, every K3 launch on wgmma,
+    an epoch of replays launching the kernels it is credited with; then the
+    replayed and the eager step's times and a scanned epoch's idle share."""
+    train_ds, val_ds = train_dataset(8, seed=1), train_dataset(2, seed=2)
+    steps = 3 * len(train_ds)
+    out_root = os.path.join(ROOT, "_runs", "chip_smoke_scan")
+    shutil.rmtree(out_root, ignore_errors=True)
+    fits = {}
+    for scan in (True, False):
+        model = train_model(state, nr_steps=12)
+        start = flat_params(model)
+        cfg = TrainerConfig(max_epochs=3, lr=1e-3, momentum=0.99, clip_norm=0.5,
+                            auto_lr_find=False, seed=0, verbose=False, scan_epochs=scan)
+        trainer = Trainer(model, POLICIES["none"], cfg, device=DEV)
+        programs = []
+        scan_fn = trainer.train_epoch_scan
+
+        def spy(*args, trainer=trainer, scan_fn=scan_fn, programs=programs):
+            losses = scan_fn(*args)
+            programs.append(trainer._scan)
+            return losses
+
+        trainer.train_epoch_scan = spy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        fit_state, history, _ = trainer.fit(train_ds, val_ds,
+                                            os.path.join(out_root, f"scan_{scan}"), params=state)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = counts()
+        assert_wgmma(f"train-scan fit, scan_epochs={scan}")
+        if fit_state.step != steps or len(programs) != (3 if scan else 0):
+            raise AssertionError(f"scan_epochs={scan}: step {fit_state.step}, "
+                                 f"{len(programs)} scanned epochs")
+        fits[scan] = {"history": history, "params": flat_params(model), "start": start,
+                      "launches": got,
+                      "seconds": seconds, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "program": programs[0] if programs else None, "trainer": trainer,
+                      "state": fit_state}
+    scanned, stepped = fits[True], fits[False]
+    want = {"dropblock_fused_apply": 0, "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
+            "conv3x3_pair": 6 * steps + 3 * 3 * len(val_ds), "conv3x3_pair_dx": 3 * steps,
+            "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0}
+    if not scanned["launches"] == stepped["launches"] == want:
+        raise AssertionError(f"train-scan launches {scanned['launches']} (scanned), "
+                             f"{stepped['launches']} (stepped), expected {want}")
+    a = np.array(scanned["history"]["train_loss_epoch"] + scanned["history"]["val_loss_epoch"])
+    b = np.array(stepped["history"]["train_loss_epoch"] + stepped["history"]["val_loss_epoch"])
+    loss_rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    param_rel = rel_l2(scanned["params"], stepped["params"])
+    # how far the fit moved the weights: the parameters' bound must be well
+    # inside it, or a scanned fit that never updated them would pass
+    movement = rel_l2(stepped["params"], stepped["start"])
+    if not (np.isfinite(a).all() and loss_rel <= 2e-3 and param_rel <= 1e-4
+            and param_rel <= 0.1 * movement):
+        raise AssertionError(f"train-scan: scanned against stepped losses {a} / {b} "
+                             f"(max rel {loss_rel}), parameters' relative L2 {param_rel}, "
+                             f"the fit's own movement {movement}")
+
+    # one replay against one eager step of the same program, by kernel; the
+    # index is set to step 0 first, by a fill kernel on both sides
+    prog = scanned["program"]
+
+    def eager_step():
+        prog.index.zero_()
+        prog.step()
+
+    def replay_step():
+        prog.index.zero_()
+        prog.graph.replay()
+
+    eager, replay = kernel_names(profiled(eager_step)), kernel_names(profiled(replay_step))
+    if eager != replay or not replay:
+        differ = {name[:160]: (replay[name], eager[name]) for name in set(replay) | set(eager)
+                  if replay[name] != eager[name]}
+        raise AssertionError(f"one replay launches {sum(replay.values())} kernels, one eager "
+                             f"step {sum(eager.values())}; (replay, eager) where they "
+                             f"differ: {differ}")
+
+    # an epoch of replays under the profiler: the kernels it ran against K
+    # times the counts a replay is credited with, and its idle share, from
+    # the union of the kernels' intervals (the summed event times can exceed
+    # the wall time) over the wall time of the traced call
+    k = len(train_ds)
+    walls = []
+
+    def epoch_of_replays():
+        prog.index.zero_()
+        for _ in range(k):
+            prog.graph.replay()
+
+    def timed_epoch():
+        t0 = time.perf_counter()
+        epoch_of_replays()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    epoch_events = profiled(timed_epoch)
+    wall_ms, epoch_busy_ms = walls[-1], busy_ms(epoch_events)
+    by_name = kernel_names(epoch_events)
+    replayed = {key: sum(n for name, n in by_name.items() if part in name)
+                for part, key in REPLAYED_KERNELS.items()}
+    credited = {key: k * prog.replay_counts.get(key, 0) for key in REPLAYED_KERNELS.values()}
+    if replayed != credited or not replayed["dropblock_mask"]:
+        raise AssertionError(f"an epoch of {k} replays launched {replayed}, credited {credited}")
+
+    # times: K replays (an epoch) and eager steps, in this call
+    replay_ms = time_ms(epoch_of_replays, 3, 1) / k
+    eager_ms = time_ms(eager_step, 5)
+    emit({"phase": "train-scan", "config": "canonical 31M, bf16, remat, dependent b=7 ramp "
+          "0->0.15 over 12 steps, pair + kernel masks, SGD 1e-3 momentum 0.99 clip 0.5",
+          "input": [584, 565], "train_images": len(train_ds), "epochs": 3, "steps": steps,
+          "card": card(),
+          "warmup_steps": prog.WARMUP, "capture_seconds": prog.capture_seconds,
+          "replay_launches": prog.replay_counts,
+          "replayed_step_ms": replay_ms, "eager_step_ms": eager_ms,
+          "kernels_per_step": sum(replay.values()),
+          "epoch_of_replays": {"wall_ms": wall_ms, "busy_ms": epoch_busy_ms,
+                               "idle_share": 1.0 - epoch_busy_ms / wall_ms,
+                               "kernels_counted": replayed},
+          "steps_per_s": {"scanned": steps / scanned["seconds"],
+                          "stepped": steps / stepped["seconds"]},
+          "fit_seconds": {"scanned": scanned["seconds"], "stepped": stepped["seconds"]},
+          "peak_gib": {"scanned": scanned["peak_gib"], "stepped": stepped["peak_gib"]},
+          "loss_max_rel": loss_rel, "param_rel_l2": param_rel, "param_movement": movement,
+          "history": {"scanned": scanned["history"], "stepped": stepped["history"]},
+          "launches": scanned["launches"]})
+    fits.clear()
+    del prog, scanned, stepped
+    shutil.rmtree(out_root, ignore_errors=True)
 
 
 # --- data parallelism -------------------------------------------------------
@@ -2109,6 +2354,7 @@ def main() -> None:
     rotational = run_rotational(state)
     run_train_routes(state)
     train, steps = run_train_slice(state)
+    run_train_scan(state)
     dp = run_dp_phase(launches)
     run_dp_nccl(state)
     cli = run_cli_phase()

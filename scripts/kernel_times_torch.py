@@ -11,7 +11,8 @@ call from torch.profiler (device_ms):
 
 - K1 `dropblock_fused_apply` and K2 `dropblock_mask` at (16, 592, 576, 64),
   bf16, b = 7 at the canonical drop probability, and in device time at
-  batch 1 (the training shape);
+  batch 1 (the training shape); in a tree whose K2 takes `threshold`, K2
+  again with the threshold read from a device word (`K2_thr_*`);
 - K3 forward with the sums at (16|1, 592, 576, 64|128) -> 64, bf16;
 - K3's backward route at (1, 592, 576, 64|128) -> 64 (autograd of
   conv3x3_pair with cotangents on y and both sums), and its dx call alone:
@@ -111,6 +112,13 @@ def main(argv=None) -> None:
         lambda: dbk.dropblock_fused_apply(x1, ab1, key, gamma, BLOCK))
     out["K2_b1_device_ms"] = device_ms(
         lambda: dbk.dropblock_mask(tuple(x1.shape), key, gamma, BLOCK))
+    if "threshold" in inspect.signature(dbk.dropblock_mask).parameters:
+        # K2 reading its threshold from a device word (the scanned train step)
+        thr = torch.tensor(dbk.seed_threshold(gamma), dtype=torch.int64, device=dev)
+        out["K2_thr_ms"] = time_ms(
+            lambda: dbk.dropblock_mask(tuple(x.shape), key, None, BLOCK, threshold=thr), 20)
+        out["K2_thr_b1_device_ms"] = device_ms(
+            lambda: dbk.dropblock_mask(tuple(x1.shape), key, None, BLOCK, threshold=thr))
     del x, ab
 
     folds = "y" in inspect.signature(pc.conv3x3_pair_dx).parameters

@@ -13,7 +13,9 @@ their -angles (`shear`: kernel K4; `gather`: rotate_bilinear). With
 remat, DropBlock p=0.15 through the mask producer K2, conv_impl='pair' with
 K3's backward, the masked BCE, SGD + momentum with clip 0.5). Prints
 the wall time of the forward, the summed device time, the device's idle
-share of the wall time, and the device time by kernel, largest first.
+share of the wall time, the device time by kernel, largest first, and the
+host's busiest operators (self CPU time); then the mean wall time of
+--repeat unprofiled calls in a row (synchronised once, at the end).
 Needs one CUDA card.
 """
 
@@ -60,6 +62,7 @@ def main(argv=None) -> None:
     p.add_argument("--chunk", type=int, default=16)
     p.add_argument("--warp", choices=("shear", "gather"), default=None)
     p.add_argument("--train", action="store_true")
+    p.add_argument("--repeat", type=int, default=10)
     p.add_argument("--out", default="_runs/trace_mc_torch.json")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -113,6 +116,13 @@ def main(argv=None) -> None:
             kernels[ev.name][0] += ev.device_time / 1e3
             kernels[ev.name][1] += 1
     device_ms = sum(ms for ms, _ in kernels.values())
+    host = sorted(((ev.key, ev.self_cpu_time_total / 1e3, ev.count)
+                   for ev in prof.key_averages()), key=lambda r: -r[1])[:15]
+    t0 = time.perf_counter()
+    for _ in range(a.repeat):
+        forward()
+    torch.cuda.synchronize()
+    unprofiled_ms = (time.perf_counter() - t0) * 1e3 / a.repeat
     rows = sorted(([name, ms, n] for name, (ms, n) in kernels.items()),
                   key=lambda r: -r[1])
     by_kind = {}
@@ -122,20 +132,24 @@ def main(argv=None) -> None:
         acc[1] += n
     summary = {"device": torch.cuda.get_device_name(0), "chunk": 1 if a.train else a.chunk,
                "warp": a.warp, "train": a.train,
-               "wall_ms": wall_ms, "device_ms": device_ms,
+               "wall_ms": wall_ms, "device_ms": device_ms, "unprofiled_ms": unprofiled_ms,
                "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
                "launches": sum(n for _, _, n in rows),
                "by_kind": {k: {"ms": ms, "count": n} for k, (ms, n) in
                            sorted(by_kind.items(), key=lambda kv: -kv[1][0])},
-               "kernels": [{"name": n[:160], "ms": ms, "count": c} for n, ms, c in rows]}
+               "kernels": [{"name": n[:160], "ms": ms, "count": c} for n, ms, c in rows],
+               "host_self_ms": [{"name": n, "ms": ms, "count": c} for n, ms, c in host]}
     os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
     with open(a.out, "w") as f:
         json.dump(summary, f, indent=1)
-    print(json.dumps({k: v for k, v in summary.items() if k not in ("kernels", "by_kind")}))
+    print(json.dumps({k: v for k, v in summary.items()
+                      if k not in ("kernels", "by_kind", "host_self_ms")}))
     for kind, row in summary["by_kind"].items():
         print(f"{row['ms']:9.3f} ms {row['count']:5d}x  [{kind}]")
     for r in summary["kernels"][:30]:
         print(f"{r['ms']:9.3f} ms {r['count']:4d}x  {r['name'][:110]}")
+    for r in summary["host_self_ms"][:10]:
+        print(f"{r['ms']:9.3f} ms {r['count']:5d}x  host {r['name'][:100]}")
 
 
 if __name__ == "__main__":

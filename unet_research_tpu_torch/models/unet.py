@@ -22,8 +22,12 @@ in the storage dtype), as in the JAX model.
 returns NHWC; under a mesh x is this rank's rows of a global batch.
 `drop_prob=None` switches DropBlock off; otherwise `site_keys` is an (S, 2)
 int64 tensor of uint32 key words, one row per mask site in call order (see
-`num_mask_sites`), the keys the JAX model draws with `make_rng`. Activations
-and weights are cast to `cfg.dtype` at use; parameters stay float32.
+`num_mask_sites`), the keys the JAX model draws with `make_rng`. drop_prob
+is a number, or a 0-d float32 tensor on the model's device (a train step's,
+as JAX traces it from the step): each mask site then computes its seed
+threshold there and the mask producer reads it from the device, so a
+captured train step draws each step's masks. Activations and weights are
+cast to `cfg.dtype` at use; parameters stay float32.
 
 Mask pipelines (`DropBlockConfig.mask_impl`): 'fused' runs every site
 through the fused kernel (ops/cuda/dropblock_kernel.py::dropblock_fused_apply)
@@ -55,6 +59,7 @@ from unet_research_tpu_torch.device import resolve_device
 from unet_research_tpu_torch.ops.cuda.dropblock_kernel import (
     dropblock_fused_apply,
     dropblock_kernel_supported,
+    seed_threshold,
 )
 from unet_research_tpu_torch.ops.cuda.pair_conv import conv3x3_pair, conv3x3_pair_valid
 from unet_research_tpu_torch.ops.dropblock import (
@@ -333,6 +338,7 @@ class _Pass:
         self.active = db.kind is not None and drop_prob is not None
         self.site_keys = None
         self.cursor = 0
+        self.thresholds = {}  # a device drop_prob's seed thresholds by site size
         if self.active:
             want = (model.num_mask_sites(), 2)
             if site_keys is None or tuple(site_keys.shape) != want:
@@ -348,6 +354,9 @@ class _Pass:
                       and cfg.norm in (None, "group")
                       and cfg.activation in ("relu", "leaky_relu")
                       and dropblock_kernel_supported(db.block_size))
+        if self.fused and isinstance(drop_prob, torch.Tensor):
+            raise ValueError("mask_impl='fused': the forward-only fused kernel takes "
+                             "drop_prob as a number")
         if self.fused and torch.is_grad_enabled() and any(
                 p.requires_grad for p in model.parameters()):
             raise RuntimeError(
@@ -364,9 +373,14 @@ class _Pass:
 
     def block(self, fn, x):
         """fn(x), rematerialised in the backward under cfg.remat (JAX
-        `_maybe_remat`, models/unet.py:729-742)."""
+        `_maybe_remat`, models/unet.py:729-742). The forward draws nothing
+        from torch's generators (its masks come from the counter hash on
+        explicit keys), so the RNG state need not be saved and restored
+        around the re-run: preserve_rng_state=False is the same function,
+        and it leaves the CUDA generator's state unread, which a CUDA graph
+        capture refuses."""
         if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(fn, x, use_reentrant=False)
+            return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
         return fn(x)
 
     # -- layers ----------------------------------------------------------------
@@ -489,9 +503,20 @@ class _Pass:
             return (x, None) if rescale == "defer" else x
         if self.fused:
             return self.fused_site(x, key, None, rescale, with_act=False)
-        fn = dropblock_dependent if self.db.kind == "dependent" else dropblock_independent
-        return fn(x, key, self.drop_prob, self.db.block_size,
-                  mask_impl=self.db.mask_impl, rescale=rescale, mesh=self.mesh)
+        db = self.db
+        fn = dropblock_dependent if db.kind == "dependent" else dropblock_independent
+        if not isinstance(self.drop_prob, torch.Tensor):
+            return fn(x, key, self.drop_prob, db.block_size, mask_impl=db.mask_impl,
+                      rescale=rescale, mesh=self.mesh)
+        # the gamma and seed threshold of the device drop_prob, once per size
+        h, w = x.shape[1:3]
+        if (h, w) not in self.thresholds:
+            gamma_fn = (dropblock_gamma_dependent if db.kind == "dependent"
+                        else dropblock_gamma_independent)
+            self.thresholds[h, w] = seed_threshold(gamma_fn(h, w, db.block_size,
+                                                            self.drop_prob))
+        return fn(x, key, None, db.block_size, mask_impl=db.mask_impl, rescale=rescale,
+                  mesh=self.mesh, threshold=self.thresholds[h, w])
 
     def norm_db_act(self, x, key, norm_mod, rescale: str, sums=None):
         """The conv epilogue norm -> DropBlock -> activation."""

@@ -315,11 +315,15 @@ dropblock_apply_kernel(const T* __restrict__ x, T* __restrict__ out, const float
                                 threshold, p, act, slope);
 }
 
+// threshold_dev: the threshold as a word on the device (a train step's,
+// computed there from its drop probability), or null for the scalar
 template <int P, int TW>
 __global__ void __launch_bounds__(THREADS, 4)
 dropblock_mask_kernel(int8_t* __restrict__ mask, unsigned long long* __restrict__ keep,
                       const long long* __restrict__ key, int N, int H, int W, int C,
-                      int sample_offset, uint32_t threshold, int p) {
+                      int sample_offset, uint32_t threshold,
+                      const uint32_t* __restrict__ threshold_dev, int p) {
+    if (threshold_dev != nullptr) threshold = *threshold_dev;
     dropblock_tile<float, 0, P, TW>(nullptr, nullptr, mask, nullptr, keep, key, N, H, W, C,
                                     sample_offset, threshold, p, 0, 0.0f);
 }
@@ -370,19 +374,23 @@ extern "C" int dropblock_fused_apply_launch(const void* x, void* out, const floa
     return (int)cudaGetLastError();
 }
 
+// K2. threshold_dev: null, or a word on the device that replaces `threshold`
+// (the same integer, read by every thread when the kernel starts; the low
+// word of a little-endian int64 does).
 extern "C" int dropblock_mask_launch(void* mask, void* keep, const void* key, int N, int H,
                                      int W, int C, int sample_offset, unsigned threshold,
-                                     int block_size, void* stream) {
+                                     const unsigned* threshold_dev, int block_size,
+                                     void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     const int p = block_size / 2;
     if (p == 3) {
         dropblock_mask_kernel<3, 64><<<grid_for(N, H, W, C, 64), THREADS, 0, s>>>(
             (int8_t*)mask, (unsigned long long*)keep, (const long long*)key, N, H, W, C,
-            sample_offset, threshold, p);
+            sample_offset, threshold, threshold_dev, p);
     } else {
         dropblock_mask_kernel<0, 32><<<grid_for(N, H, W, C, 32), THREADS, 0, s>>>(
             (int8_t*)mask, (unsigned long long*)keep, (const long long*)key, N, H, W, C,
-            sample_offset, threshold, p);
+            sample_offset, threshold, threshold_dev, p);
     }
     return (int)cudaGetLastError();
 }

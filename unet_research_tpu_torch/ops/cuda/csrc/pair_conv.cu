@@ -633,14 +633,26 @@ int sm_count() {
     return count;
 }
 
+constexpr int MAX_DEVICES = 64;
+
 template <int NT, bool STATS>
 cudaError_t launch_wgmma(const CUtensorMap& map, int grid_x, int co_tiles, int smem,
                          cudaStream_t s, const __nv_bfloat16* w, __nv_bfloat16* y, float* s1,
                          float* s2, int N, int H, int W, int Cin, int Cout, int transposed,
                          int stages) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        conv3x3_wgmma_kernel<NT, STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
+    // The shared-memory limit is raised once per card and instantiation, at
+    // the first launch that needs it, so that a launch recorded into a CUDA
+    // graph (the trainer's scanned epochs) makes no attribute call.
+    static int raised[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    if (smem > raised[dev]) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            conv3x3_wgmma_kernel<NT, STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+        raised[dev] = smem;
+    }
     conv3x3_wgmma_kernel<NT, STATS><<<dim3(grid_x, co_tiles), WG_THREADS, smem, s>>>(
         map, w, y, s1, s2, N, H, W, Cin, Cout, transposed, stages);
     return cudaGetLastError();

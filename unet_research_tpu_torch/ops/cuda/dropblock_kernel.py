@@ -48,16 +48,21 @@ def _library():
         p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
         lib.dropblock_fused_apply_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, u, i, i, f, i, p]
         lib.dropblock_fused_apply_launch.restype = i
-        lib.dropblock_mask_launch.argtypes = [p, p, p, i, i, i, i, i, u, i, p]
+        lib.dropblock_mask_launch.argtypes = [p, p, p, i, i, i, i, i, u, p, i, p]
         lib.dropblock_mask_launch.restype = i
         _lib = lib
     return _lib
 
 
-def seed_threshold(gamma) -> int:
+def seed_threshold(gamma):
     """The kernels' integer form of `u < gamma`: a seed where the hash's top
     24 bits are below ceil(gamma * 2^24), gamma rounded to float32 first
-    (the product is exact in double precision)."""
+    (the product is exact in double precision). A tensor gamma gives the
+    same number as an int64 tensor on its device (the product is exact in
+    float32 too)."""
+    if isinstance(gamma, torch.Tensor):
+        scaled = torch.ceil(gamma.to(torch.float32) * float(1 << 24))
+        return scaled.clamp(0, 1 << 24).to(torch.int64)
     return min(max(math.ceil(f32(gamma) * float(1 << 24)), 0), 1 << 24)
 
 
@@ -143,26 +148,46 @@ def dropblock_fused_apply(x, ab, key_words, gamma, block_size: int,
 dropblock_fused_apply.launches = 0
 
 
-def dropblock_mask_plain(shape, key_words, gamma, block_size: int, sample_offset: int = 0):
+def dropblock_mask_plain(shape, key_words, gamma, block_size: int, sample_offset: int = 0,
+                         threshold=None):
     """K2's plain version: int8 keep-mask (N, H, W, C) and keep counts."""
     keep_mask = (~dropped_blocks(tuple(shape), key_words, gamma, block_size,
-                                 sample_offset)).to(torch.int8)
+                                 sample_offset, threshold)).to(torch.int8)
     return keep_mask, keep_mask.sum(dim=(1, 2, 3)).to(torch.float32)
 
 
-def dropblock_mask(shape, key_words, gamma, block_size: int, sample_offset: int = 0):
+def _check_threshold(threshold, device) -> None:
+    if threshold.numel() != 1 or threshold.dim() > 1 \
+            or threshold.dtype not in (torch.int64, torch.uint32):
+        raise ValueError("threshold must be a 0-d or (1,) int64/uint32 tensor")
+    if threshold.device != device:
+        raise ValueError("dropblock_mask: threshold must be on key_words' device")
+
+
+def dropblock_mask(shape, key_words, gamma, block_size: int, sample_offset: int = 0,
+                   threshold=None):
     """Dense int8 keep-mask (N, H, W, C) and keep counts (N,) float32, on
     key_words' device, with the samples at global rows sample_offset + n (as
-    in dropblock_fused_apply). CPU key words take the plain version."""
+    in dropblock_fused_apply). threshold: seed_threshold(gamma) as a 0-d or
+    (1,) int64/uint32 tensor on key_words' device, which the kernel reads
+    from the device in place of gamma (a captured train step computes it
+    there at each replay); the same mask as that gamma. CPU key words take the plain
+    version."""
     _check_args(shape, key_words, block_size, sample_offset)
+    if threshold is not None:
+        _check_threshold(threshold, key_words.device)
     if not key_words.is_cuda:
-        return dropblock_mask_plain(shape, key_words, gamma, block_size, sample_offset)
+        return dropblock_mask_plain(shape, key_words, gamma, block_size, sample_offset,
+                                    threshold)
     n, h, w, c = (int(s) for s in shape)
     mask = torch.empty((n, h, w, c), dtype=torch.int8, device=key_words.device)
     keep = torch.zeros(n, dtype=torch.int64, device=key_words.device)
+    # the kernel reads one 32-bit word: the value itself, or an int64's low
+    # word (little-endian; a threshold is at most 2^24)
     status = _library().dropblock_mask_launch(
         mask.data_ptr(), keep.data_ptr(), key_words.data_ptr(), n, h, w, c, sample_offset,
-        seed_threshold(gamma), block_size,
+        0 if threshold is not None else seed_threshold(gamma),
+        None if threshold is None else threshold.data_ptr(), block_size,
         torch.cuda.current_stream(key_words.device).cuda_stream)
     check(status, "dropblock_mask")
     dropblock_mask.launches += 1

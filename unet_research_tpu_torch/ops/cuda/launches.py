@@ -1,0 +1,42 @@
+"""The kernel wrappers' launch counts, read and credited as one.
+
+Each wrapper adds one to its `launches` where it launches its kernel (and
+conv3x3_pair's launches are also counted by kernel in `path_launches`). A
+CUDA graph replays the kernels that its capture recorded without calling a
+wrapper, so whoever replays one credits the counts that the capture added
+(`since`), once per replay (`credit`), and takes them back from the capture
+itself, which launched nothing.
+"""
+
+from __future__ import annotations
+
+from unet_research_tpu_torch.ops.cuda import dropblock_kernel, pair_conv, shear_rotate
+
+WRAPPERS = (dropblock_kernel.dropblock_fused_apply, dropblock_kernel.dropblock_mask,
+            pair_conv.conv3x3_pair, pair_conv.conv3x3_pair_dx, pair_conv.conv3x3_pair_fold,
+            shear_rotate.rotate_fan)
+
+
+def snapshot() -> dict:
+    """Every count now: {wrapper name: launches} and {"path:<kernel>": K3
+    launches by kernel}."""
+    counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+    counts.update({f"path:{k}": v for k, v in pair_conv.path_launches.items()})
+    return counts
+
+
+def since(before: dict) -> dict:
+    """The counts added since `before` (a snapshot), the nonzero ones."""
+    now = snapshot()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def credit(counts: dict, times: int = 1) -> None:
+    """Add `counts` (as `since` gives them) `times` times; a negative
+    `times` takes them back."""
+    by_name = {fn.__name__: fn for fn in WRAPPERS}
+    for k, v in counts.items():
+        if k.startswith("path:"):
+            pair_conv.path_launches[k[5:]] += v * times
+        else:
+            by_name[k].launches += v * times

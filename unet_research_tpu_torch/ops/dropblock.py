@@ -44,17 +44,28 @@ def f32(value) -> float:
     return float(np.float32(value))
 
 
-def dropblock_gamma_dependent(h: int, w: int, block_size: int, drop_prob) -> float:
-    """Gamma for the dependent variant (utils_modules.py:81-82). Unclamped."""
+def _over(a, b: int):
+    """a / b. A tensor is divided by b as a tensor on its own device: CUDA
+    divides by a host scalar as a * (1 / b), which can round otherwise."""
+    if isinstance(a, torch.Tensor):
+        return a / torch.full((), b, dtype=a.dtype, device=a.device)
+    return a / b
+
+
+def dropblock_gamma_dependent(h: int, w: int, block_size: int, drop_prob):
+    """Gamma for the dependent variant (utils_modules.py:81-82). Unclamped.
+    drop_prob: a number, or a float32 tensor (then the float32 operations
+    of an np.float32 drop_prob, in the same order, on its device)."""
     b = block_size
-    return drop_prob * h * w / ((b * b) * (h - b + 1) * (w - b + 1))
+    return _over(drop_prob * h * w, (b * b) * (h - b + 1) * (w - b + 1))
 
 
-def dropblock_gamma_independent(h: int, w: int, block_size: int, drop_prob) -> float:
+def dropblock_gamma_independent(h: int, w: int, block_size: int, drop_prob):
     """Gamma for the independent-channel variant (utils_modules.py:98-102),
-    clamped to 1."""
+    clamped to 1. drop_prob: as in dropblock_gamma_dependent."""
     b = block_size
-    return min((drop_prob / (b * b)) * (h * w) / ((h - b + 1) * (w - b + 1)), 1.0)
+    gamma = _over(_over(drop_prob, b * b) * (h * w), (h - b + 1) * (w - b + 1))
+    return gamma.clamp(max=1.0) if isinstance(gamma, torch.Tensor) else min(gamma, 1.0)
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -64,16 +75,9 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
 
 
-def hash_uniform(key_words: torch.Tensor, shape, sample_offset: int = 0) -> torch.Tensor:
-    """Counter-hash uniforms in [0, 1), float32, on key_words' device.
-
-    The murmur-style mixer of the JAX package (ops/dropblock.py:91-113) over
-    the flat row-major index of `shape`, keyed by the first and last of the
-    uint32 key words (an int64 tensor). Bit-identical to JAX's
-    `_hash_uniform` for the same key words. sample_offset: the global index
-    of row 0 (a rank's first row of a global batch): the counter starts at
-    sample_offset * prod(shape[1:]), so rows [k, k+n) of an N-row draw equal
-    the n-row draw at offset k, as XLA's partitioned iota gives them."""
+def hash_bits(key_words: torch.Tensor, shape, sample_offset: int = 0) -> torch.Tensor:
+    """The counter hash's top 24 bits, int64 in [0, 2^24), on key_words'
+    device: `hash_uniform` before its scaling to [0, 1)."""
     kd = key_words.reshape(-1).to(torch.int64) & _M32
     inner = 1
     for s in shape[1:]:
@@ -88,8 +92,31 @@ def hash_uniform(key_words: torch.Tensor, shape, sample_offset: int = 0) -> torc
     x = x ^ (x >> 15) ^ kd[-1]
     x = _mul32(x, 0x846CA68B)
     x = x ^ (x >> 16)
+    return x >> 8
+
+
+def hash_uniform(key_words: torch.Tensor, shape, sample_offset: int = 0) -> torch.Tensor:
+    """Counter-hash uniforms in [0, 1), float32, on key_words' device.
+
+    The murmur-style mixer of the JAX package (ops/dropblock.py:91-113) over
+    the flat row-major index of `shape`, keyed by the first and last of the
+    uint32 key words (an int64 tensor). Bit-identical to JAX's
+    `_hash_uniform` for the same key words. sample_offset: the global index
+    of row 0 (a rank's first row of a global batch): the counter starts at
+    sample_offset * prod(shape[1:]), so rows [k, k+n) of an N-row draw equal
+    the n-row draw at offset k, as XLA's partitioned iota gives them."""
     # 24-bit mantissa -> exact float32 uniform in [0, 1)
-    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return hash_bits(key_words, shape, sample_offset).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _seeds(key_words, shape, gamma, sample_offset, threshold) -> torch.Tensor:
+    """bool seeds u < f32(gamma) over `shape`; with `threshold` (a one-word
+    integer tensor holding seed_threshold(gamma), ops/cuda/dropblock_kernel.py)
+    the hash's top 24 bits below it instead: the kernels' comparison, which
+    draws the same seeds for that gamma."""
+    if threshold is None:
+        return hash_uniform(key_words, shape, sample_offset) < f32(gamma)
+    return hash_bits(key_words, shape, sample_offset) < threshold.reshape(()).to(torch.int64)
 
 
 def _block_expand(seeds: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -111,7 +138,7 @@ def interior_mask(h: int, w: int, p: int, device) -> torch.Tensor:
 
 
 def dropped_blocks(shape, key_words: torch.Tensor, gamma, block_size: int,
-                   sample_offset: int = 0) -> torch.Tensor:
+                   sample_offset: int = 0, threshold=None) -> torch.Tensor:
     """bool (N, H, W, C): the positions an odd-b DropBlock drops.
 
     Seeds are Bernoulli(gamma) from `hash_uniform` at the flat NHWC index,
@@ -119,21 +146,22 @@ def dropped_blocks(shape, key_words: torch.Tensor, gamma, block_size: int,
     blocks. Drawing over the full grid and masking the border equals the
     reference's valid-centre draw + zero pad for odd b (ops/dropblock.py:214-224
     of the JAX package). This is the mask both Hopper kernels compute.
-    sample_offset: see hash_uniform."""
+    sample_offset: see hash_uniform. threshold: see _seeds (gamma is then
+    not read)."""
     n, h, w, c = shape
-    seeds = hash_uniform(key_words, shape, sample_offset) < f32(gamma)
+    seeds = _seeds(key_words, shape, gamma, sample_offset, threshold)
     seeds &= interior_mask(h, w, block_size // 2, seeds.device)[None, :, :, None]
     return _block_expand(seeds, block_size)
 
 
-def _dropped(shape, key_words, gamma, block_size, sample_offset) -> torch.Tensor:
+def _dropped(shape, key_words, gamma, block_size, sample_offset, threshold=None) -> torch.Tensor:
     if block_size % 2 == 1:
-        return dropped_blocks(shape, key_words, gamma, block_size, sample_offset)
+        return dropped_blocks(shape, key_words, gamma, block_size, sample_offset, threshold)
     # even b: seeds over the (H-b+1, W-b+1) valid centres in their own index
     # space, ZeroPad2d(b//2), crop the trailing row/column (JAX :225-230)
     n, h, w, c = shape
     b, p = block_size, block_size // 2
-    seeds = hash_uniform(key_words, (n, h - b + 1, w - b + 1, c), sample_offset) < f32(gamma)
+    seeds = _seeds(key_words, (n, h - b + 1, w - b + 1, c), gamma, sample_offset, threshold)
     seeds = F.pad(seeds, (0, 0, p, p, p, p))[:, :h, :w, :]
     return _block_expand(seeds, b)
 
@@ -144,32 +172,37 @@ def _kernel_path(impl: str, block_size: int) -> bool:
     return impl in ("kernel", "fused") and dropblock_kernel_supported(block_size)
 
 
-def _mask_and_keep(x, key_words, gamma, block_size, impl, sample_offset):
+def _mask_and_keep(x, key_words, gamma, block_size, impl, sample_offset, threshold=None):
     """(int8 keep-mask, per-sample keep counts float32 (N,))."""
     if _kernel_path(impl, block_size):
         from unet_research_tpu_torch.ops.cuda.dropblock_kernel import dropblock_mask
 
-        return dropblock_mask(tuple(x.shape), key_words, gamma, block_size, sample_offset)
+        return dropblock_mask(tuple(x.shape), key_words, gamma, block_size, sample_offset,
+                              threshold=threshold)
     keep_mask = (~_dropped(tuple(x.shape), key_words, gamma, block_size,
-                           sample_offset)).to(torch.int8)
+                           sample_offset, threshold)).to(torch.int8)
     return keep_mask, keep_mask.sum(dim=(1, 2, 3)).to(torch.float32)
 
 
 def dropblock_dependent(x: torch.Tensor, key_words: torch.Tensor, drop_prob,
                         block_size: int, mask_impl: str | None = None,
-                        rescale: str = "apply", mesh=None):
+                        rescale: str = "apply", mesh=None, threshold=None):
     """DropBlock2D-equivalent (utils_modules.py:36-82), NHWC.
 
     rescale: 'apply' multiplies in numel/sum over the whole batch (the
     reference op); 'defer' returns (x*mask, per-sample (N,) scale numel/sum);
     'skip' omits the count (the model's fold_rescale algebra). mesh: x is
     this rank's rows of the global batch (parallel/mesh.py): the masks are
-    drawn at their global rows and 'apply' counts over the global batch."""
+    drawn at their global rows and 'apply' counts over the global batch.
+    threshold: this site's seed threshold as a one-word integer tensor on
+    x's device, in place of drop_prob (a train step's, whose drop
+    probability is a device word); the same masks as its gamma."""
     impl = _resolve_impl(mask_impl)
     n, h, w, c = x.shape
-    gamma = dropblock_gamma_dependent(h, w, block_size, drop_prob)
+    gamma = (None if threshold is not None
+             else dropblock_gamma_dependent(h, w, block_size, drop_prob))
     keep_mask, keep = _mask_and_keep(x, key_words, gamma, block_size, impl,
-                                     rank_offset(mesh, n))
+                                     rank_offset(mesh, n), threshold)
     out = x * keep_mask.to(x.dtype)
     if rescale == "skip":
         return out
@@ -181,17 +214,18 @@ def dropblock_dependent(x: torch.Tensor, key_words: torch.Tensor, drop_prob,
 
 def dropblock_independent(x: torch.Tensor, key_words: torch.Tensor, drop_prob,
                           block_size: int, mask_impl: str | None = None,
-                          rescale: str = "apply", mesh=None):
+                          rescale: str = "apply", mesh=None, threshold=None):
     """Dropblock2d_ichan-equivalent (utils_modules.py:107-139), NHWC: the
     guarded 1/mean rescale (identity when everything was dropped). Odd b
-    only, as in the reference. mesh: as in dropblock_dependent."""
+    only, as in the reference. mesh, threshold: as in dropblock_dependent."""
     if block_size % 2 == 0:
         raise ValueError("dropblock_independent requires an odd block_size")
     impl = _resolve_impl(mask_impl)
     n, h, w, c = x.shape
-    gamma = dropblock_gamma_independent(h, w, block_size, drop_prob)
+    gamma = (None if threshold is not None
+             else dropblock_gamma_independent(h, w, block_size, drop_prob))
     keep_mask, keep = _mask_and_keep(x, key_words, gamma, block_size, impl,
-                                     rank_offset(mesh, n))
+                                     rank_offset(mesh, n), threshold)
     out = x * keep_mask.to(x.dtype)
     if rescale == "skip":
         return out

@@ -25,8 +25,21 @@ every rank holds the same parameters. The seed and the initial weights are
 rank 0's. Validation splits the items over the ranks; rank 0 alone writes
 checkpoints and prints.
 
-Differences from the JAX trainer: there is no one-program-per-epoch scan
-(its step math is the per-step math). The DropBlock site keys of each step
+Scanned epochs (`TrainerConfig.scan_epochs`, on by default, the twin of
+JAX's `train_epoch_scan`): under JAX's conditions (no size plan, batch 1,
+no detect_anomaly, no mesh) an epoch is one device program over the
+device-resident uint8 split. Its step is train_step on inputs that it
+reads from tables on the device (the epoch's order, each step's site keys
+and drop probability, filled on the host before the epoch from the same
+generator and ramp as the per-step path) at a step index that it advances
+on the device; the learning rate is the state's device word. On the card
+the first steps of the fit run eagerly, then the step is captured once as
+a CUDA graph and replayed for the rest of every epoch, with one host
+synchronisation per epoch (the losses); on the CPU the same step runs
+eagerly. It computes the per-step path's numbers. A failed capture or
+replay raises.
+
+Differences from the JAX trainer: the DropBlock site keys of each step
 are drawn from a torch.Generator seeded with the run's seed, where JAX
 folds the step into a PRNG key, so the two packages draw different masks
 from one seed; `train_step` takes explicit `site_keys`.
@@ -47,6 +60,7 @@ from unet_research_tpu_torch.data.dataset import ArrayDataset
 from unet_research_tpu_torch.data.loading import batch_iterator, to_device
 from unet_research_tpu_torch.device import resolve_device
 from unet_research_tpu_torch.models.unet import UNet, draw_site_keys
+from unet_research_tpu_torch.ops.cuda import launches
 from unet_research_tpu_torch.ops.losses import masked_rescaled_bce
 from unet_research_tpu_torch.parallel.mesh import barrier, broadcast_, broadcast_int, psum
 from unet_research_tpu_torch.train.checkpoint import BestCheckpointKeeper, load_checkpoint
@@ -71,6 +85,9 @@ class TrainerConfig:
     verbose: bool = True
     profiler: Optional[str] = None  # 'simple' | 'trace'
     detect_anomaly: bool = False  # per-step finite check (waits for the card each step)
+    # an epoch as one device program (module docstring); steps one at a time
+    # under a size plan, batch > 1, detect_anomaly or a mesh, as JAX does
+    scan_epochs: bool = True
 
 
 def drop_prob_at(step: int, db) -> np.float32:
@@ -108,6 +125,14 @@ class Trainer:
             raise ValueError(f"the model lives on {where}, the trainer runs on {self.device}")
         self.has_dropblock = model.cfg.dropblock.kind is not None
         self.key_generator = torch.Generator().manual_seed(max(cfg.seed, 0))
+        self._scan = None  # the scanned fit's program (_EpochProgram)
+
+    def scans(self, size_plan: Optional[np.ndarray] = None) -> bool:
+        """Whether fit runs scanned epochs: JAX's `use_scan` conditions
+        (unet_research_tpu/train/loop.py:296-302)."""
+        cfg = self.cfg
+        return (cfg.scan_epochs and size_plan is None and cfg.train_batch == 1
+                and not cfg.detect_anomaly and self.mesh is None)
 
     # ------------------------------------------------------------------
     def init_params(self, seed: int = 0) -> dict:
@@ -129,19 +154,25 @@ class Trainer:
                           mesh=self.mesh)
 
     # ------------------------------------------------------------------
-    def train_step(self, state: TrainState, im, gt, mask, lr: float, size: int = -1,
-                   site_keys: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def train_step(self, state: TrainState, im, gt, mask, lr: Optional[float], size: int = -1,
+                   site_keys: Optional[torch.Tensor] = None,
+                   drop_prob: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One update; returns the loss (float32, on the device, detached).
-        site_keys: the (S, 2) DropBlock keys, drawn from `key_generator`
-        when None. Under a mesh im/gt/mask are this rank's rows of the global
-        batch (data/loading.py::shard_batch) and the loss is the global
-        batch's."""
+        lr: None takes the state's lr_tensor as it stands (the scanned
+        step's). site_keys: the (S, 2) DropBlock keys, drawn from
+        `key_generator` when None. drop_prob: the DropBlock drop probability
+        as a 0-d float32 tensor on the device, drop_prob_at(state.step) when
+        None; the mask sites compute their seed thresholds from it there.
+        Under a mesh im/gt/mask are this rank's rows of the global batch
+        (data/loading.py::shard_batch) and the loss is the global batch's."""
         kwargs = {}
         if self.has_dropblock:
             if site_keys is None:
                 site_keys = draw_site_keys(self.model.num_mask_sites(), self.key_generator)
-            kwargs = dict(drop_prob=drop_prob_at(state.step, self.model.cfg.dropblock),
-                          site_keys=site_keys)
+            if drop_prob is None:
+                p = drop_prob_at(state.step, self.model.cfg.dropblock)
+                drop_prob = torch.full((), float(p), dtype=torch.float32, device=self.device)
+            kwargs = dict(drop_prob=drop_prob, site_keys=site_keys)
 
         def forward(x):
             return self.model(x, train=True, mesh=self.mesh, **kwargs)
@@ -153,12 +184,39 @@ class Trainer:
         loss = loss.detach()
         return loss if self.mesh is None else psum(loss, self.mesh)
 
-    def train_step_indexed(self, state: TrainState, data, oi: int, lr: float,
-                           size: int = -1) -> torch.Tensor:
-        """train_step on item `oi` of the device-resident uint8 split `data`
-        (images, targets, masks), normalised as ArrayDataset.__getitem__."""
-        im, gt, mask = ((t[oi].to(torch.float32) / 255.0)[None] for t in data)
-        return self.train_step(state, im, gt, mask, lr, size)
+    def train_step_indexed(self, state: TrainState, data, oi, lr: Optional[float],
+                           size: int = -1, **inputs) -> torch.Tensor:
+        """train_step on item `oi` (an int, or a (1,) int64 tensor on the
+        device) of the device-resident uint8 split `data` (images, targets,
+        masks), normalised as ArrayDataset.__getitem__. inputs: train_step's
+        site_keys and drop_prob."""
+        im, gt, mask = ((t.index_select(0, oi) if torch.is_tensor(oi) else t[oi:oi + 1])
+                        .to(torch.float32) / 255.0 for t in data)
+        return self.train_step(state, im, gt, mask, lr, size, **inputs)
+
+    def step_tables(self, step: int, num_steps: int) -> tuple:
+        """The DropBlock inputs of `num_steps` steps from `step`, as the
+        per-step path draws and computes them: (K, S, 2) site keys from
+        `key_generator` and the (K,) float32 drop probabilities
+        drop_prob_at(step + i). CPU tensors."""
+        db = self.model.cfg.dropblock
+        keys = torch.stack([draw_site_keys(self.model.num_mask_sites(), self.key_generator)
+                            for _ in range(num_steps)])
+        drop_probs = torch.tensor(np.array([drop_prob_at(step + i, db) for i in range(num_steps)],
+                                           dtype=np.float32))
+        return keys, drop_probs
+
+    def train_epoch_scan(self, state: TrainState, data, order, lr: float) -> np.ndarray:
+        """All K steps of one epoch as one device program over the
+        device-resident uint8 split `data` (JAX `train_epoch_scan`,
+        loop.py:152-171): the steps of train_step_indexed on items `order`
+        at `lr`. Returns the (K,) float32 losses and advances state.step by
+        K. The program (tables, captured graph) is kept for the next epoch
+        of the same fit."""
+        prog = self._scan
+        if prog is None or not prog.serves(state, data, len(order)):
+            prog = self._scan = _EpochProgram(self, state, data, len(order))
+        return prog.run(order, lr)
 
     @torch.no_grad()
     def eval_step(self, im, gt, mask) -> torch.Tensor:
@@ -191,6 +249,7 @@ class Trainer:
             state = self.create_state(sd, lr)
             if opt is not None:
                 state.optimizer.load_state_dict(opt)
+                state.init_momentum_buffers()
             state.step = int(meta.get("step", 0))
             start_epoch = int(meta.get("epoch", -1)) + 1
         else:
@@ -217,57 +276,50 @@ class Trainer:
 
         t_fit = time.time()
         shuffle = not self.policy.uses_size_plan  # MF plans index by batch_idx
+        use_scan = self.scans(size_plan)
         dev_data = None
-        for epoch in range(start_epoch, cfg.max_epochs):
-            t0 = time.time()
-            if cfg.train_batch == 1:
-                # the uint8 split uploaded once; each step indexes one item
-                if dev_data is None:
-                    dev_data = to_device((train_ds.images, train_ds.targets, train_ds.masks),
-                                         self.device)
-                order = np.arange(len(train_ds))
-                if shuffle:
-                    np_rng.shuffle(order)
-                batches = ((i, int(oi)) for i, oi in enumerate(order))
-            else:
-                batches = enumerate(batch_iterator(train_ds, cfg.train_batch, shuffle, np_rng,
-                                                   device=self.device, mesh=self.mesh))
-            step_losses = []
-            for batch_idx, item in batches:
-                size = int(size_plan[batch_idx]) if size_plan is not None else -1
+        try:
+            for epoch in range(start_epoch, cfg.max_epochs):
+                t0 = time.time()
                 if cfg.train_batch == 1:
-                    loss = self.train_step_indexed(state, dev_data, item, lr, size)
+                    # the uint8 split uploaded once; each step indexes one item
+                    if dev_data is None:
+                        dev_data = to_device((train_ds.images, train_ds.targets,
+                                              train_ds.masks), self.device)
+                    order = np.arange(len(train_ds))
+                    if shuffle:
+                        np_rng.shuffle(order)
+                if use_scan:
+                    losses = self.train_epoch_scan(state, dev_data, order, lr)
+                    step_losses = losses[np.arange(len(losses)) % cfg.log_gate != 0]
                 else:
-                    loss = self.train_step(state, *item, lr, size)
-                if cfg.detect_anomaly and not np.isfinite(float(loss)):
-                    raise FloatingPointError(
-                        f"non-finite train loss at epoch {epoch} batch {batch_idx}"
-                        " (--detect_anomaly)")
-                if batch_idx % cfg.log_gate:  # the reference's gate quirk
-                    step_losses.append(loss)
-            train_loss = (float(np.mean(torch.stack(step_losses).cpu().numpy()))
-                          if step_losses else float("nan"))
-            history["train_loss_epoch"].append(train_loss)
-            history["lr"].append(lr)
+                    step_losses = self._step_epoch(state, dev_data, order if cfg.train_batch == 1
+                                                   else None, train_ds, lr, size_plan, shuffle,
+                                                   np_rng, epoch)
+                train_loss = float(np.mean(step_losses)) if len(step_losses) else float("nan")
+                history["train_loss_epoch"].append(train_loss)
+                history["lr"].append(lr)
 
-            if (epoch + 1) % cfg.check_val_every_n_epoch == 0:
-                val_loss = self._mean_val_loss(val_ds, cfg.val_batch)
-                history["val_loss_epoch"].append(val_loss)
-                if keeper is not None:
-                    keeper.update(epoch, val_loss, self.model.state_dict(),
-                                  meta={**(ckpt_meta or {}), "lr": lr, "step": state.step},
-                                  optimizer=state.optimizer.state_dict())
-                if self.mesh is not None:
-                    barrier(self.mesh)  # the other ranks wait for rank 0's checkpoint
-                lr = plateau.step(val_loss)
-                stop = early.step(val_loss)
-                if verbose:
-                    print(f"epoch {epoch:3d} train_loss {train_loss:.4f} "
-                          f"val_loss {val_loss:.4f} lr {lr:.2e} ({time.time() - t0:.1f}s)")
-                if stop:
+                if (epoch + 1) % cfg.check_val_every_n_epoch == 0:
+                    val_loss = self._mean_val_loss(val_ds, cfg.val_batch)
+                    history["val_loss_epoch"].append(val_loss)
+                    if keeper is not None:
+                        keeper.update(epoch, val_loss, self.model.state_dict(),
+                                      meta={**(ckpt_meta or {}), "lr": lr, "step": state.step},
+                                      optimizer=state.optimizer.state_dict())
+                    if self.mesh is not None:
+                        barrier(self.mesh)  # the other ranks wait for rank 0's checkpoint
+                    lr = plateau.step(val_loss)
+                    stop = early.step(val_loss)
                     if verbose:
-                        print(f"early stopping at epoch {epoch}")
-                    break
+                        print(f"epoch {epoch:3d} train_loss {train_loss:.4f} "
+                              f"val_loss {val_loss:.4f} lr {lr:.2e} ({time.time() - t0:.1f}s)")
+                    if stop:
+                        if verbose:
+                            print(f"early stopping at epoch {epoch}")
+                        break
+        finally:
+            self._scan = None  # frees the captured graph and its memory pool
         if prof is not None:
             prof.stop()
             trace_dir = os.path.join(model_info_dir, "..", "profile")
@@ -279,6 +331,34 @@ class Trainer:
             print(f"[profiler simple] {n_epochs} epochs in {total:.1f}s "
                   f"({total / max(1, n_epochs):.1f}s/epoch)")
         return state, history, keeper
+
+    def _step_epoch(self, state, dev_data, order, train_ds, lr, size_plan, shuffle, np_rng,
+                    epoch) -> np.ndarray:
+        """One epoch a step at a time: items `order` of the device-resident
+        split at batch 1, else batch_iterator's batches. Returns the float32
+        losses that the log gate keeps."""
+        cfg = self.cfg
+        if order is not None:
+            batches = ((i, int(oi)) for i, oi in enumerate(order))
+        else:
+            batches = enumerate(batch_iterator(train_ds, cfg.train_batch, shuffle, np_rng,
+                                               device=self.device, mesh=self.mesh))
+        step_losses = []
+        for batch_idx, item in batches:
+            size = int(size_plan[batch_idx]) if size_plan is not None else -1
+            if order is not None:
+                loss = self.train_step_indexed(state, dev_data, item, lr, size)
+            else:
+                loss = self.train_step(state, *item, lr, size)
+            if cfg.detect_anomaly and not np.isfinite(float(loss)):
+                raise FloatingPointError(
+                    f"non-finite train loss at epoch {epoch} batch {batch_idx}"
+                    " (--detect_anomaly)")
+            if batch_idx % cfg.log_gate:  # the reference's gate quirk
+                step_losses.append(loss)
+        if not step_losses:
+            return np.zeros(0, np.float32)
+        return torch.stack(step_losses).cpu().numpy()
 
     def _mean_val_loss(self, ds: ArrayDataset, batch: int) -> float:
         """The mean of the batches' losses. Under a mesh rank r takes batches
@@ -314,6 +394,103 @@ class Trainer:
             with torch.no_grad():
                 out = self.policy.predict_io(self.model, im, gt, mask)
             yield (i, *(t.cpu().numpy() for t in out))
+
+
+class _EpochProgram:
+    """The static buffers of a scanned fit and, on the card, its captured
+    step (Trainer.train_epoch_scan).
+
+    The step reads every input that changes from step to step from these
+    buffers, at the step index `index` on the device, and advances the
+    index itself: a CUDA graph of one step, replayed K times, runs the K
+    steps of an epoch. Between epochs the host refills the tables, sets the
+    state's learning rate and resets the index, and reads the losses back:
+    the epoch's one synchronisation."""
+
+    # Eager steps before the capture, on a side stream, as PyTorch's CUDA
+    # graph notes ask. They are real steps of the first scanned epoch. The
+    # first does the one-time work that a capture cannot hold: it loads the
+    # kernel libraries, raises K3's shared-memory limit and builds cuDNN's
+    # plans for every conv of the forward, the remat re-run and the
+    # backward. The second is a step in the steady state that the capture
+    # will record, at the cost of one eager step per fit.
+    WARMUP = 2
+
+    def __init__(self, trainer: Trainer, state: TrainState, data, num_steps: int):
+        self.trainer, self.state, self.data, self.num_steps = trainer, state, data, num_steps
+        dev = trainer.device
+        self.order = torch.zeros(num_steps, dtype=torch.int64, device=dev)
+        self.index = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.losses = torch.zeros(num_steps, dtype=torch.float32, device=dev)
+        if trainer.has_dropblock:
+            sites = trainer.model.num_mask_sites()
+            self.keys = torch.zeros((num_steps, sites, 2), dtype=torch.int64, device=dev)
+            self.drop_probs = torch.zeros(num_steps, dtype=torch.float32, device=dev)
+        self.graph = None
+        self.replay_counts = {}  # kernel launches of one replay (ops/cuda/launches.py)
+        self.capture_seconds = None
+
+    def serves(self, state: TrainState, data, num_steps: int) -> bool:
+        return state is self.state and data is self.data and num_steps == self.num_steps
+
+    def step(self) -> None:
+        """One train step at the step index, on the buffers."""
+        t, idx = self.trainer, self.index
+        inputs = {}
+        if t.has_dropblock:
+            inputs = dict(site_keys=self.keys.index_select(0, idx)[0],
+                          drop_prob=self.drop_probs.index_select(0, idx)[0])
+        loss = t.train_step_indexed(self.state, self.data, self.order.index_select(0, idx), None,
+                                    **inputs)
+        self.losses.index_copy_(0, idx, loss.reshape(1))
+        idx.add_(1)
+
+    def capture(self) -> None:
+        """Record one step as a CUDA graph. Capturing runs no kernel, so the
+        launch counts that the capture's wrapper calls added are taken back
+        and kept to be credited per replay."""
+        before = launches.snapshot()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            self.step()
+        self.capture_seconds = time.perf_counter() - t0
+        self.replay_counts = launches.since(before)
+        launches.credit(self.replay_counts, -1)
+        self.graph = graph
+
+    def run(self, order, lr: float) -> np.ndarray:
+        """The epoch: tables filled, then K steps. Returns the (K,) losses."""
+        t, state, k = self.trainer, self.state, self.num_steps
+        step0 = state.step
+        if t.has_dropblock:
+            keys, drop_probs = t.step_tables(step0, k)
+            self.keys.copy_(keys)
+            self.drop_probs.copy_(drop_probs)
+        self.order.copy_(torch.as_tensor(np.asarray(order), dtype=torch.int64))
+        state.set_lr(lr)
+        self.index.zero_()
+        if t.device.type != "cuda":
+            for _ in range(k):
+                self.step()
+        else:
+            eager = 0
+            if self.graph is None:
+                eager = min(self.WARMUP, k)
+                side = torch.cuda.Stream(t.device)
+                side.wait_stream(torch.cuda.current_stream(t.device))
+                with torch.cuda.stream(side):
+                    for _ in range(eager):
+                        self.step()
+                torch.cuda.current_stream(t.device).wait_stream(side)
+                if eager < k:
+                    self.capture()
+            for _ in range(k - eager):
+                self.graph.replay()
+            launches.credit(self.replay_counts, k - eager)
+        losses = self.losses.cpu().numpy()
+        state.step = step0 + k  # apply_gradients counted the eager steps and the capture
+        return losses
 
 
 def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,
