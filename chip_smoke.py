@@ -6,12 +6,21 @@ Builds the hand-written kernels from unet_research_tpu_torch/ops/cuda/csrc
 (and checks that K3's library holds Hopper's warpgroup MMA and TMA loads and
 no mma.sync), holds each kernel against its plain PyTorch version at the
 shapes of the main path (K3 forward at batch 16 and 1, every main-path K3
-launch asserted to run the wgmma kernel), then runs the MC-DropBlock ensemble of the canonical 31M U-Net
+launch asserted to run the wgmma kernel; K4's table launch, rotate_fan_table,
+bit-equal to its parameter launch on both fans of two chunks), then runs the
+MC-DropBlock ensemble of the canonical 31M U-Net
 (bf16, dependent DropBlock b=7 p=0.15, conv_impl='pair' + mask_impl='fused')
 on a seeded synthetic 584x565 image and checks its outputs and launch
-counts, then the rotational TTA ensemble of the same model (bf16, DropBlock
-off, conv_impl='pair', all 359 angles) under both warps, 'shear' (kernel K4)
-and 'gather', then training: K3's backward against the plain route's
+counts, then `mc-program`: 172 members through the engine's device program
+(a CUDA graph of the chunk replayed over the 10 body chunks) against every
+chunk from the host, from one seed (launches equal with K1 and K3 credited
+per replay, one replay's kernels equal to one eager chunk's, the
+statistics within the ensembles' gate; passes/s of both routes, the
+replays' idle share, the capture's seconds, both peaks), then the
+rotational TTA ensemble of the same model (bf16, DropBlock off,
+conv_impl='pair', all 359 angles) under both warps, 'shear' (kernel K4, by
+its table launch in the program) and 'gather', and `rotational-program`,
+the same comparison under both warps, then training: K3's backward against the plain route's
 autograd at the train shapes (bf16 and float32), one train step through the
 kernel route against the plain routes, Trainer.fit of the canonical model
 (bf16, remat, dependent DropBlock b=7 ramped 0 -> 0.15 over 8 steps,
@@ -82,6 +91,10 @@ Every phase prints one JSON line; the last line is
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit). Needs
 one CUDA card; exits non-zero without one.
 
+Ensemble programs: the captured route's mean, std and saved members within
+twice the plain bf16 route's distance from float32 of the eager route's
+(the same masks or angles; K3's float32 atomics part them), K4's table
+launch bit-equal to the parameter launch.
 Tolerances: masks and keep counts exact (one counter hash on both sides;
 K2 reading its threshold from a device word too, against the scalar launch
 and the plain version at the thresholds of a ramp);
@@ -198,7 +211,8 @@ COUNTERS = {"dropblock_fused_apply": dbk.dropblock_fused_apply,
             "conv3x3_pair": pc.conv3x3_pair,
             "conv3x3_pair_dx": pc.conv3x3_pair_dx,
             "conv3x3_pair_fold": pc.conv3x3_pair_fold,
-            "rotate_fan": sr.rotate_fan}
+            "rotate_fan": sr.rotate_fan,
+            "rotate_fan_table": sr.rotate_fan_table}
 # one chunk of the rotational fan, the four ties 45 + 90k included
 FAN = torch.tensor([45.0, 135.0, 225.0, 315.0, 1.0, 17.0, 33.0, 60.0, 90.0, 101.0, 180.0,
                     200.5, 270.0, 300.0, 333.0, 359.0])
@@ -567,6 +581,55 @@ def check_k4() -> dict:
     return row
 
 
+def check_k4_table() -> dict:
+    """K4's table launch (rotate_fan_table) on both fans of two chunks, the
+    rows at a chunk index on the card: bit-equal to the parameter launch
+    (rotate_fan) of that chunk's angles and to its plain version, one
+    shear_fan_table_kernel launch per call; then its times."""
+    im = torch.as_tensor(synthetic_image()[0], device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(4)
+    segs = torch.rand((len(FAN), 584, 565, 1), device=DEV, generator=g)
+    chunks = [FAN, torch.arange(1, len(FAN) + 1, dtype=torch.float32) * 21.5]
+    row = None
+    for name, img, sign in (("forward", im, 1.0), ("inverse", segs, -1.0)):
+        table = sr.member_table([sign * c for c in chunks], 584, 565, DEV)
+        for c, angles in enumerate(chunks):
+            index = torch.tensor([c], device=DEV)
+            out = sr.rotate_fan_table(img, table, index)
+            ref = sr.rotate_fan(img, sign * angles)
+            plain = sr.rotate_fan_table_plain(img, table, index)
+            if not (torch.equal(out, ref) and torch.equal(out, plain)):
+                raise AssertionError(f"K4 table {name} fan, chunk {c}: differs from the "
+                                     f"parameter launch by {float((out - ref).abs().max())}, "
+                                     f"from plain by {float((out - plain).abs().max())}")
+        kernels = kernels_per_call(lambda: sr.rotate_fan_table(img, table, index))
+        if len(kernels) != 1 or "shear_fan_table_kernel" not in kernels[0]:
+            raise AssertionError(f"K4 table {name} fan: kernels {kernels}, expected one launch")
+        emit({"phase": "K4-table", "fan": name, "chunks": len(chunks), "members": len(FAN),
+              "limits": list(table.limits), "bit_equal_to_parameter_launch": True,
+              "bit_equal_to_plain": True, "kernel_launches": 1})
+        timing = {"shape": list(img.shape), "angles": len(FAN),
+                  "ms": time_ms(lambda: sr.rotate_fan_table(img, table, index), 20),
+                  "device_ms": device_ms(lambda: sr.rotate_fan_table(img, table, index)),
+                  "parameter_launch_ms": time_ms(lambda: sr.rotate_fan(img, sign * chunks[-1]),
+                                                 20),
+                  "plain_ms": time_ms(lambda: sr.rotate_fan_table_plain(img, table, index), 3, 1)}
+        # each input read once (the image or fan, the chunk's rows and the
+        # index), each output written once
+        timing["bound_ms"], timing["bound_by"] = bound_ms(
+            4 * (img.numel() + len(FAN) * 584 * 565 + 6 * len(FAN)) + 8)
+        timing["library_ms"] = None
+        emit({"phase": "K4-table-time", "fan": name, **timing})
+        if row is None:
+            row = {"name": "rotate_fan_table", "route": "cuda",
+                   "source": "unet_research_tpu_torch/ops/cuda/csrc/shear_rotate.cu",
+                   "replaces": "unet_research_tpu/ops/pallas/shear_rotate.py:147", **timing}
+        else:
+            row["inverse_fan"] = timing
+    row["max_abs_err"] = 0.0
+    return row
+
+
 def synthetic_image():
     rng = np.random.default_rng(0)
     h, w = 584, 565
@@ -624,7 +687,7 @@ def run_slice(state) -> dict:
     main = counts()
     if main != {"dropblock_fused_apply": 22 * forwards, "dropblock_mask": 0,
                 "conv3x3_pair": 3 * forwards, "conv3x3_pair_dx": 0, "conv3x3_pair_fold": 0,
-                "rotate_fan": 0}:
+                "rotate_fan": 0, "rotate_fan_table": 0}:
         raise AssertionError(f"main path launches {main} over {forwards} forwards")
     assert_wgmma("MC slice")
     check_outputs(mean, std, saved, ret)
@@ -645,7 +708,8 @@ def run_slice(state) -> dict:
     torch.cuda.synchronize()
     kernel_variant = counts()
     if kernel_variant != {"dropblock_fused_apply": 0, "dropblock_mask": 22, "conv3x3_pair": 3,
-                          "conv3x3_pair_dx": 0, "conv3x3_pair_fold": 0, "rotate_fan": 0}:
+                          "conv3x3_pair_dx": 0, "conv3x3_pair_fold": 0, "rotate_fan": 0,
+                          "rotate_fan_table": 0}:
         raise AssertionError(f"mask_impl='kernel' launches {kernel_variant}")
     assert_wgmma("MC kernel variant")
     emit({"phase": "kernel-variant", "launches": kernel_variant})
@@ -676,13 +740,13 @@ def run_rotational(state) -> dict:
     model = model_for(state, kind=None)
     im, gt, mask = synthetic_image()
     iters, ret = 359, 25
-    forwards = 1 + (iters - ret) // CHUNK + (1 if (iters - ret) % CHUNK else 0)
+    outside, body = ensemble_chunks(iters, ret, CHUNK)
+    forwards = outside + body
     launches = {}
-    for warp, per_forward in (("shear", {"rotate_fan": 2, "conv3x3_pair": 3}),
-                              ("gather", {"rotate_fan": 0, "conv3x3_pair": 3})):
+    for warp in ("shear", "gather"):
         engine = RotationalEngine(model, num_iterations=iters, return_num=ret, chunk=CHUNK,
                                   warp=warp, device=DEV)
-        engine.predict(im, gt, mask)  # warm-up
+        engine.predict(im, gt, mask)  # warm-up (and the capture)
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -690,11 +754,7 @@ def run_rotational(state) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         got = counts()
-        want = {"dropblock_fused_apply": 0, "dropblock_mask": 0, "conv3x3_pair_dx": 0,
-                "conv3x3_pair_fold": 0, **{name: n * forwards for name, n in per_forward.items()}}
-        if got != want:
-            raise AssertionError(f"rotational {warp} launches {got}, expected {want}")
-        assert_wgmma(f"rotational {warp}")
+        expect_launches(f"rotational {warp}", got, rotational_launches(warp, outside, body))
         check_outputs(mean, std, saved, ret)
         launches[warp] = got
         emit({"phase": "rotational-slice", "warp": warp,
@@ -723,7 +783,195 @@ def run_rotational(state) -> dict:
               float((outs["kernels"] - outs["plain_bf16"]).abs().mean())})
     if not d_kernel <= 2.0 * d_bf16:
         raise AssertionError(f"rotational kernel route {d_kernel} vs plain bf16 noise {d_bf16}")
+    launches["bf16_noise"] = d_bf16
     return launches
+
+
+def rotational_launches(warp: str, outside: int, body: int, captured: bool = True) -> dict:
+    """The kernels of a rotational ensemble of `outside` chunks run from the
+    host and `body` chunks of its program: K3 3 per forward; under 'shear'
+    K4 twice per chunk, by its table launch in the program's chunks of the
+    captured route and by its parameter launch in every other chunk."""
+    want = {"conv3x3_pair": 3 * (outside + body)}
+    if warp == "shear":
+        table = body if captured else 0
+        want.update(rotate_fan=2 * (outside + body - table), rotate_fan_table=2 * table)
+    return want
+
+
+def merged_k4(launches: dict) -> dict:
+    """Launch counts with K4's two launch paths summed under rotate_fan."""
+    out = dict(launches)
+    out["rotate_fan"] += out.pop("rotate_fan_table")
+    return out
+
+
+def run_program_phase(phase: str, row: dict, engines: dict, call, want: dict, members: int,
+                      body: int, noise: float) -> dict:
+    """One ensemble through its device program (engines["captured"]) and
+    with every chunk from the host (engines["eager"]), on the same inputs
+    and generator seed: each route's launches (`want[route]`, every K3 on
+    wgmma), equal in sum per kernel (the replays' credited), mean, std and
+    saved within twice the plain bf16 route's distance from float32
+    (`noise`), one replay's kernels equal by name and number to one eager
+    chunk step's (profiler kernel events after a warm-up call, copies and
+    memsets left out) and those of the wrappers equal to the counts a
+    replay is credited with; then both routes' passes/s and peak
+    allocation, the capture's seconds, a replayed and an eager chunk's ms
+    and the idle share of the `body` replays of an ensemble (the union of
+    their kernels' intervals over their wall time, from the first of up to
+    three profiled windows that recorded every kernel launched, else the
+    fullest, flagged: the profiler has dropped records over long windows).
+    Returns the captured route's launches."""
+    runs = {}
+    for route, engine in engines.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        call(engine)  # warm-up: on the captured route the first body chunk and the capture
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        outputs = call(engine)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = counts()
+        expect_launches(f"{phase} {route}", got, want[route])
+        runs[route] = {"launches": got, "seconds": seconds, "outputs": outputs,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+    captured, eager = runs["captured"], runs["eager"]
+    if merged_k4(captured["launches"]) != merged_k4(eager["launches"]):
+        raise AssertionError(f"{phase}: launches {captured['launches']} (captured), "
+                             f"{eager['launches']} (eager)")
+    diffs = {name: float((a - b).abs().max())
+             for name, a, b in zip(("mean", "std", "saved"), captured["outputs"],
+                                   eager["outputs"])}
+    if not max(diffs.values()) <= 2.0 * noise:
+        raise AssertionError(f"{phase}: captured against eager {diffs}, gate {2.0 * noise}")
+
+    (prog,) = engines["captured"].programs.values()
+    with torch.inference_mode():
+        zero = torch.zeros_like(prog.index)
+
+    def reset():
+        prog.index.copy_(zero)
+
+    def eager_chunk():
+        with torch.inference_mode():
+            reset()
+            prog.step()
+
+    def replay_chunk():
+        with torch.inference_mode():
+            reset()
+            prog.graph.replay()
+
+    eager_k = kernel_names(counted_events(eager_chunk))
+    replay_k = kernel_names(counted_events(replay_chunk))
+    replayed = {key: sum(n for name, n in replay_k.items() if part in name)
+                for part, key in REPLAYED_KERNELS.items()}
+    credited = {key: prog.replay_counts.get(key, 0) for key in REPLAYED_KERNELS.values()}
+    if replayed != credited:
+        raise AssertionError(f"{phase}: a replay launched {replayed}, credited {credited}")
+    if eager_k != replay_k or not replay_k:
+        differ = {name[:160]: (replay_k[name], eager_k[name])
+                  for name in set(replay_k) | set(eager_k) if replay_k[name] != eager_k[name]}
+        raise AssertionError(f"{phase}: one replay launches {sum(replay_k.values())} kernels, "
+                             f"one eager chunk {sum(eager_k.values())}; (replay, eager) where "
+                             f"they differ: {differ}")
+
+    walls = []
+
+    def replays():
+        with torch.inference_mode():
+            reset()
+            for _ in range(body):
+                prog.graph.replay()
+
+    def timed_replays():
+        t0 = time.perf_counter()
+        replays()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    # the epoch resets the index once, then replays `body` times
+    with torch.inference_mode():
+        reset_k = kernel_names(counted_events(reset))
+    launched = body * (sum(replay_k.values()) - sum(reset_k.values())) + sum(reset_k.values())
+    # the profiler can drop kernel records over a long window (seen: 4,844
+    # of 13,440 once): up to three windows, the first that recorded every
+    # kernel counts, else the fullest, flagged
+    windows = []
+    for _ in range(3):
+        events = counted_events(timed_replays)
+        windows.append((len(kernel_events(events)), walls[-1], busy_ms(events)))
+        if windows[-1][0] == launched:
+            break
+    recorded, wall, busy = max(windows)
+    replay_ms = time_ms(replays, 3, 1) / body
+    eager_ms = time_ms(eager_chunk, 3)
+    emit({"phase": phase, **row, "members": members, "body_chunks": body, "card": card(),
+          "warmup_chunks": prog.WARMUP, "capture_seconds": prog.capture_seconds,
+          "replay_launches": prog.replay_counts, "kernels_per_chunk": sum(replay_k.values()),
+          "replayed_chunk_ms": replay_ms, "eager_chunk_ms": eager_ms,
+          "replays": {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall,
+                      "kernels_recorded": recorded, "kernels_launched": launched,
+                      "complete": recorded == launched, "windows": len(windows)},
+          "passes_per_s": {route: members / r["seconds"] for route, r in runs.items()},
+          "seconds": {route: r["seconds"] for route, r in runs.items()},
+          "peak_gib": {route: r["peak_gib"] for route, r in runs.items()},
+          "reserved_gib": {route: r["reserved_gib"] for route, r in runs.items()},
+          "max_abs_captured_vs_eager": diffs, "gate": 2.0 * noise,
+          "launches": {route: r["launches"] for route, r in runs.items()}})
+    return captured["launches"]
+
+
+def run_mc_program(state, noise: float) -> dict:
+    """`mc-program`: the MC engine of run_slice's model through its device
+    program and from the host (run_program_phase), 172 members: the saved
+    4, 10 body chunks of 16 and a remainder of 8."""
+    model = model_for(state)
+    im, gt, mask = synthetic_image()
+    members, ret = 172, 4
+    outside, body = ensemble_chunks(members, ret, CHUNK)
+    engines = {route: MCDropBlockEngine(model, num_iterations=members, return_num=ret,
+                                        chunk=CHUNK, device=DEV, program=route == "captured")
+               for route in ("captured", "eager")}
+
+    def call(engine):
+        return engine.predict(im, gt, mask, P_DROP, generator=torch.Generator().manual_seed(3))[:3]
+
+    forwards = outside + body
+    want = {"dropblock_fused_apply": 22 * forwards, "conv3x3_pair": 3 * forwards}
+    row = {"config": "canonical 31M, bf16, dependent b=7 p=0.15, pair+fused",
+           "input": [584, 565], "chunk": CHUNK, "return_num": ret}
+    return run_program_phase("mc-program", row, engines, call,
+                             {"captured": want, "eager": want}, members, body, noise)
+
+
+def run_rotational_program(state, noise: float) -> dict:
+    """`rotational-program`: the rotational engine (359 angles, 25 saved,
+    20 body chunks of 16, a remainder of 14) through its device program and
+    from the host, under both warps (run_program_phase). Returns the shear
+    warp's captured launches."""
+    model = model_for(state, kind=None)
+    im, gt, mask = synthetic_image()
+    members, ret = 359, 25
+    outside, body = ensemble_chunks(members, ret, CHUNK)
+    out = {}
+    for warp in ("shear", "gather"):
+        engines = {route: RotationalEngine(model, num_iterations=members, return_num=ret,
+                                           chunk=CHUNK, warp=warp, device=DEV,
+                                           program=route == "captured")
+                   for route in ("captured", "eager")}
+        want = {route: rotational_launches(warp, outside, body, route == "captured")
+                for route in engines}
+        row = {"warp": warp, "config": "canonical 31M, bf16, DropBlock off, conv_impl='pair'",
+               "input": [584, 565], "chunk": CHUNK, "return_num": ret}
+        out[warp] = run_program_phase("rotational-program", row, engines,
+                                      lambda engine: engine.predict(im, gt, mask)[:3], want,
+                                      members, body, noise)
+    return out
 
 # --- training ---------------------------------------------------------------
 
@@ -941,7 +1189,7 @@ def run_train_slice(state) -> dict:
     got = counts()
     want = {"dropblock_fused_apply": 0, "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
             "conv3x3_pair": 6 * steps + 3 * val_forwards, "conv3x3_pair_dx": 3 * steps,
-            "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0}
+            "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0, "rotate_fan_table": 0}
     if got != want:
         raise AssertionError(f"train launches {got}, expected {want}")
     assert_wgmma("train fit")
@@ -988,6 +1236,26 @@ def profiled(fn) -> list:
     return [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def counted_events(fn) -> list:
+    """The device events of one call of fn, from a profiled window (see
+    `profiled`) that first runs fn once more, waits for the card and
+    launches a marker kernel (torch.cuda._sleep's spin_kernel): only the
+    events that start after the marker count, since a window can lose the
+    first kernels it records (seen on the first replay of 20)."""
+    def marked():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        fn()
+
+    events = profiled(marked)
+    marks = [ev for ev in events if "spin_kernel" in ev.name]
+    if len(marks) != 1:
+        raise AssertionError(f"{len(marks)} marker kernels in the profiled window")
+    after = marks[0].time_range.end
+    return [ev for ev in events if ev.time_range.start >= after]
+
+
 def kernel_events(events) -> list:
     """The kernel events, copies and memsets left out: eagerly they are copy
     and memset events, in a graph replay the graph's own memcpy and memset
@@ -1017,7 +1285,8 @@ def busy_ms(events) -> float:
 REPLAYED_KERNELS = {"dropblock_mask_kernel": "dropblock_mask",
                     "dropblock_apply_kernel": "dropblock_fused_apply",
                     "conv3x3_wgmma_kernel": "path:wgmma", "conv3x3_kernel<": "path:cuda_cores",
-                    "conv3x3_fold_kernel": "conv3x3_pair_fold", "shear_fan_kernel": "rotate_fan"}
+                    "conv3x3_fold_kernel": "conv3x3_pair_fold", "shear_fan_kernel": "rotate_fan",
+                    "shear_fan_table_kernel": "rotate_fan_table"}
 
 
 def run_train_scan(state) -> None:
@@ -1069,7 +1338,7 @@ def run_train_scan(state) -> None:
     scanned, stepped = fits[True], fits[False]
     want = {"dropblock_fused_apply": 0, "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
             "conv3x3_pair": 6 * steps + 3 * 3 * len(val_ds), "conv3x3_pair_dx": 3 * steps,
-            "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0}
+            "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0, "rotate_fan_table": 0}
     if not scanned["launches"] == stepped["launches"] == want:
         raise AssertionError(f"train-scan launches {scanned['launches']} (scanned), "
                              f"{stepped['launches']} (stepped), expected {want}")
@@ -1352,7 +1621,7 @@ def run_dp_phase(mc_slice: dict) -> dict:
     steps, val_per_rank = 2, 1
     want = {"dropblock_fused_apply": 0, "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
             "conv3x3_pair": 6 * steps + 3 * val_per_rank, "conv3x3_pair_dx": 3 * steps,
-            "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0}
+            "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0, "rotate_fan_table": 0}
     rank1_dir = os.path.join(DP_ROOT, "rank1")
     emit({"phase": "dp-fit", "card": card(), "launches_rank0": fit["launches"],
           "history": fit["history"],
@@ -1372,7 +1641,7 @@ def run_dp_phase(mc_slice: dict) -> dict:
     forwards = 4  # the saved 4 and chunks of 16, 16 and 12: each split over the ranks
     want_mc = {"dropblock_fused_apply": 22 * forwards, "dropblock_mask": 0,
                "conv3x3_pair": 3 * forwards, "conv3x3_pair_dx": 0, "conv3x3_pair_fold": 0,
-               "rotate_fan": 0}
+               "rotate_fan": 0, "rotate_fan_table": 0}
     diffs = {name: float((a - b).abs().max())
              for name, a, b in zip(("mean", "std", "saved"), mc["outputs"], mc_slice["outputs"])}
     gate = 2.0 * mc_slice["bf16_noise"]
@@ -1471,6 +1740,15 @@ def ensemble_forwards(members: int, saved: int, chunk: int) -> int:
     the remainder (uncertainty/ensemble.py)."""
     rest = members - saved
     return (1 if saved else 0) + rest // chunk + (1 if rest % chunk else 0)
+
+
+def ensemble_chunks(members: int, saved: int, chunk: int) -> tuple[int, int]:
+    """(chunks run from the host, chunks of the device program) of one
+    ensemble: the program runs the full chunks after the saved members,
+    less the first when none are saved (JAX's scanned body)."""
+    full = (members - saved) // chunk
+    body = full - (1 if full and not saved else 0)
+    return ensemble_forwards(members, saved, chunk) - body, body
 
 
 class Stopwatch:
@@ -1654,8 +1932,9 @@ def run_cli_phase() -> dict:
             "-warp", "shear", "-num_iterations", str(ROT_ITERS), "-save_num", str(ROT_SAVE),
             "-chunk", str(CHUNK)] + CLI_FLAGS
     rot_forwards = ensemble_forwards(ROT_ITERS, ROT_SAVE, CHUNK) * n_val
-    out, row = run_cli("rotational_uncertainty-shear", cli_rotational.main, argv, {
-        "rotate_fan": 2 * rot_forwards, "conv3x3_pair": 3 * rot_forwards})
+    rot_want = rotational_launches("shear", *ensemble_chunks(ROT_ITERS, ROT_SAVE, CHUNK))
+    out, row = run_cli("rotational_uncertainty-shear", cli_rotational.main, argv,
+                       {name: n * n_val for name, n in rot_want.items()})
     want = ["model_ckpt_symlink.ckpt"] + [os.path.join(f"image_{i}", f"{m}.pt")
                                           for i in range(n_val) for m in ("mean", "std", "tensors")]
     if cli_files(out) != sorted(want):
@@ -2097,7 +2376,7 @@ def matrix_want(n_train: int, n_val: int, n_test: int) -> dict:
     test's final forwards; an MC run's ensembles (save, then evaluate) and a
     rotational run's, per validation image."""
     mc = ensemble_forwards(MATRIX_ITERS, MATRIX_SAVE, CHUNK) * n_val * 2
-    rot = ensemble_forwards(ROT_ITERS, MATRIX_SAVE, CHUNK) * n_val
+    rot = rotational_launches("shear", *ensemble_chunks(ROT_ITERS, MATRIX_SAVE, CHUNK))
     return {
         "train": {"dropblock_mask": (TRAIN_SITES + REMAT_SITES) * n_train,
                   "conv3x3_pair": 6 * n_train + 3 * (n_val + n_test + n_val),
@@ -2105,7 +2384,7 @@ def matrix_want(n_train: int, n_val: int, n_test: int) -> dict:
         "test": {"conv3x3_pair": 3 * (n_test + n_val)},
         "dropblock_uncertainty": {"dropblock_fused_apply": TRAIN_SITES * mc,
                                   "conv3x3_pair": 3 * mc},
-        "rotational_uncertainty": {"rotate_fan": 2 * rot, "conv3x3_pair": 3 * rot},
+        "rotational_uncertainty": {name: n * n_val for name, n in rot.items()},
         "create_density": {},
     }
 
@@ -2346,12 +2625,15 @@ def main() -> None:
     header()
     emit({"phase": "env", "imports": optional_libraries()})
     build_kernels()
-    rows = [check_k1(), check_k2(), check_k3(), check_k4(), *check_k3_backward()]
+    rows = [check_k1(), check_k2(), check_k3(), check_k4(), check_k4_table(),
+            *check_k3_backward()]
     check_k3_valid()
     check_offsets()
     state = base_state()
     launches = run_slice(state)
+    mc_program = run_mc_program(state, launches["bf16_noise"])
     rotational = run_rotational(state)
+    rotational_program = run_rotational_program(state, rotational["bf16_noise"])
     run_train_routes(state)
     train, steps = run_train_slice(state)
     run_train_scan(state)
@@ -2366,14 +2648,18 @@ def main() -> None:
     # each path's counts, read right after it ran; `launches` is the path
     # that runs the kernel by default (K2: training, K3: the MC ensemble)
     paths = {"mc": launches["main"], "mc_kernel_variant": launches["kernel_variant"],
-             "rotational_shear": rotational["shear"], "train": train, **dp, **cli}
+             "mc_program": mc_program, "rotational_shear": rotational["shear"],
+             "rotational_program_shear": rotational_program["shear"],
+             "rotational_program_gather": rotational_program["gather"], "train": train, **dp,
+             **cli}
     for row, name, main_path in zip(rows, ("dropblock_fused_apply", "dropblock_mask",
-                                           "conv3x3_pair", "rotate_fan", "conv3x3_pair_dx",
-                                           "conv3x3_pair_fold"),
-                                    ("mc", "train", "mc", "rotational_shear", "train", "train")):
+                                           "conv3x3_pair", "rotate_fan", "rotate_fan_table",
+                                           "conv3x3_pair_dx", "conv3x3_pair_fold"),
+                                    ("mc", "train", "mc", "rotational_shear", "rotational_shear",
+                                     "train", "train")):
         row["launches"] = paths[main_path][name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items() if c[name]}
-    rows[4]["launches_per_train_step"] = train["conv3x3_pair_dx"] / steps
+    rows[5]["launches_per_train_step"] = train["conv3x3_pair_dx"] / steps
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

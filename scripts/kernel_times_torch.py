@@ -24,7 +24,9 @@ call from torch.profiler (device_ms):
   the ties 45 + 90k included): one image to 16 angles (`K4_fwd`) and 16
   images back by their -angles (`K4_inv`), the device time per call from
   torch.profiler (all of a call's kernels: three in a tree with the
-  three-pass kernel) and the event time per call.
+  three-pass kernel) and the event time per call; in a tree with K4's table
+  launch, `rotate_fan_table` on the same fans, their rows read on the card
+  (`K4_table_fwd_*`, `K4_table_inv_*`).
 Needs one CUDA card.
 """
 
@@ -157,6 +159,13 @@ def main(argv=None) -> None:
         warp = lambda: sr.rotate_fan(img, angles)  # noqa: E731
         out[f"K4_{name}_device_ms"] = device_ms(warp)
         out[f"K4_{name}_ms"] = time_ms(warp, 20)
+    if hasattr(sr, "rotate_fan_table"):
+        index = torch.zeros(1, dtype=torch.int64, device=dev)
+        for name, (img, sign) in {"fwd": (im, 1.0), "inv": (segs, -1.0)}.items():
+            table = sr.member_table([sign * fan], 584, 565, dev)
+            warp = lambda: sr.rotate_fan_table(img, table, index)  # noqa: E731
+            out[f"K4_table_{name}_device_ms"] = device_ms(warp)
+            out[f"K4_table_{name}_ms"] = time_ms(warp, 20)
     print(json.dumps(out), flush=True)
 
 

@@ -1,7 +1,7 @@
 """Where one chunk forward of the PyTorch port's ensembles spends its time.
 
     python3 scripts/trace_mc_torch.py [--chunk 16] [--warp shear|gather] [--train]
-                                      [--out _runs/trace_mc_torch.json]
+                                      [--replay [--chunks 8]] [--out _runs/trace_mc_torch.json]
 
 Runs the canonical 31M U-Net (bf16, dependent DropBlock b=7 p=0.15,
 conv_impl='pair' + mask_impl='fused', random seeded weights) on a 584x565
@@ -16,6 +16,15 @@ the wall time of the forward, the summed device time, the device's idle
 share of the wall time, the device time by kernel, largest first, and the
 host's busiest operators (self CPU time); then the mean wall time of
 --repeat unprofiled calls in a row (synchronised once, at the end).
+With --replay, the ensemble engine's device program instead (the MC
+engine, or the rotational one under --warp): an engine of --chunks + 1
+chunks and no saved members is warmed up and captured by two predict
+calls, then one profiled window replays its --chunks body chunks in a row
+(the epoch of replays a predict call makes); the numbers are per chunk.
+Every run also reports the device's busy time as the union of its kernels'
+intervals (`busy_ms`, `idle_share_union`): over graph replays the summed
+event times can exceed the wall time. The counted window starts after a
+marker kernel, since a window can lose the first kernels it records.
 Needs one CUDA card.
 """
 
@@ -35,6 +44,7 @@ from unet_research_tpu_torch.models import unet as tunet  # noqa: E402
 from unet_research_tpu_torch.ops.cuda.shear_rotate import rotate_fan  # noqa: E402
 from unet_research_tpu_torch.ops.image import rotate_bilinear  # noqa: E402
 from unet_research_tpu_torch.train import POLICIES, Trainer, TrainerConfig  # noqa: E402
+from unet_research_tpu_torch.uncertainty import MCDropBlockEngine, RotationalEngine  # noqa: E402
 
 
 KINDS = (("K1 fused DropBlock", ("dropblock_apply_kernel",)),
@@ -57,11 +67,23 @@ def kind_of(name: str) -> str:
     return "other elementwise"
 
 
+def busy_ms(events) -> float:
+    """The union of the events' intervals, in ms."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--chunk", type=int, default=16)
     p.add_argument("--warp", choices=("shear", "gather"), default=None)
     p.add_argument("--train", action="store_true")
+    p.add_argument("--replay", action="store_true")
+    p.add_argument("--chunks", type=int, default=8)
     p.add_argument("--repeat", type=int, default=10)
     p.add_argument("--out", default="_runs/trace_mc_torch.json")
     a = p.parse_args(argv)
@@ -98,31 +120,63 @@ def main(argv=None) -> None:
             keys = tunet.draw_site_keys(model.num_mask_sites(), g).to(dev)
             return model(x, drop_prob=0.15, site_keys=keys)
 
+    per = 1
+    if a.replay:
+        fov = torch.ones_like(im)
+        members = a.chunk * (a.chunks + 1)
+        if a.warp is None:
+            engine = MCDropBlockEngine(model, num_iterations=members, return_num=0,
+                                       chunk=a.chunk, device=dev)
+            call = lambda: engine.predict(im, im, fov, 0.15)  # noqa: E731
+        else:
+            engine = RotationalEngine(model, num_iterations=members, return_num=0,
+                                      chunk=a.chunk, warp=a.warp, device=dev)
+            call = lambda: engine.predict(im, im, fov)  # noqa: E731
+        for _ in range(2):  # the warm-up chunk and the capture, then replays
+            call()
+        (prog,) = engine.programs.values()
+        per = a.chunks
+
+        def forward():
+            with torch.inference_mode():
+                prog.index.zero_()
+                for _ in range(a.chunks):
+                    prog.graph.replay()
+
     for _ in range(3):
         forward()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        forward()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)  # the marker after which events count
         t0 = time.perf_counter()
         forward()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for ev in prof.events():
-        # user annotations (e.g. the optimizer's step range) are spans, not kernels
-        if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(ev, "is_user_annotation", False)):
-            kernels.setdefault(ev.name, [0.0, 0])
-            kernels[ev.name][0] += ev.device_time / 1e3
-            kernels[ev.name][1] += 1
+        wall_ms = (time.perf_counter() - t0) * 1e3 / per
+    device_events = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    marks = [ev for ev in device_events if "spin_kernel" in ev.name]
+    if len(marks) != 1:
+        raise SystemExit(f"{len(marks)} marker kernels in the profiled window")
+    counted = [ev for ev in device_events if ev.time_range.start >= marks[0].time_range.end
+               # user annotations (e.g. the optimizer's step range) are spans, not kernels
+               and not getattr(ev, "is_user_annotation", False)]
+    kernels = {}  # per call (per chunk under --replay)
+    for ev in counted:
+        kernels.setdefault(ev.name, [0.0, 0.0])
+        kernels[ev.name][0] += ev.device_time / 1e3 / per
+        kernels[ev.name][1] += 1 / per
     device_ms = sum(ms for ms, _ in kernels.values())
-    host = sorted(((ev.key, ev.self_cpu_time_total / 1e3, ev.count)
+    busy = busy_ms(counted) / per
+    # the host's operators over the window's two calls, per call
+    host = sorted(((ev.key, ev.self_cpu_time_total / 2e3 / per, ev.count / 2 / per)
                    for ev in prof.key_averages()), key=lambda r: -r[1])[:15]
     t0 = time.perf_counter()
     for _ in range(a.repeat):
         forward()
     torch.cuda.synchronize()
-    unprofiled_ms = (time.perf_counter() - t0) * 1e3 / a.repeat
+    unprofiled_ms = (time.perf_counter() - t0) * 1e3 / a.repeat / per
     rows = sorted(([name, ms, n] for name, (ms, n) in kernels.items()),
                   key=lambda r: -r[1])
     by_kind = {}
@@ -131,9 +185,11 @@ def main(argv=None) -> None:
         acc[0] += ms
         acc[1] += n
     summary = {"device": torch.cuda.get_device_name(0), "chunk": 1 if a.train else a.chunk,
-               "warp": a.warp, "train": a.train,
+               "warp": a.warp, "train": a.train, "replay": a.replay,
+               "chunks": per if a.replay else None,
                "wall_ms": wall_ms, "device_ms": device_ms, "unprofiled_ms": unprofiled_ms,
-               "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+               "busy_ms": busy, "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+               "idle_share_union": max(0.0, 1.0 - busy / wall_ms),
                "launches": sum(n for _, _, n in rows),
                "by_kind": {k: {"ms": ms, "count": n} for k, (ms, n) in
                            sorted(by_kind.items(), key=lambda kv: -kv[1][0])},
@@ -145,11 +201,11 @@ def main(argv=None) -> None:
     print(json.dumps({k: v for k, v in summary.items()
                       if k not in ("kernels", "by_kind", "host_self_ms")}))
     for kind, row in summary["by_kind"].items():
-        print(f"{row['ms']:9.3f} ms {row['count']:5d}x  [{kind}]")
+        print(f"{row['ms']:9.3f} ms {row['count']:7.1f}x  [{kind}]")
     for r in summary["kernels"][:30]:
-        print(f"{r['ms']:9.3f} ms {r['count']:4d}x  {r['name'][:110]}")
+        print(f"{r['ms']:9.3f} ms {r['count']:6.1f}x  {r['name'][:110]}")
     for r in summary["host_self_ms"][:10]:
-        print(f"{r['ms']:9.3f} ms {r['count']:5d}x  host {r['name'][:100]}")
+        print(f"{r['ms']:9.3f} ms {r['count']:7.1f}x  host {r['name'][:100]}")
 
 
 if __name__ == "__main__":

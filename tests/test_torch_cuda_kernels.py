@@ -18,7 +18,11 @@ odd, non-square sizes, H and W one below and one above the 31x64 tile's
 multiples, 1x1 and 2x3 images, the eight ties 45 + 90k (the largest
 windows), the rotational chunk (K = 16 at 584x565) in both fans, K = 1, 5
 and 130 (two launch groups), single-image and batched: bit-equal
-(`torch.equal`; the same float32 operations in the same order). The fold
+(`torch.equal`; the same float32 operations in the same order); its table
+launch at both indices of a two-chunk table bit-equal to the parameter
+launch. A small model's captured ensembles (MC, both warps) within 1e-5 of
+their chunks from the host, in float32; a capture after a graph in a
+dropped reference cycle. The fold
 kernel bit-equal to its plain version. K3's backward (the fold, dx in one
 K3 launch, dK by cuDNN) against autograd of the plain version at odd H/W, C_in 16/64/128 and C_out 64/128, with
 nonzero cotangents on the sums: max |d - plain| / max |plain| <= 1e-2 in
@@ -181,6 +185,91 @@ def test_rotate_fan_matches_plain(dev, n, h, w, angles):
     ref = sr.rotate_fan_plain(img, a)
     assert out.shape == (len(angles), h, w, 1)
     assert torch.equal(out, ref), float((out - ref).abs().max())
+
+
+@pytest.mark.parametrize("n,h,w,angles", [c for c in ROTATE_CASES if len(c[3]) <= 128])
+def test_rotate_fan_table_matches_parameter_launch(dev, n, h, w, angles):
+    """The table launch at each chunk index of a two-chunk table equals the
+    parameter launch of that chunk's angles, bit for bit, in one launch."""
+    from unet_research_tpu_torch.ops.cuda import shear_rotate as sr
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    img = torch.rand((n, h, w, 1), device=dev, generator=g)
+    chunks = [torch.tensor(angles), torch.tensor(angles) * -0.5 + 11.25]
+    table = sr.member_table(chunks, h, w, dev)
+    for c, a in enumerate(chunks):
+        index = torch.tensor([c], device=dev)
+        before = sr.rotate_fan_table.launches
+        out = sr.rotate_fan_table(img, table, index)
+        assert sr.rotate_fan_table.launches == before + 1
+        ref = sr.rotate_fan(img, a)
+        assert torch.equal(out, ref), float((out - ref).abs().max())
+
+
+@pytest.mark.parametrize("warp", [None, "shear", "gather"])
+def test_captured_ensemble_matches_eager(dev, warp):
+    """A small model's ensemble through its CUDA graph (the chunk captured
+    after one warm-up chunk, then replayed) against every chunk from the
+    host, float32: the same site keys or angles; within 1e-5 (cuDNN may
+    order sums differently in two runs)."""
+    import numpy as np
+
+    from unet_research_tpu_torch.models import unet as tunet
+    from unet_research_tpu_torch.uncertainty import MCDropBlockEngine, RotationalEngine
+
+    db = tunet.DropBlockConfig(kind="dependent" if warp is None else None, block_size=3)
+    cfg = tunet.canonical_config(filters=8, model_depth=2, group_norm_groups=4, dropblock=db)
+    model = tunet.UNet(cfg, device=dev, generator=torch.Generator().manual_seed(0)).eval()
+    rng = np.random.default_rng(0)
+    im = rng.random((1, 40, 36, 1), dtype=np.float32)
+    mask = np.ones_like(im)
+    runs = {}
+    for program in (True, False):
+        if warp is None:
+            engine = MCDropBlockEngine(model, num_iterations=26, return_num=2, chunk=4,
+                                       device=dev, program=program)
+            runs[program] = [engine.predict(im, im, mask, 0.2,
+                                            generator=torch.Generator().manual_seed(k))[:3]
+                             for k in (1, 2)]
+        else:
+            engine = RotationalEngine(model, num_iterations=26, return_num=2, chunk=4,
+                                      warp=warp, device=dev, program=program)
+            runs[program] = [engine.predict(im, im, mask)[:3] for _ in range(2)]
+        if program:
+            (prog,) = engine.programs.values()
+            assert prog.graph is not None and prog.capture_seconds is not None
+    for got, ref in zip(runs[True], runs[False]):
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_capture_survives_a_dropped_graph_in_a_cycle(dev):
+    """A CUDA graph left in a reference cycle (as an engine keeps its cached
+    program) and dropped just before launches.capture: the collector frees
+    it before the capture, not inside it, where destroying a graph
+    invalidates the capture. The step makes enough objects to start a
+    collection if the collector were on."""
+    from unet_research_tpu_torch.ops.cuda import launches
+
+    class Holder:
+        pass
+
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    graph = launches.capture(lambda: x * 2)[0]
+    held = Holder()  # made after that capture's collection, so it is young
+    held.cycle, held.graph = held, graph
+    del held, graph
+    out = {}
+
+    def step():
+        junk = [[i] for i in range(5000)]
+        out["y"] = x * 3 + len(junk)
+
+    graph, counts, seconds = launches.capture(step)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert counts == {} and seconds >= 0
+    assert torch.equal(out["y"], x * 3 + 5000)
 
 
 @pytest.mark.parametrize("cin", [16, 64, 128])

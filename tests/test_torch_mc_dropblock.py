@@ -24,10 +24,11 @@ from unet_research_tpu_torch.utils.convert import jax_params_to_state_dict
 
 
 def _table_fn(table):
-    """batch_fn handing out the next `size` rows of a member table."""
+    """batch_fn handing out the next `size` rows of a member table (it draws
+    nothing from the generator)."""
     pos = 0
 
-    def batch_fn(size):
+    def batch_fn(generator, size):
         nonlocal pos
         out = torch.from_numpy(table[pos:pos + size])
         pos += size
@@ -39,7 +40,8 @@ def _table_fn(table):
 @pytest.mark.parametrize("total,chunk,return_num", [(11, 4, 3), (9, 3, 0), (12, 5, 12), (2, 8, 1)])
 def test_matches_direct_reduction(rng, total, chunk, return_num):
     table = rng.standard_normal((total, 6, 5, 1)).astype(np.float32)
-    mean, std, saved = streaming_ensemble_batched(_table_fn(table), total, chunk, return_num)
+    mean, std, saved = streaming_ensemble_batched(_table_fn(table), torch.Generator(), total,
+                                                  chunk, return_num)
     ref = torch.from_numpy(table)
     torch.testing.assert_close(mean, ref.mean(0), rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(std, ref.std(0, unbiased=True), rtol=1e-5, atol=1e-6)
@@ -61,7 +63,8 @@ def test_matches_jax_streaming(total, chunk, return_num):
         return jax.random.uniform(k, (size, 4, 3))
 
     jmean, jstd, jsaved = jax_streaming_ensemble_batched(jax_batch, key, total, chunk, return_num)
-    mean, std, saved = streaming_ensemble_batched(_table_fn(table), total, chunk, return_num)
+    mean, std, saved = streaming_ensemble_batched(_table_fn(table), torch.Generator(), total,
+                                                  chunk, return_num)
     np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), rtol=1e-5)
     np.testing.assert_allclose(std.numpy(), np.asarray(jstd), rtol=1e-5)
     np.testing.assert_allclose(saved.numpy(), np.asarray(jsaved), rtol=1e-5)
@@ -69,7 +72,7 @@ def test_matches_jax_streaming(total, chunk, return_num):
 
 def test_needs_two_members():
     with pytest.raises(ValueError):
-        streaming_ensemble_batched(lambda s: torch.zeros((s, 2)), 1, 4, 0)
+        streaming_ensemble_batched(lambda g, s: torch.zeros((s, 2)), torch.Generator(), 1, 4, 0)
 
 
 def _engine(resize=-1, seed=0):

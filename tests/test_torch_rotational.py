@@ -89,7 +89,8 @@ def _rows_fn(table):
 @pytest.mark.parametrize("total,chunk,return_num", [(11, 4, 3), (9, 3, 0), (12, 5, 12), (2, 8, 1)])
 def test_streaming_ensemble_matches_direct(rng, total, chunk, return_num):
     table = rng.standard_normal((total, 6, 5, 1)).astype(np.float32)
-    mean, std, saved = streaming_ensemble(_rows_fn(table), torch.arange(total), chunk, return_num)
+    mean, std, saved = streaming_ensemble(_rows_fn(table), torch.arange(total), chunk, return_num,
+                                          chunk_fn=True)
     ref = torch.from_numpy(table)
     torch.testing.assert_close(mean, ref.mean(0), rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(std, ref.std(0, unbiased=True), rtol=1e-5, atol=1e-6)
@@ -103,7 +104,8 @@ def test_streaming_ensemble_matches_jax(rng, total, chunk, return_num):
     jtable = jnp.asarray(table)
     jmean, jstd, jsaved = jax_streaming_ensemble(lambda idx: jtable[idx], jnp.arange(total),
                                                  chunk, return_num, chunk_fn=True)
-    mean, std, saved = streaming_ensemble(_rows_fn(table), torch.arange(total), chunk, return_num)
+    mean, std, saved = streaming_ensemble(_rows_fn(table), torch.arange(total), chunk, return_num,
+                                          chunk_fn=True)
     np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), rtol=1e-5)
     np.testing.assert_allclose(std.numpy(), np.asarray(jstd), rtol=1e-5)
     np.testing.assert_allclose(saved.numpy(), np.asarray(jsaved), rtol=1e-5)
@@ -117,5 +119,5 @@ def test_streaming_ensemble_chunk_order():
         seen.append(idx.tolist())
         return idx.to(torch.float32)[:, None]
 
-    streaming_ensemble(chunk_fn, torch.arange(12), 4, 3)
+    streaming_ensemble(chunk_fn, torch.arange(12), 4, 3, chunk_fn=True)
     assert seen == [[0, 1, 2], [3, 4, 5, 6], [7, 8, 9, 10], [11]]

@@ -45,6 +45,10 @@ class ArrayDataset:
             self.masks[idx].astype(np.float32) / 255.0,
         )
 
+    def as_float(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The whole split as float32 / 255 (image, target, mask) arrays."""
+        return self[:]
+
     def subset(self, n: int) -> "ArrayDataset":
         """Sequential truncation (the RED policy's torch Subset(range(n)),
         reference base_model_tests/training-RED.py:163-167)."""

@@ -19,7 +19,7 @@ import torch
 
 from unet_research_tpu_torch.data.dataset import ArrayDataset
 from unet_research_tpu_torch.device import resolve_device
-from unet_research_tpu_torch.parallel.mesh import shard_rows
+from unet_research_tpu_torch.parallel.mesh import Mesh, data_sharding, place, shard_rows
 
 
 def to_device(arrays, device: torch.device) -> tuple:
@@ -77,11 +77,13 @@ def batch_iterator(ds: ArrayDataset, batch_size: int, shuffle: bool,
         yield out
 
 
-def shard_batch(batch, mesh):
-    """This rank's rows of a global batch: an array or tensor, or a tuple of
-    them, sliced on dim 0 (twin of JAX shard_batch, which places a host
-    batch with the 'data' sharding)."""
+def shard_batch(batch, sharding):
+    """This rank's part of a global batch: an array or tensor, or a tuple of
+    them, under `sharding` (parallel/mesh.py's data_sharding or replicated;
+    a Mesh stands for its data_sharding). Twin of JAX shard_batch, which
+    places a host batch with a NamedSharding."""
     if isinstance(batch, tuple):
-        return tuple(shard_batch(a, mesh) for a in batch)
-    lo, hi = shard_rows(len(batch), mesh)
-    return batch[lo:hi]
+        return tuple(shard_batch(a, sharding) for a in batch)
+    if isinstance(sharding, Mesh):
+        sharding = data_sharding(sharding)
+    return place(batch, sharding)

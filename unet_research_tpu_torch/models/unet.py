@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Mapping
 from typing import Optional
 
 import torch
@@ -308,6 +309,40 @@ class UNet(nn.Module):
         DropBlock rescale and BatchNorm's batch statistics (train mode) sum
         over the ranks. Every rank must run the same pass."""
         return _Pass(self, drop_prob, site_keys, train, mesh).run(x)
+
+
+# BatchNorm's running statistics in a state_dict: JAX keeps them apart, as
+# the `batch_stats` collection
+_BATCH_STATS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def param_count(params) -> int:
+    """The number of values in `params`: a module's parameters, a mapping's
+    tensors (a state_dict) or an iterable of tensors (JAX param_count on a
+    param tree)."""
+    if isinstance(params, nn.Module):
+        params = params.parameters()
+    elif isinstance(params, Mapping):
+        params = params.values()
+    return sum(int(p.numel()) for p in params)
+
+
+def as_variables(params) -> dict:
+    """The load-ready state_dict from a state_dict or from a bundle
+    {'params': ..., 'batch_stats': ... or None} (JAX as_variables, which
+    lets every surface take one object whatever the norm; here the model's
+    load_state_dict takes both parts in one mapping)."""
+    if isinstance(params, Mapping) and "params" in params:
+        return {**params["params"], **(params.get("batch_stats") or {})}
+    return dict(params)
+
+
+def split_variables(params):
+    """(parameters, batch_stats or None) of a state_dict or a bundle: the
+    batch_stats are BatchNorm's running statistics (JAX split_variables)."""
+    v = as_variables(params)
+    stats = {k: t for k, t in v.items() if k.rsplit(".", 1)[-1] in _BATCH_STATS}
+    return {k: t for k, t in v.items() if k not in stats}, (stats or None)
 
 
 def draw_site_keys(num_sites: int, generator: torch.Generator) -> torch.Tensor:

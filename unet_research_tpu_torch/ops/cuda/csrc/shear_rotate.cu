@@ -44,6 +44,16 @@
 // and whole-strip lane rolls (Mosaic has no per-lane gather) are not
 // carried over.
 //
+// Two launches share the tile's code. shear_fan_kernel takes the members'
+// rows as a kernel parameter, copied from the host (up to 128 a launch);
+// shear_fan_table_kernel reads them from a table on the card at a chunk
+// index on the card (rows index * K .. index * K + K - 1), so one launch
+// serves every chunk of a fan and a CUDA graph can replay it for each (the
+// rotational engine's captured chunk; the JAX package runs the fan inside
+// one jitted program). The shared-memory limit is raised once per card and
+// kernel, at the first launch that needs more, so that a launch recorded
+// into a graph makes no attribute call.
+//
 // Rounding. Each shift is __fmul_rn then __fadd_rn and each blend is
 // t1 * (1 - f) + t2 * f with explicit round-to-nearest operations, so nvcc
 // cannot contract them into FMAs: the kernel computes the plain version's
@@ -110,10 +120,12 @@ __device__ __forceinline__ int first_true(int n, Pred pred) {
     return lo;
 }
 
-__global__ void __launch_bounds__(THREADS)
-shear_fan_kernel(const float* __restrict__ img, const __grid_constant__ Fan fan, int k0,
-                 float* __restrict__ out, int nimg, int H, int W, int S, int py, int px,
-                 int max_cols, int max_rows, int max_canvas) {
+// One block: the tile (blockIdx.y, blockIdx.x) of member k, whose scalars
+// are m.
+__device__ __forceinline__ void shear_fan_tile(const float* __restrict__ img, const Member m,
+                                               int k, float* __restrict__ out, int nimg, int H,
+                                               int W, int S, int py, int px, int max_cols,
+                                               int max_rows, int max_canvas) {
     constexpr int RP = (TI + 1) | 1;  // odd pitch of the TI + 1 r1 values of a column
     const int pitch = max_canvas | 1;
     extern __shared__ float smem[];
@@ -124,8 +136,6 @@ shear_fan_kernel(const float* __restrict__ img, const __grid_constant__ Fan fan,
     int* span_lo = d2 + max_cols;                      // staged span of each line
     int* span_hi = span_lo + max(max_rows, max_canvas);
 
-    const Member m = fan.m[blockIdx.z];
-    const int k = k0 + blockIdx.z;
     const int i0 = blockIdx.y * TI, j0 = blockIdx.x * TJ;
     const int ni = min(TI, H - i0), nj = min(TJ, W - j0);
     const int y0 = py + i0, y1 = y0 + ni - 1;  // the tile in canvas coordinates
@@ -256,13 +266,57 @@ shear_fan_kernel(const float* __restrict__ img, const __grid_constant__ Fan fan,
     }
 }
 
+__global__ void __launch_bounds__(THREADS)
+shear_fan_kernel(const float* __restrict__ img, const __grid_constant__ Fan fan, int k0,
+                 float* __restrict__ out, int nimg, int H, int W, int S, int py, int px,
+                 int max_cols, int max_rows, int max_canvas) {
+    shear_fan_tile(img, fan.m[blockIdx.z], k0 + blockIdx.z, out, nimg, H, W, S, py, px,
+                   max_cols, max_rows, max_canvas);
+}
+
+// Member k of the launch is row (*index) * gridDim.z + k of the table's
+// `rows`; an index past the table traps.
+__global__ void __launch_bounds__(THREADS)
+shear_fan_table_kernel(const float* __restrict__ img, const Member* __restrict__ table,
+                       int rows, const long long* __restrict__ index, float* __restrict__ out,
+                       int nimg, int H, int W, int S, int py, int px, int max_cols,
+                       int max_rows, int max_canvas) {
+    const long long row = *index * gridDim.z + blockIdx.z;
+    if (row < 0 || row >= rows) __trap();
+    const Member m = table[row];
+    shear_fan_tile(img, m, blockIdx.z, out, nimg, H, W, S, py, px, max_cols, max_rows,
+                   max_canvas);
+}
+
+constexpr int MAX_DEVICES = 64;
+
+int smem_size(int max_cols, int max_rows, int max_canvas) {
+    // ops/cuda/shear_rotate.py::smem_bytes mirrors this layout
+    return (max_rows * (max_canvas | 1) + max_cols * (((TI + 1) | 1) + 2) +
+            2 * (max_rows > max_canvas ? max_rows : max_canvas)) * (int)sizeof(float);
+}
+
+// Raise kernel's dynamic shared-memory limit to smem on the current card
+// unless an earlier call did (raised: the limit set, per card).
+template <typename Kernel>
+cudaError_t raise_smem(Kernel kernel, int* raised, int smem) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    if (smem > raised[dev]) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+        raised[dev] = smem;
+    }
+    return cudaSuccess;
+}
+
 int launch(const float* img, const Member* host, float* out, int K, int nimg, int H, int W,
            int S, int py, int px, int max_cols, int max_rows, int max_canvas, cudaStream_t st) {
-    // ops/cuda/shear_rotate.py::smem_bytes mirrors this layout
-    const int smem = (max_rows * (max_canvas | 1) + max_cols * (((TI + 1) | 1) + 2) +
-                      2 * (max_rows > max_canvas ? max_rows : max_canvas)) * (int)sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(shear_fan_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    static int raised[MAX_DEVICES] = {};
+    const int smem = smem_size(max_cols, max_rows, max_canvas);
+    cudaError_t err = raise_smem(shear_fan_kernel, raised, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((W + TJ - 1) / TJ, (H + TI - 1) / TI);
     for (int k0 = 0; k0 < K; k0 += MAX_MEMBERS) {
@@ -275,6 +329,20 @@ int launch(const float* img, const Member* host, float* out, int K, int nimg, in
         if (err != cudaSuccess) return (int)err;
     }
     return 0;
+}
+
+int launch_table(const float* img, const Member* table, int rows, const long long* index,
+                 float* out, int K, int nimg, int H, int W, int S, int py, int px,
+                 int max_cols, int max_rows, int max_canvas, cudaStream_t st) {
+    static int raised[MAX_DEVICES] = {};
+    const int smem = smem_size(max_cols, max_rows, max_canvas);
+    cudaError_t err = raise_smem(shear_fan_table_kernel, raised, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((W + TJ - 1) / TJ, (H + TI - 1) / TI, K);
+    shear_fan_table_kernel<<<grid, THREADS, smem, st>>>(img, table, rows, index, out, nimg, H,
+                                                        W, S, py, px, max_cols, max_rows,
+                                                        max_canvas);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -296,5 +364,18 @@ extern "C" int shear_rotate_launch(const void* img, const void* members, void* o
     cudaStream_t st = (cudaStream_t)stream;
     if (ti != TI || tj != TJ) return (int)cudaErrorInvalidValue;
     return launch(x, host, y, K, nimg, H, W, S, py, px, max_cols, max_rows, max_canvas, st);
-    return (int)cudaErrorInvalidValue;
+}
+
+// The same function for the K members of chunk *index of a member table:
+// table holds `rows` Member rows on the card (chunks * K of them), index one
+// int64 on the card, both read by the kernel. K <= 65535 (one launch).
+extern "C" int shear_rotate_table_launch(const void* img, const void* table, int rows,
+                                         const void* index, void* out, int K, int nimg, int H,
+                                         int W, int S, int py, int px, int ti, int tj,
+                                         int max_cols, int max_rows, int max_canvas,
+                                         void* stream) {
+    if (ti != TI || tj != TJ || K < 1 || K > 65535) return (int)cudaErrorInvalidValue;
+    return launch_table((const float*)img, (const Member*)table, rows, (const long long*)index,
+                        (float*)out, K, nimg, H, W, S, py, px, max_cols, max_rows, max_canvas,
+                        (cudaStream_t)stream);
 }

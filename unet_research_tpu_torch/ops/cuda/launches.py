@@ -1,20 +1,27 @@
-"""The kernel wrappers' launch counts, read and credited as one.
+"""The kernel wrappers' launch counts, read and credited as one, and the
+capture of a CUDA graph that keeps them.
 
 Each wrapper adds one to its `launches` where it launches its kernel (and
 conv3x3_pair's launches are also counted by kernel in `path_launches`). A
 CUDA graph replays the kernels that its capture recorded without calling a
 wrapper, so whoever replays one credits the counts that the capture added
 (`since`), once per replay (`credit`), and takes them back from the capture
-itself, which launched nothing.
+itself, which launched nothing (`capture`).
 """
 
 from __future__ import annotations
+
+import gc
+import time
+from typing import Callable
+
+import torch
 
 from unet_research_tpu_torch.ops.cuda import dropblock_kernel, pair_conv, shear_rotate
 
 WRAPPERS = (dropblock_kernel.dropblock_fused_apply, dropblock_kernel.dropblock_mask,
             pair_conv.conv3x3_pair, pair_conv.conv3x3_pair_dx, pair_conv.conv3x3_pair_fold,
-            shear_rotate.rotate_fan)
+            shear_rotate.rotate_fan, shear_rotate.rotate_fan_table)
 
 
 def snapshot() -> dict:
@@ -40,3 +47,32 @@ def credit(counts: dict, times: int = 1) -> None:
             pair_conv.path_launches[k[5:]] += v * times
         else:
             by_name[k].launches += v * times
+
+
+def capture(step: Callable[[], None]) -> tuple:
+    """Record step() as a CUDA graph on the current device. Returns (the
+    graph, the counts that one replay is to be credited with, the capture's
+    seconds); the counts that the capture's wrapper calls added are taken
+    back.
+
+    Python's cyclic garbage collector runs before the capture and is held
+    off during it. A program cached on an engine or a trainer keeps its
+    graph in a reference cycle, so a dropped one is freed by that collector;
+    freeing a graph destroys its executable graph, a call that a capture
+    forbids, and the capture then fails where it ends."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        before = snapshot()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            step()
+        seconds = time.perf_counter() - t0
+    finally:
+        if enabled:
+            gc.enable()
+    counts = since(before)
+    credit(counts, -1)
+    return graph, counts, seconds

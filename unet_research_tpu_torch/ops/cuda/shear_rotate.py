@@ -29,6 +29,15 @@ ops in JAX's order; the kernel and the plain version read the same values,
 form each shift as slope * line + offset and each blend as
 t1 * (1 - f) + t2 * f in round-to-nearest float32 without contraction, so
 the two agree bit for bit on the card.
+
+Two launch paths. `rotate_fan` computes a call's scalars on the host and
+passes them as a kernel parameter. `rotate_fan_table` reads them from a
+`MemberTable` on the card at a chunk index on the card: the rotational
+engine builds the table once, from `fan_params` of each chunk on the host
+(the card's cos, sin and tan may differ from the CPU's by an ulp, and the
+tie angles 45 + 90k depend on the float32 order), and a CUDA graph of its
+chunk replays one launch for every chunk. The table's `window_limits` are
+taken over all its rows, so one shared-memory size serves every chunk.
 """
 
 from __future__ import annotations
@@ -64,6 +73,8 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.shear_rotate_launch.argtypes = [p, p, p] + [i] * 12 + [p]
         lib.shear_rotate_launch.restype = i
+        lib.shear_rotate_table_launch.argtypes = [p, p, i, p, p] + [i] * 12 + [p]
+        lib.shear_rotate_table_launch.restype = i
         _lib = lib
     return _lib
 
@@ -218,10 +229,14 @@ def _resample_rows(img, delta):
 def rotate_fan_plain(img: torch.Tensor, angles_deg) -> torch.Tensor:
     """K4's plain version: the canvas, a per-member torch.rot90, three
     gathers along lines (x, then y on the transpose, then x) and the crop."""
-    K, h, w = _check(img, angles_deg)
+    _check(img, angles_deg)
+    return _rotate_plain(img, fan_params(angles_deg, img.shape[1], img.shape[2]))
+
+
+def _rotate_plain(img: torch.Tensor, p: FanParams) -> torch.Tensor:
+    K, h, w = len(p.qm), img.shape[1], img.shape[2]
     S = canvas_size(h, w)
     py, px = (S - h) // 2, (S - w) // 2
-    p = fan_params(angles_deg, h, w)
     dev = img.device
     canvas = torch.zeros((K, S, S), dtype=img.dtype, device=dev)
     canvas[:, py:py + h, px:px + w] = img[:, :, :, 0]
@@ -253,10 +268,7 @@ def rotate_fan(img: torch.Tensor, angles_deg) -> torch.Tensor:
     S = canvas_size(h, w)
     p = fan_params(angles_deg, h, w)
     dev = img.device
-    # (K, 6) int32 host rows, the kernel's Member: the float32 bits of
-    # r, t1, q, s, t2, then qm
-    members = torch.cat([torch.stack([p.r, p.t1, p.q, p.s, p.t2], dim=1).view(torch.int32),
-                         p.qm.to(torch.int32)[:, None]], dim=1)
+    members = member_rows(p)
     out = torch.empty((K, h, w, 1), dtype=torch.float32, device=dev)
     status = _library().shear_rotate_launch(
         img.data_ptr(), members.data_ptr(), out.data_ptr(), K, img.shape[0], h, w, S,
@@ -268,3 +280,97 @@ def rotate_fan(img: torch.Tensor, angles_deg) -> torch.Tensor:
 
 
 rotate_fan.launches = 0
+
+
+def member_rows(p: FanParams) -> torch.Tensor:
+    """(K, 6) int32 rows on the CPU, the kernel's Member: the float32 bits of
+    r, t1, q, s, t2, then qm."""
+    return torch.cat([torch.stack([p.r, p.t1, p.q, p.s, p.t2], dim=1).view(torch.int32),
+                      p.qm.to(torch.int32)[:, None]], dim=1)
+
+
+class MemberTable(NamedTuple):
+    """The Member rows of a fan of equal chunks at (h, w): `rows` (chunks *
+    members, 6) int32 on one device, chunk c in rows [c * members, (c + 1) *
+    members); `limits`: window_limits over every row."""
+
+    rows: torch.Tensor
+    members: int
+    h: int
+    w: int
+    limits: tuple
+
+    @property
+    def chunks(self) -> int:
+        return self.rows.shape[0] // self.members
+
+
+def member_table(angle_chunks, h: int, w: int, device) -> MemberTable:
+    """The table of the chunks' rows, each chunk's from fan_params of its
+    angles on the host (the rows rotate_fan would compute for it), moved to
+    `device` in one copy."""
+    if len({len(a) for a in angle_chunks}) != 1:
+        raise ValueError("member_table: the chunks must have one size")
+    params = [fan_params(a, h, w) for a in angle_chunks]
+    whole = FanParams(*(torch.cat(fields) for fields in zip(*params)))
+    return MemberTable(member_rows(whole).to(device), len(angle_chunks[0]), h, w,
+                       window_limits(whole, canvas_size(h, w)))
+
+
+def table_params(table: MemberTable, index) -> FanParams:
+    """The scalars of chunk `index` of a table, read back from its rows on
+    the host (phi, which no row holds, is None)."""
+    i = int(index)
+    if not 0 <= i < table.chunks:
+        raise IndexError(f"chunk {i} of a table of {table.chunks}")
+    rows = table.rows[i * table.members:(i + 1) * table.members].cpu()
+    r, t1, q, s, t2 = rows[:, :5].contiguous().view(torch.float32).unbind(1)
+    return FanParams(rows[:, 5].to(torch.int64), None, r, t1, q, s, t2)
+
+
+def _check_table(img, table: MemberTable):
+    n, h, w, c = img.shape
+    if c != 1:
+        raise ValueError("rotate_fan_table expects single-channel NHWC")
+    if n not in (1, table.members):
+        raise ValueError("img batch must be 1 or the table's members per chunk")
+    if (h, w) != (table.h, table.w):
+        raise ValueError(f"img is {h}x{w}, the table's fan {table.h}x{table.w}")
+
+
+def rotate_fan_table_plain(img: torch.Tensor, table: MemberTable, index) -> torch.Tensor:
+    """rotate_fan_table's plain version: rotate_fan_plain on the chunk's
+    rows, read back on the host."""
+    _check_table(img, table)
+    return _rotate_plain(img, table_params(table, index))
+
+
+def rotate_fan_table(img: torch.Tensor, table: MemberTable, index: torch.Tensor) -> torch.Tensor:
+    """rotate_fan of the members of chunk `index` of `table` -> (K, H, W, 1):
+    the kernel reads the chunk's rows on the card at the chunk index, a (1,)
+    int64 tensor on the table's device, so a launch does no host work that
+    depends on the chunk and a CUDA graph can replay it for each (an index
+    past the table traps on the card). One launch per call. CPU tensors
+    take the plain version."""
+    _check_table(img, table)
+    if not img.is_cuda:
+        return rotate_fan_table_plain(img, table, index)
+    if img.dtype != torch.float32 or not img.is_contiguous():
+        raise ValueError("rotate_fan_table: img must be contiguous float32 NHWC")
+    if table.rows.device != img.device or index.device != img.device:
+        raise ValueError("rotate_fan_table: the table and the index must be on img's device")
+    if index.dtype != torch.int64 or index.numel() != 1:
+        raise ValueError("rotate_fan_table: index must be one int64")
+    K, h, w = table.members, table.h, table.w
+    S = canvas_size(h, w)
+    out = torch.empty((K, h, w, 1), dtype=torch.float32, device=img.device)
+    status = _library().shear_rotate_table_launch(
+        img.data_ptr(), table.rows.data_ptr(), table.rows.shape[0], index.data_ptr(),
+        out.data_ptr(), K, img.shape[0], h, w, S, (S - h) // 2, (S - w) // 2, *TILE,
+        *table.limits, torch.cuda.current_stream(img.device).cuda_stream)
+    check(status, "rotate_fan_table")
+    rotate_fan_table.launches += 1
+    return out
+
+
+rotate_fan_table.launches = 0

@@ -3,9 +3,14 @@
 
 from unet_research_tpu_torch.parallel.mesh import (
     Mesh,
+    Sharding,
+    data_sharding,
     make_mesh,
     multihost_initialize,
+    replicated,
+    shard_ensemble_keys,
     shard_rows,
 )
 
-__all__ = ["Mesh", "make_mesh", "multihost_initialize", "shard_rows"]
+__all__ = ["Mesh", "Sharding", "data_sharding", "make_mesh", "multihost_initialize",
+           "replicated", "shard_ensemble_keys", "shard_rows"]

@@ -19,7 +19,7 @@ NCCL refuses).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -84,6 +84,40 @@ def shard_rows(n: int, mesh: Mesh) -> tuple[int, int]:
         raise ValueError(f"a batch of {n} does not divide over {mesh.size} ranks")
     per = n // mesh.size
     return mesh.rank * per, (mesh.rank + 1) * per
+
+
+class Sharding(NamedTuple):
+    """How a global array is laid over a mesh's ranks (twin of JAX's
+    NamedSharding): `split` gives each rank its block of rows on the
+    leading axis (P('data')), else every rank the whole array (P())."""
+
+    mesh: Mesh
+    split: bool
+
+
+def data_sharding(mesh: Mesh) -> Sharding:
+    """The leading (batch or ensemble) axis split over 'data'."""
+    return Sharding(mesh, True)
+
+
+def replicated(mesh: Mesh) -> Sharding:
+    return Sharding(mesh, False)
+
+
+def place(x, sharding: Sharding):
+    """This rank's part of a global array or tensor x under `sharding`
+    (JAX device_put with it)."""
+    if not sharding.split:
+        return x
+    lo, hi = shard_rows(len(x), sharding.mesh)
+    return x[lo:hi]
+
+
+def shard_ensemble_keys(mesh: Mesh, keys):
+    """This rank's members of an ensemble-input fan (site keys, angles):
+    its block of rows, as JAX places the fan so that members split over
+    'data'."""
+    return place(keys, data_sharding(mesh))
 
 
 def rank_offset(mesh: Optional[Mesh], n: int) -> int:

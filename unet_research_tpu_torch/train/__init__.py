@@ -10,8 +10,9 @@ from unet_research_tpu_torch.train.checkpoint import (
 from unet_research_tpu_torch.train.loop import Trainer, TrainerConfig, lr_find
 from unet_research_tpu_torch.train.policies import POLICIES, ResizePolicy, lf_policy, make_size_plan
 from unet_research_tpu_torch.train.schedule import EarlyStopping, ReduceLROnPlateau
-from unet_research_tpu_torch.train.state import TrainState
+from unet_research_tpu_torch.train.state import TrainState, create_train_state
 
 __all__ = ["BestCheckpointKeeper", "EarlyStopping", "POLICIES", "ReduceLROnPlateau",
-           "ResizePolicy", "TrainState", "Trainer", "TrainerConfig", "find_checkpoint",
+           "ResizePolicy", "TrainState", "Trainer", "TrainerConfig", "create_train_state",
+           "find_checkpoint",
            "lf_policy", "load_checkpoint", "lr_find", "make_size_plan", "save_checkpoint"]

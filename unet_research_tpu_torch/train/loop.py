@@ -446,18 +446,8 @@ class _EpochProgram:
         idx.add_(1)
 
     def capture(self) -> None:
-        """Record one step as a CUDA graph. Capturing runs no kernel, so the
-        launch counts that the capture's wrapper calls added are taken back
-        and kept to be credited per replay."""
-        before = launches.snapshot()
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            self.step()
-        self.capture_seconds = time.perf_counter() - t0
-        self.replay_counts = launches.since(before)
-        launches.credit(self.replay_counts, -1)
-        self.graph = graph
+        """Record one step as a CUDA graph (launches.capture)."""
+        self.graph, self.replay_counts, self.capture_seconds = launches.capture(self.step)
 
     def run(self, order, lr: float) -> np.ndarray:
         """The epoch: tables filled, then K steps. Returns the (K,) losses."""

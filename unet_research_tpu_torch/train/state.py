@@ -32,6 +32,7 @@ parameters stay identical across ranks (JAX's gradient psum).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -109,3 +110,31 @@ class TrainState:
     def momentum_buffers(self) -> list:
         """The optimizer's trace v per parameter."""
         return [self.optimizer.state.get(p, {}).get("momentum_buffer") for p in self.params]
+
+
+def make_optimizer(lr: float, momentum: float = 0.99, clip_norm: Optional[float] = None):
+    """The update rule with its hyper-parameters (JAX make_optimizer's
+    optax chain with an injected learning rate). Calling the result on a
+    model, as JAX's tx.init on the params, gives the TrainState that applies
+    it; `mesh` passes through."""
+    return functools.partial(TrainState, lr=lr, momentum=momentum, clip_norm=clip_norm)
+
+
+def create_train_state(model: torch.nn.Module, lr: float, momentum: float = 0.99,
+                       clip_norm: Optional[float] = None, mesh=None) -> TrainState:
+    """A TrainState at step 0 over the model's parameters (JAX
+    create_train_state; BatchNorm's statistics live in the model's
+    buffers, where JAX passes them as batch_stats)."""
+    return make_optimizer(lr, momentum, clip_norm)(model, mesh=mesh)
+
+
+def get_lr(state: TrainState) -> float:
+    """The state's learning rate (JAX get_lr on its opt_state)."""
+    return state.lr
+
+
+def set_lr(state: TrainState, lr: float) -> TrainState:
+    """The state with its learning rate set to lr, in place (JAX set_lr
+    returns a new opt_state)."""
+    state.set_lr(lr)
+    return state
