@@ -20,7 +20,14 @@ replays' idle share, the capture's seconds, both peaks), then the
 rotational TTA ensemble of the same model (bf16, DropBlock off,
 conv_impl='pair', all 359 angles) under both warps, 'shear' (kernel K4, by
 its table launch in the program) and 'gather', and `rotational-program`,
-the same comparison under both warps, then training: K3's backward against the plain route's
+the same comparison under both warps, then `bench`: bench_gpu.py's
+workload in-process (1000 members on bench.py's 584x565 input, pair+fused,
+chunk 16, two warm-ups and the best of three timed predicts; K1 1386 and
+K3 189 launches per timed predict, the warm-up's capture replayed, the
+statistics against one eager 1000-member predict from the same seed), the
+same at BENCH_RESIZE=256 (chunk 128) and the ladder's native/default and
+native/pair+fused rungs at 300 members (scripts/ladder_torch.py), each
+printed with the card's name and power limit, then training: K3's backward against the plain route's
 autograd at the train shapes (bf16 and float32), one train step through the
 kernel route against the plain routes, Trainer.fit of the canonical model
 (bf16, remat, dependent DropBlock b=7 ramped 0 -> 0.15 over 8 steps,
@@ -78,7 +85,9 @@ K3, dx and fold per train, K3 per test, K1 per MC run, K4 per rotational
 run, every K3 on wgmma), every stage's output tree and the density
 report's files (kinds std, cv, hist, did) asserted, the density stage's
 seconds split into the KDE (on the card), np.histogram and PNG writes;
-`view_tensors` on the same out_root; a rerun that skips every stage. Then
+`view_tensors` on the same out_root; a rerun that skips every stage; then
+`epoch-time`: scripts/epoch_time_torch.py's arms (-conv_impl xla and pair,
+2 epochs each) on the generated tree, with their launches. Then
 `density-scale`: the density report (std, cv, hist) from memory at a real
 study's size, 12 models x 6 validation images x 584x565 for DB and ROT
 (seeded synthetic maps, no files read), its seconds split the same way and
@@ -135,6 +144,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import csv
+import dataclasses
 import inspect
 import io
 import json
@@ -154,7 +164,11 @@ if not torch.cuda.is_available():
     raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false")
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
 
+import bench_gpu  # noqa: E402
+import epoch_time_torch  # noqa: E402
+import ladder_torch  # noqa: E402
 from unet_research_tpu_torch.cli import base_model_mf as cli_base_model_mf  # noqa: E402
 from unet_research_tpu_torch.cli import common as cli_common  # noqa: E402
 from unet_research_tpu_torch.cli import create_augmentations as cli_augment  # noqa: E402
@@ -658,15 +672,16 @@ def base_state() -> dict:
     return base.state_dict()
 
 
-def check_outputs(mean, std, saved, ret) -> None:
-    if not (mean.shape == std.shape == (1, 584, 565, 1) and saved.shape == (ret, 1, 584, 565, 1)):
+def check_outputs(mean, std, saved, ret, hw=(584, 565)) -> None:
+    if not (mean.shape == std.shape == (1, *hw, 1) and saved.shape == (ret, 1, *hw, 1)):
         raise AssertionError(f"shapes {mean.shape} {std.shape} {saved.shape}")
     for t in (mean, std, saved):
         if not bool(torch.isfinite(t).all()):
             raise AssertionError("non-finite output")
-    if not (0.0 <= float(mean.min()) and float(mean.max()) <= 1.0 and float(saved.min()) >= 0.0
-            and float(saved.max()) <= 1.0 and float(std.max()) > 0.0):
+    if not (0.0 <= float(mean.min()) and float(mean.max()) <= 1.0 and float(std.max()) > 0.0):
         raise AssertionError("outputs out of range or std == 0 everywhere")
+    if ret and not (float(saved.min()) >= 0.0 and float(saved.max()) <= 1.0):
+        raise AssertionError("saved members out of range")
 
 
 def run_slice(state) -> dict:
@@ -973,6 +988,123 @@ def run_rotational_program(state, noise: float) -> dict:
                                       members, body, noise)
     return out
 
+# --- bench_gpu.py, the ladder and the epoch arms -----------------------------
+
+BENCH_RUNGS = ("native/default", "native/pair+fused")
+LADDER_ITERS = 300
+EPOCH_TIME_EPOCHS = 2
+
+
+def bench_launches(conv: str, mask: str, members: int, chunk: int) -> dict:
+    """The kernel launches of one bench_gpu predict (no member saved): K3 3
+    per forward under pair, K1 at the 22 sites under fused, the wgmma
+    kernel for every K3 launch."""
+    forwards = ensemble_forwards(members, 0, chunk)
+    want = {}
+    if conv == "pair":
+        want.update({"conv3x3_pair": 3 * forwards, "path:wgmma": 3 * forwards})
+    if mask == "fused":
+        want["dropblock_fused_apply"] = TRAIN_SITES * forwards
+    return want
+
+
+def expect_bench(where: str, total: dict, out: dict, want: dict) -> None:
+    """A bench_gpu measurement's launches, counted from 0 before it: each
+    timed predict's (`out["launches"]`) are `want`, the whole run's are the
+    warm-ups' and timed calls' `want`; the timed calls replayed the program
+    the first warm-up captured."""
+    for i, got in enumerate(out["launches"]):
+        if got != want:
+            raise AssertionError(f"{where}: timed predict {i} launched {got}, expected {want}")
+    calls = bench_gpu.WARMUP_CALLS + bench_gpu.TIMED_CALLS
+    expect_launches(where, total, {name: calls * n for name, n in want.items()
+                                   if not name.startswith("path:")})
+    if not (out["programs"] == 1 and out["program_reused"]):
+        raise AssertionError(f"{where}: {out['programs']} programs, reused {out['program_reused']}")
+
+
+def run_bench_phase(noise: float) -> dict:
+    """`bench`: bench_gpu.py's workload in-process at full size: 1000
+    members of the canonical model (pair+fused) on bench.py's 584x565
+    input, chunk 16, two warm-ups and three timed predicts, each timed one
+    launching K1 1386 and K3 189 times (63 forwards: the first chunk, 61
+    replayed, a remainder of 8) and replaying the warm-up's capture; the
+    statistics in range, and within twice the plain bf16 route's distance
+    from float32 (`noise`) of one eager (program=False) 1000-member predict
+    from the last timed call's seed. Then the same at BENCH_RESIZE=256
+    (chunk 128, 8 forwards) and the ladder's native/default (cuDNN and
+    plain masks: no kernel) and native/pair+fused rungs at 300 members.
+    Returns the launches of the 1000-member measurement."""
+    work = bench_gpu.Workload()
+    model = bench_gpu.build_model("pair", "fused", {}, DEV)
+    engine = bench_gpu.make_engine(model, work, DEV)
+    reset_counts()
+    out = bench_gpu.measure(engine, work)
+    total = counts()
+    expect_bench("bench", total, out, bench_launches("pair", "fused", work.iters, work.chunk))
+    check_outputs(out["mean"], out["std"], torch.zeros((0, 1, *work.hw, 1)), 0)
+
+    im, gt, mask = bench_gpu.bench_input(work.hw)
+    eager = bench_gpu.make_engine(model, work, DEV, program=False)
+    t0 = time.perf_counter()
+    mean, std, *_ = eager.predict(im, gt, mask, bench_gpu.DROP_PROB,
+                                  generator=torch.Generator().manual_seed(out["seeds"][-1]))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    diffs = {"mean": float((out["mean"] - mean).abs().max()),
+             "std": float((out["std"] - std).abs().max())}
+    if not max(diffs.values()) <= 2.0 * noise:
+        raise AssertionError(f"bench: captured against eager {diffs}, gate {2.0 * noise}")
+    emit({"phase": "bench", **bench_gpu.result_line(work, "pair", "fused", out),
+          "capture_s": out["capture_s"], "eager_seconds": eager_s,
+          "eager_passes_per_s": work.iters / eager_s, "max_abs_captured_vs_eager": diffs,
+          "gate": 2.0 * noise, "launches": total})
+
+    r256 = dataclasses.replace(work, resize=256, chunk=bench_gpu.R256_CHUNK)
+    reset_counts()
+    out256 = bench_gpu.measure(bench_gpu.make_engine(model, r256, DEV), r256)
+    expect_bench("bench resize256", counts(), out256,
+                 bench_launches("pair", "fused", r256.iters, r256.chunk))
+    check_outputs(out256["mean"], out256["std"], torch.zeros((0, 1, 256, 256, 1)), 0, (256, 256))
+    emit({"phase": "bench-resize256", **bench_gpu.result_line(r256, "pair", "fused", out256),
+          "capture_s": out256["capture_s"]})
+
+    base = dataclasses.replace(work, iters=LADDER_ITERS)
+    for tag in BENCH_RUNGS:
+        (rung,) = ladder_torch.select(tag)
+        reset_counts()
+        row = ladder_torch.run_rung(rung, base)
+        expect_bench(f"ladder {tag}", counts(), row,
+                     bench_launches(rung[1], rung[2], LADDER_ITERS, rung[4]))
+        emit({"phase": "ladder", "card": card(), "iterations": LADDER_ITERS, **row})
+    return total
+
+
+def run_epoch_time_phase(data: str) -> dict:
+    """`epoch-time`: scripts/epoch_time_torch.py's arms (-conv_impl xla,
+    then pair) on the generated augmented tree, EPOCH_TIME_EPOCHS epochs
+    each (the second gives the seconds per epoch after the capture), with
+    each arm's launches asserted: K2 at 40 sites per step in both, K3, its
+    dx and the fold in the pair arm only. Returns each arm's launches."""
+    n_train, n_val, n_test = 3 * AUG_TRAIN, 2, 2
+    steps = EPOCH_TIME_EPOCHS * n_train
+    out = {}
+    for arm in epoch_time_torch.ARMS:
+        want = {"dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps}
+        if arm == "pair":
+            want.update({"conv3x3_pair": 6 * steps + 3 * (EPOCH_TIME_EPOCHS * n_val + n_val
+                                                          + n_test),
+                         "conv3x3_pair_dx": 3 * steps, "conv3x3_pair_fold": 3 * steps})
+        reset_counts()
+        row = epoch_time_torch.run_arm(arm, data, EPOCH_TIME_EPOCHS)
+        got = counts()
+        expect_launches(f"epoch_time {arm}", got, want)
+        if not (len(row["epoch_s"]) == EPOCH_TIME_EPOCHS and np.isfinite(row["final_train_loss"])):
+            raise AssertionError(f"epoch_time {arm}: {row}")
+        emit({"phase": "epoch-time", "card": card(), "train_images": n_train, **row})
+        out[f"epoch_time_{arm}"] = got
+    return out
+
 # --- training ---------------------------------------------------------------
 
 TRAIN_SITES = 22        # mask sites of the canonical model, one step forward
@@ -1241,15 +1373,21 @@ def counted_events(fn) -> list:
     `profiled`) that first runs fn once more, waits for the card and
     launches a marker kernel (torch.cuda._sleep's spin_kernel): only the
     events that start after the marker count, since a window can lose the
-    first kernels it records (seen on the first replay of 20)."""
+    first kernels it records (seen on the first replay of 20). A window
+    that recorded no marker is profiled again, up to three windows: the
+    profiler has lost every record of a short window (seen once on a
+    one-copy window)."""
     def marked():
         fn()
         torch.cuda.synchronize()
         torch.cuda._sleep(1000)
         fn()
 
-    events = profiled(marked)
-    marks = [ev for ev in events if "spin_kernel" in ev.name]
+    for _ in range(3):
+        events = profiled(marked)
+        marks = [ev for ev in events if "spin_kernel" in ev.name]
+        if marks:
+            break
     if len(marks) != 1:
         raise AssertionError(f"{len(marks)} marker kernels in the profiled window")
     after = marks[0].time_range.end
@@ -2634,6 +2772,7 @@ def main() -> None:
     mc_program = run_mc_program(state, launches["bf16_noise"])
     rotational = run_rotational(state)
     rotational_program = run_rotational_program(state, rotational["bf16_noise"])
+    bench = run_bench_phase(launches["bf16_noise"])
     run_train_routes(state)
     train, steps = run_train_slice(state)
     run_train_scan(state)
@@ -2643,20 +2782,23 @@ def main() -> None:
     data = run_drive_augment_phase()
     cli.update(run_mf_cli_phase(data))
     cli.update(run_matrix_phase(data))
+    epoch_time = run_epoch_time_phase(data)
     shutil.rmtree(DRIVE_ROOT)
     run_density_scale_phase()
     # each path's counts, read right after it ran; `launches` is the path
-    # that runs the kernel by default (K2: training, K3: the MC ensemble)
-    paths = {"mc": launches["main"], "mc_kernel_variant": launches["kernel_variant"],
-             "mc_program": mc_program, "rotational_shear": rotational["shear"],
+    # that runs the kernel by default (K1 and K3: bench_gpu's 1000-member
+    # measurement, K2: training)
+    paths = {"bench": bench, "mc": launches["main"],
+             "mc_kernel_variant": launches["kernel_variant"], "mc_program": mc_program,
+             "rotational_shear": rotational["shear"],
              "rotational_program_shear": rotational_program["shear"],
              "rotational_program_gather": rotational_program["gather"], "train": train, **dp,
-             **cli}
+             **cli, **epoch_time}
     for row, name, main_path in zip(rows, ("dropblock_fused_apply", "dropblock_mask",
                                            "conv3x3_pair", "rotate_fan", "rotate_fan_table",
                                            "conv3x3_pair_dx", "conv3x3_pair_fold"),
-                                    ("mc", "train", "mc", "rotational_shear", "rotational_shear",
-                                     "train", "train")):
+                                    ("bench", "train", "bench", "rotational_shear",
+                                     "rotational_shear", "train", "train")):
         row["launches"] = paths[main_path][name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items() if c[name]}
     rows[5]["launches_per_train_step"] = train["conv3x3_pair_dx"] / steps

@@ -127,6 +127,36 @@ def test_mask_plain_matches_jax_elementwise(b):
     np.testing.assert_array_equal(keep.numpy(), ref.sum(axis=(1, 2, 3)))
 
 
+@pytest.mark.parametrize("rows", [1, 2, 5])
+@pytest.mark.parametrize("threshold", [False, True])
+def test_masks_are_drawn_a_block_of_rows_at_a_time(monkeypatch, rows, threshold):
+    """The plain mask hashes at most SEED_BLOCK counters per call (whole
+    rows, at least one), so its int64 temporaries stay bounded whatever the
+    batch (one call over a chunk of 16 at 592x576x64 ran a chunk of 32 out
+    of the card's memory), and draws the same bits as in one call, also at
+    a sample offset; JAX's elementwise mask is the reference."""
+    shape, offset, b = (5, 20, 18, 3), 2, 7
+    key, words = _key(rows)
+    gamma = jdb.dropblock_gamma_dependent(20, 18, b, 0.3)
+    thr = torch.tensor([tk.seed_threshold(gamma)], dtype=torch.int32) if threshold else None
+    whole = tdb.dropped_blocks(shape, words, gamma, b, offset, thr)
+    calls = []
+    real = tdb._seeds
+
+    def seeds(key_words, block, *args):
+        calls.append(block[0])
+        return real(key_words, block, *args)
+
+    monkeypatch.setattr(tdb, "SEED_BLOCK", rows * 20 * 18 * 3 + 1)
+    monkeypatch.setattr(tdb, "_seeds", seeds)
+    blocked = tdb.dropped_blocks(shape, words, gamma, b, offset, thr)
+    assert calls == [min(rows, 5 - r) for r in range(0, 5, rows)]
+    assert torch.equal(blocked, whole)
+    ref = np.asarray(jdb.dropblock_dependent(jnp.ones((offset + 5, 20, 18, 3)), key, 0.3, b,
+                                             mask_impl="elementwise", rescale="skip"))
+    np.testing.assert_array_equal(~whole.numpy(), ref[offset:].astype(bool))
+
+
 def test_cpu_wrappers_take_the_plain_version():
     words = torch.tensor([1, 2], dtype=torch.int64)
     x = torch.ones((1, 12, 12, 2))

@@ -341,6 +341,34 @@ def test_capture_collects_first_and_holds_the_collector_off(monkeypatch, fails):
     assert gc.isenabled() and sr.rotate_fan_table.launches == before
 
 
+@pytest.mark.parametrize("engine", ["mc", "rotational-gather", "rotational-shear"])
+def test_a_dropped_engine_frees_its_program_at_once(rng, engine):
+    """An engine's cached program (on the card: its CUDA graph and the
+    graph's private memory pool) goes with the engine, without waiting for
+    the cyclic garbage collector: a program that kept its engine alive
+    held tens of GiB of device memory after the engine was dropped, until
+    the collector ran (a ladder of engines in one process ran out)."""
+    model = tunet.UNet(tunet.canonical_config(**SMALL), device="cpu").eval()
+    im, gt, mask = _image(rng)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        if engine == "mc":
+            eng = MCDropBlockEngine(model, num_iterations=7, return_num=0, chunk=2, device="cpu")
+            eng.predict(im, gt, mask, 0.1)
+        else:
+            eng = RotationalEngine(model, num_iterations=7, return_num=0, chunk=2,
+                                   warp=engine.split("-")[1], device="cpu")
+            eng.predict(im, gt, mask)
+        (prog,) = eng.programs.values()
+        ref = weakref.ref(prog)
+        del prog, eng
+        assert ref() is None
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def test_program_steps_eagerly_on_the_cpu():
     """A program on the CPU runs its n steps eagerly from the given
     statistics and leaves the index at n; nothing is captured."""

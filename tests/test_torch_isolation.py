@@ -57,8 +57,17 @@ def test_imports_with_jax_blocked():
                      "unet_research_tpu_torch.parallel", "unet_research_tpu_torch.parallel.mesh",
                      "unet_research_tpu_torch.parallel.launch"):
         assert required in names
+    _import_with_blocked(f"""
+for name in {list(_modules())!r}:
+    importlib.import_module(name)
+""")
+
+
+def _import_with_blocked(imports: str) -> None:
+    """Run `imports` in a fresh interpreter where every BLOCKED module is
+    unimportable; none of them may have been loaded at its end."""
     code = f"""
-import importlib, sys
+import importlib, importlib.util, sys
 BLOCKED = {BLOCKED!r}
 def blocked(name):
     return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -71,8 +80,7 @@ class Finder:
             raise ImportError("blocked: " + name)
         return None
 sys.meta_path.insert(0, Finder())
-for name in {list(_modules())!r}:
-    importlib.import_module(name)
+{imports}
 print("ok", len([m for m in sys.modules if blocked(m)]))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -81,7 +89,11 @@ print("ok", len([m for m in sys.modules if blocked(m)]))
     assert out.stdout.strip() == "ok 0"
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_gpu.py", ROOT / "scripts" / "ladder_torch.py",
+           ROOT / "scripts" / "epoch_time_torch.py"]
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports_in_source(path):
     tree = ast.parse(path.read_text())
@@ -93,6 +105,19 @@ def test_no_jax_imports_in_source(path):
         else:
             continue
         assert not any(_blocked(n) for n in names), (path, names)
+
+
+def test_bench_scripts_import_with_jax_blocked():
+    """bench_gpu.py and the ladder and epoch-time twins import with jax,
+    the JAX package and PIL (and the other blocked libraries) unavailable."""
+    _import_with_blocked(f"""
+for path in {[str(p) for p in SCRIPTS[1:]]!r}:
+    name = path.rsplit("/", 1)[1][:-3]
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+""")
 
 
 def test_entry_points_default_to_the_card(tmp_path):

@@ -50,7 +50,7 @@ from unet_research_tpu_torch.utils.convert import load_model_checkpoint
 from unet_research_tpu_torch.utils.general import create_dir, seed_everything
 
 # -conv_impl values -> the port's UNetConfig.conv_impl
-_CONV_IMPLS = {"pair": "pair", "xla": "torch"}
+CONV_IMPLS = {"pair": "pair", "xla": "torch"}
 
 
 def add_common_train_args(parser: argparse.ArgumentParser) -> None:
@@ -89,7 +89,7 @@ def add_arch_args(parser: argparse.ArgumentParser) -> None:
         help="activation: relu | leaky_relu | elu | gelu | silu | tanh | sigmoid | "
         "none (utils_unet.py:155)")
     parser.add_argument(
-        "-conv_impl", dest="conv_impl", choices=tuple(_CONV_IMPLS), default="pair",
+        "-conv_impl", dest="conv_impl", choices=tuple(CONV_IMPLS), default="pair",
         help="3x3 convs: pair (the hand-written kernel at the eligible sites) or "
         "xla (cuDNN everywhere)")
     parser.add_argument(
@@ -197,7 +197,7 @@ def build_unet(args, dropblock_kind: Optional[str], use_scheduler: bool,
         group_norm_groups=args.group_norm_groups,
         norm=None if args.norm in ("none", "None") else args.norm,
         activation=args.activation,
-        conv_impl=_CONV_IMPLS[args.conv_impl],
+        conv_impl=CONV_IMPLS[args.conv_impl],
     )
     return UNet(cfg, device=args.device)
 

@@ -137,6 +137,13 @@ def interior_mask(h: int, w: int, p: int, device) -> torch.Tensor:
             & ((cols >= p) & (cols <= w - 1 - p))[None, :])
 
 
+# Counters per block of rows in dropped_blocks: the hash's int64 temporaries
+# and the expansion's float32 planes take 8 and 4 bytes per counter each, so
+# a large batch is drawn a block of whole rows at a time (a chunk of 16 at
+# 592x576x64 is 349M counters; 2^26 bound each temporary to 0.5 GiB).
+SEED_BLOCK = 1 << 26
+
+
 def dropped_blocks(shape, key_words: torch.Tensor, gamma, block_size: int,
                    sample_offset: int = 0, threshold=None) -> torch.Tensor:
     """bool (N, H, W, C): the positions an odd-b DropBlock drops.
@@ -147,11 +154,17 @@ def dropped_blocks(shape, key_words: torch.Tensor, gamma, block_size: int,
     reference's valid-centre draw + zero pad for odd b (ops/dropblock.py:214-224
     of the JAX package). This is the mask both Hopper kernels compute.
     sample_offset: see hash_uniform. threshold: see _seeds (gamma is then
-    not read)."""
+    not read). Rows are drawn SEED_BLOCK counters (at least one row) at a
+    time, each block at its global row offset: the same bits."""
     n, h, w, c = shape
-    seeds = _seeds(key_words, shape, gamma, sample_offset, threshold)
-    seeds &= interior_mask(h, w, block_size // 2, seeds.device)[None, :, :, None]
-    return _block_expand(seeds, block_size)
+    rows = max(1, SEED_BLOCK // (h * w * c))
+    interior = interior_mask(h, w, block_size // 2, key_words.device)[None, :, :, None]
+    dropped = torch.empty(tuple(shape), dtype=torch.bool, device=key_words.device)
+    for r in range(0, n, rows):
+        block = (min(rows, n - r), h, w, c)
+        seeds = _seeds(key_words, block, gamma, sample_offset + r, threshold) & interior
+        dropped[r:r + block[0]] = _block_expand(seeds, block_size)
+    return dropped
 
 
 def _dropped(shape, key_words, gamma, block_size, sample_offset, threshold=None) -> torch.Tensor:

@@ -32,6 +32,8 @@ gloo collectives cannot be captured.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from unet_research_tpu_torch.device import resolve_device
@@ -88,8 +90,12 @@ class MCDropBlockEngine:
             sites = self.model.num_mask_sites()
             tables = {"keys": torch.zeros((chunks, sites, 2), dtype=torch.int64,
                                           device=self.device)}
+            # the program reaches its engine weakly: a dropped engine frees
+            # the program (a CUDA graph and its memory pool) at once, not
+            # when the cyclic collector next runs
+            engine, chunk = weakref.ref(self), self.chunk
             prog = EnsembleProgram(
-                lambda p: self._members(p.image, p.mask, p.row("keys"), drop_prob, self.chunk),
+                lambda p: engine()._members(p.image, p.mask, p.row("keys"), drop_prob, chunk),
                 shape, tables, self.device)
             self.programs[key] = prog
         return prog

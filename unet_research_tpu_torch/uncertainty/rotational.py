@@ -27,6 +27,8 @@ host (the same statistics; for comparisons).
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from unet_research_tpu_torch.device import resolve_device
@@ -75,11 +77,15 @@ class RotationalEngine:
         prog = self.programs.get(key)
         if prog is not None:
             return prog
+        # the program reaches its engine weakly: a dropped engine frees the
+        # program (a CUDA graph and its memory pool) at once, not when the
+        # cyclic collector next runs
+        engine = weakref.ref(self)
         if self.warp == "gather":
             def members(p):
                 a = p.row("angles")
-                return self._members(p.image, p.mask, lambda x: rotate_bilinear(x, a),
-                                     lambda x: rotate_bilinear(x, -a))
+                return engine()._members(p.image, p.mask, lambda x: rotate_bilinear(x, a),
+                                         lambda x: rotate_bilinear(x, -a))
 
             tables = {"angles": body.to(self.device)}
         else:
@@ -87,9 +93,9 @@ class RotationalEngine:
 
             def members(p):
                 fans = p.tables
-                return self._members(p.image, p.mask,
-                                     lambda x: rotate_fan_table(x, fans["forward"], p.index),
-                                     lambda x: rotate_fan_table(x, fans["inverse"], p.index))
+                return engine()._members(p.image, p.mask,
+                                         lambda x: rotate_fan_table(x, fans["forward"], p.index),
+                                         lambda x: rotate_fan_table(x, fans["inverse"], p.index))
 
             # K4's member tables (ops/cuda/shear_rotate.py::MemberTable)
             tables = {"forward": member_table(list(body), h, w, self.device),
