@@ -41,7 +41,20 @@ fit's own movement), one replay's kernels against one eager step's
 (profiler kernel events), an epoch of replays' kernels against the launch
 counts it is credited with, the capture's seconds, a replayed and an eager
 step's ms, a replayed epoch's idle share (the union of its kernels'
-intervals over its wall time), both fits' steps/s and peak memory, then data parallelism on the one card (`dp`): K1/K2 at a sample offset
+intervals over its wall time), both fits' steps/s and peak memory (the
+stepped fit takes every step from the host: Trainer(program=False)), then
+`train-step-program`: lr_find's 100-step sweep through its step program (a
+CUDA graph of the step, the learning rate read from a table on the card)
+against every step from the host, from one set of weights and seed (the
+same number of steps, the smoothed losses within 2e-3 relative, the
+suggestion within one step of the sweep's grid, equal launches; both
+routes' seconds, the capture's seconds, peaks), and a uni fit under a size
+plan of -1, 256 and 128 (2 epochs of 24 synthetic 584x565 items, each size
+stepped once eagerly first) through one graph per size against the host's
+steps (the train-scan tolerances, equal launches, one capture per size,
+one replay's kernels those of one eager step at each size; each size's
+replayed and eager step ms, both fits' seconds and peaks), then data
+parallelism on the one card (`dp`): K1/K2 at a sample offset
 (8 of 16, 1 of 2) against their plain versions and the full launch's
 rows; two gloo ranks sharing the card (parallel/launch.py; NCCL refuses
 two ranks on one card) take one train step at a global batch of 2 in
@@ -128,7 +141,9 @@ parameters' relative L2 within 2e-3 (JAX's own scan-against-step
 tolerance: K3's float32 atomics and cuDNN's wgrad may order sums
 differently in two runs, and the scanned update rounds p - lr * v once
 more), equal launches per kernel, one replay's kernels equal by name and
-number to one eager step's.
+number to one eager step's. The step programs against the host's steps:
+the same tolerances, and lr_find's smoothed losses within 2e-3 relative
+and its suggestion within one step of its grid.
 Data parallelism: K1/K2 at an offset bit-equal; the float32 step's loss
 within 2e-5 relative and parameters within rtol 2e-4 / atol 2e-6 of the
 one-process step (tests/test_mesh.py's); the bf16 update (relative L2)
@@ -199,6 +214,8 @@ from unet_research_tpu_torch.parallel.mesh import (  # noqa: E402
 from unet_research_tpu_torch.data import augment as data_augment  # noqa: E402
 from unet_research_tpu_torch.ops.losses import masked_rescaled_bce  # noqa: E402
 from unet_research_tpu_torch.train import POLICIES, Trainer, TrainerConfig, lr_find  # noqa: E402
+from unet_research_tpu_torch.train import loop as tloop  # noqa: E402
+from unet_research_tpu_torch.train import make_size_plan  # noqa: E402
 from unet_research_tpu_torch.train.loop import drop_prob_at  # noqa: E402
 from unet_research_tpu_torch.ops.dropblock import (  # noqa: E402
     dropblock_gamma_dependent,
@@ -1445,13 +1462,14 @@ def run_train_scan(state) -> None:
         start = flat_params(model)
         cfg = TrainerConfig(max_epochs=3, lr=1e-3, momentum=0.99, clip_norm=0.5,
                             auto_lr_find=False, seed=0, verbose=False, scan_epochs=scan)
-        trainer = Trainer(model, POLICIES["none"], cfg, device=DEV)
+        # the stepped fit takes every step from the host (program=False)
+        trainer = Trainer(model, POLICIES["none"], cfg, device=DEV, program=scan)
         programs = []
         scan_fn = trainer.train_epoch_scan
 
         def spy(*args, trainer=trainer, scan_fn=scan_fn, programs=programs):
             losses = scan_fn(*args)
-            programs.append(trainer._scan)
+            programs.append(trainer._program)
             return losses
 
         trainer.train_epoch_scan = spy
@@ -1503,9 +1521,10 @@ def run_train_scan(state) -> None:
 
     def replay_step():
         prog.index.zero_()
-        prog.graph.replay()
+        prog.graphs[-1].replay()
 
-    eager, replay = kernel_names(profiled(eager_step)), kernel_names(profiled(replay_step))
+    eager = kernel_names(counted_events(eager_step))
+    replay = kernel_names(counted_events(replay_step))
     if eager != replay or not replay:
         differ = {name[:160]: (replay[name], eager[name]) for name in set(replay) | set(eager)
                   if replay[name] != eager[name]}
@@ -1523,7 +1542,7 @@ def run_train_scan(state) -> None:
     def epoch_of_replays():
         prog.index.zero_()
         for _ in range(k):
-            prog.graph.replay()
+            prog.graphs[-1].replay()
 
     def timed_epoch():
         t0 = time.perf_counter()
@@ -1531,12 +1550,12 @@ def run_train_scan(state) -> None:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
 
-    epoch_events = profiled(timed_epoch)
+    epoch_events = counted_events(timed_epoch)
     wall_ms, epoch_busy_ms = walls[-1], busy_ms(epoch_events)
     by_name = kernel_names(epoch_events)
     replayed = {key: sum(n for name, n in by_name.items() if part in name)
                 for part, key in REPLAYED_KERNELS.items()}
-    credited = {key: k * prog.replay_counts.get(key, 0) for key in REPLAYED_KERNELS.values()}
+    credited = {key: k * prog.replay_counts[-1].get(key, 0) for key in REPLAYED_KERNELS.values()}
     if replayed != credited or not replayed["dropblock_mask"]:
         raise AssertionError(f"an epoch of {k} replays launched {replayed}, credited {credited}")
 
@@ -1547,8 +1566,8 @@ def run_train_scan(state) -> None:
           "0->0.15 over 12 steps, pair + kernel masks, SGD 1e-3 momentum 0.99 clip 0.5",
           "input": [584, 565], "train_images": len(train_ds), "epochs": 3, "steps": steps,
           "card": card(),
-          "warmup_steps": prog.WARMUP, "capture_seconds": prog.capture_seconds,
-          "replay_launches": prog.replay_counts,
+          "warmup_steps": prog.WARMUP, "capture_seconds": prog.capture_seconds[-1],
+          "replay_launches": prog.replay_counts[-1],
           "replayed_step_ms": replay_ms, "eager_step_ms": eager_ms,
           "kernels_per_step": sum(replay.values()),
           "epoch_of_replays": {"wall_ms": wall_ms, "busy_ms": epoch_busy_ms,
@@ -1564,6 +1583,252 @@ def run_train_scan(state) -> None:
     fits.clear()
     del prog, scanned, stepped
     shutil.rmtree(out_root, ignore_errors=True)
+
+
+STEP_PROGRAM_SWEEP = 100     # lr_find's steps, its default
+STEP_PROGRAM_EPOCHS = 2
+PLAN_SIZES = (-1, 256, 128)
+
+
+@contextlib.contextmanager
+def step_programs():
+    """While active, collect every step program the trainer makes
+    (train/loop.py::_StepProgram), to read its tables, graphs and capture
+    seconds after the run; drop them before the next capture."""
+    made = []
+    init = tloop._StepProgram.__init__
+
+    def record(self, *args):
+        init(self, *args)
+        made.append(self)
+
+    tloop._StepProgram.__init__ = record
+    try:
+        yield made
+    finally:
+        tloop._StepProgram.__init__ = init
+
+
+def smoothed_losses(losses, beta: float = 0.98) -> np.ndarray:
+    """The curve that lr_find keeps from its steps' losses: their
+    bias-corrected EWMA up to the step that stops the sweep (a non-finite
+    loss, or a smoothed loss above 4x the best), which it leaves out."""
+    out, avg = [], 0.0
+    for loss in map(float, losses):
+        if not np.isfinite(loss):
+            break
+        avg = beta * avg + (1 - beta) * loss
+        smoothed = avg / (1 - beta ** (len(out) + 1))
+        if out and smoothed > 4 * min(out):
+            break
+        out.append(smoothed)
+    return np.array(out)
+
+
+def train_want(steps: int, val_forwards: int) -> dict:
+    """Each kernel's launches in `steps` train steps of the canonical model
+    (kernel masks, pair convs, remat) and `val_forwards` validation forwards."""
+    return {"dropblock_fused_apply": 0, "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
+            "conv3x3_pair": 6 * steps + 3 * val_forwards, "conv3x3_pair_dx": 3 * steps,
+            "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0, "rotate_fan_table": 0}
+
+
+def run_step_program_lr_find(state, train_ds) -> dict:
+    """lr_find's 100-step sweep through its step program (one CUDA graph of
+    the step, the learning rate read from a table on the card) against
+    every step from the host (program=False), from one set of weights and
+    one seed: the same number of steps, the smoothed losses within 2e-3
+    relative, the suggestion within one step of the sweep's grid, equal
+    launches, and both routes' seconds."""
+    lrs = 1e-8 * (1.0 / 1e-8) ** (np.arange(STEP_PROGRAM_SWEEP) / (STEP_PROGRAM_SWEEP - 1))
+    routes = {}
+    for program in (False, True):
+        model = train_model(state, nr_steps=STEP_PROGRAM_SWEEP // 2)
+        cfg = TrainerConfig(lr=1e-3, momentum=0.99, clip_norm=0.5, seed=0, verbose=False)
+        trainer = Trainer(model, POLICIES["none"], cfg, device=DEV, program=program)
+        host_losses = []
+        step_fn = trainer.train_step_indexed
+
+        def spy(*args, step_fn=step_fn, host_losses=host_losses, **kwargs):
+            loss = step_fn(*args, **kwargs)
+            host_losses.append(loss)
+            return loss
+
+        trainer.train_step_indexed = spy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with step_programs() as made:
+            suggestion = lr_find(trainer, state, train_ds, None, 0,
+                                 num_training=STEP_PROGRAM_SWEEP)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = counts()
+        assert_wgmma(f"lr_find, program={program}")
+        if program:
+            prog, = made
+            ran = int(prog.index)
+            raw = prog.losses[:ran].cpu().numpy()
+            # the wrapper is called by the eager warm-up steps and the capture
+            extra = {"capture_seconds": prog.capture_seconds[-1],
+                     "eager_steps": prog.warm[-1], "graphs": sorted(prog.graphs),
+                     "host_steps": len(host_losses)}
+            del prog
+        else:
+            ran = len(host_losses)
+            raw = torch.stack(host_losses).cpu().numpy()
+            extra = {}
+        made.clear()
+        del made, trainer, model, host_losses
+        routes[program] = {"suggestion": suggestion, "steps": ran, "seconds": seconds,
+                           "launches": got, "smoothed": smoothed_losses(raw),
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, **extra}
+    captured, eager = routes[True], routes[False]
+    grid = [int(np.argmin(np.abs(np.log(lrs) - np.log(r["suggestion"]))))
+            for r in (captured, eager)]
+    n = min(len(captured["smoothed"]), len(eager["smoothed"]))
+    smooth_rel = float(np.max(np.abs(captured["smoothed"][:n] - eager["smoothed"][:n])
+                              / np.abs(eager["smoothed"][:n])))
+    out = {"phase": "train-step-program", "part": "lr_find", "card": card(),
+           "config": "canonical 31M, bf16, remat, dependent b=7 ramp 0->0.15 over 50 steps, "
+                     "pair + kernel masks, momentum 0.99 clip 0.5, lr 1e-8 -> 1 over 100 steps",
+           "input": [584, 565], "train_images": len(train_ds),
+           "steps": {"captured": captured["steps"], "eager": eager["steps"]},
+           "seconds": {"captured": captured["seconds"], "eager": eager["seconds"]},
+           "capture_seconds": captured["capture_seconds"],
+           "eager_steps_before_capture": captured["eager_steps"],
+           "host_steps_of_the_captured_route": captured["host_steps"],
+           "suggestion": {"captured": captured["suggestion"], "eager": eager["suggestion"]},
+           "grid_index": grid, "smoothed_max_rel": smooth_rel,
+           "smoothed_points": [len(captured["smoothed"]), len(eager["smoothed"])],
+           "peak_gib": {"captured": captured["peak_gib"], "eager": eager["peak_gib"]},
+           "launches": captured["launches"]}
+    emit(out)
+    if not (captured["steps"] == eager["steps"] and captured["graphs"] == [-1]
+            and len(captured["smoothed"]) == len(eager["smoothed"])
+            and captured["host_steps"] == tloop._StepProgram.WARMUP + 1
+            and np.isfinite(captured["smoothed"]).all() and smooth_rel <= 2e-3
+            and abs(grid[0] - grid[1]) <= 1
+            and captured["launches"] == eager["launches"] == train_want(eager["steps"], 0)):
+        raise AssertionError(f"train-step-program lr_find: {out}")
+    return captured["launches"]
+
+
+def run_step_program_fit(state) -> dict:
+    """A uni fit under a size plan of -1, 256 and 128 (2 epochs of
+    3 x AUG_TRAIN items, the mf-cli phase's shape) through the step
+    programs (one CUDA graph per size) against every step from the host
+    (program=False), from one set of weights and one seed: the train-scan
+    phase's tolerances, equal launches, one capture per size, one replay's
+    kernels those of one eager step at each size, and each size's replayed
+    and eager step ms."""
+    n_train = 3 * AUG_TRAIN
+    train_ds, val_ds = train_dataset(n_train, seed=5), train_dataset(2, seed=6)
+    plan = make_size_plan("uni", 3, AUG_TRAIN, np.random.default_rng(0))
+    steps = STEP_PROGRAM_EPOCHS * n_train
+    out_root = os.path.join(ROOT, "_runs", "chip_smoke_step_program")
+    shutil.rmtree(out_root, ignore_errors=True)
+    # one eager step at each size first, so that neither route pays the
+    # one-time work of a new size (cuDNN's plans, the allocator's blocks)
+    warm = Trainer(train_model(state), POLICIES["uni"], TrainerConfig(seed=0, verbose=False),
+                   device=DEV)
+    warm_state = warm.create_state(None, 1e-3)
+    data = tuple(torch.as_tensor(a, device=DEV)
+                 for a in (train_ds.images, train_ds.targets, train_ds.masks))
+    for size in PLAN_SIZES:
+        warm.train_step_indexed(warm_state, data, 0, 1e-3, size)
+    torch.cuda.synchronize()
+    del warm, warm_state, data
+    fits = {}
+    for program in (False, True):
+        model = train_model(state, nr_steps=steps // 2)
+        start = flat_params(model)
+        cfg = TrainerConfig(max_epochs=STEP_PROGRAM_EPOCHS, lr=1e-3, momentum=0.99,
+                            clip_norm=0.5, auto_lr_find=False, seed=0, verbose=False)
+        trainer = Trainer(model, POLICIES["uni"], cfg, device=DEV, program=program)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with step_programs() as made:
+            fit_state, history, _ = trainer.fit(train_ds, val_ds,
+                                                os.path.join(out_root, f"program_{program}"),
+                                                size_plan=plan, params=state)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = counts()
+        assert_wgmma(f"step-program fit, program={program}")
+        fits[program] = {"history": history, "params": flat_params(model), "start": start,
+                         "launches": got, "seconds": seconds, "step": fit_state.step,
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                         "program": made[0] if made else None, "made": len(made)}
+    captured, eager = fits[True], fits[False]
+    prog = captured["program"]
+    a = np.array(captured["history"]["train_loss_epoch"] + captured["history"]["val_loss_epoch"])
+    b = np.array(eager["history"]["train_loss_epoch"] + eager["history"]["val_loss_epoch"])
+    loss_rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    param_rel = rel_l2(captured["params"], eager["params"])
+    movement = rel_l2(eager["params"], eager["start"])
+
+    # by size: one replay's kernels against one eager step's, and their ms
+    by_size = {}
+    for size in PLAN_SIZES:
+        def eager_step(size=size):
+            prog.index.zero_()
+            prog.step(size)
+
+        def replay_step(size=size):
+            prog.index.zero_()
+            prog.graphs[size].replay()
+
+        e_names = kernel_names(counted_events(eager_step))
+        r_names = kernel_names(counted_events(replay_step))
+        differ = {name[:160]: (r_names[name], e_names[name])
+                  for name in set(r_names) | set(e_names) if r_names[name] != e_names[name]}
+        by_size[str(size)] = {"replayed_step_ms": time_ms(replay_step, 10, 2),
+                              "eager_step_ms": time_ms(eager_step, 5),
+                              "capture_seconds": prog.capture_seconds[size],
+                              "kernels_per_step": sum(r_names.values()),
+                              "replay_launches": prog.replay_counts[size],
+                              "kernels_differ": differ}
+    out = {"phase": "train-step-program", "part": "uni-fit", "card": card(),
+           "config": "canonical 31M, bf16, remat, dependent b=7 ramp 0->0.15 over 24 steps, "
+                     "pair + kernel masks, SGD 1e-3 momentum 0.99 clip 0.5, uni size plan",
+           "input": [584, 565], "train_images": n_train, "val_images": len(val_ds),
+           "epochs": STEP_PROGRAM_EPOCHS, "steps": steps,
+           "size_plan_counts": {str(s): int((plan == s).sum()) for s in PLAN_SIZES},
+           "by_size": by_size,
+           "fit_seconds": {"captured": captured["seconds"], "eager": eager["seconds"]},
+           "steps_per_s": {"captured": steps / captured["seconds"],
+                           "eager": steps / eager["seconds"]},
+           "peak_gib": {"captured": captured["peak_gib"], "eager": eager["peak_gib"]},
+           "loss_max_rel": loss_rel, "param_rel_l2": param_rel, "param_movement": movement,
+           "history": {"captured": captured["history"], "eager": eager["history"]},
+           "launches": captured["launches"]}
+    emit(out)
+    want = train_want(steps, STEP_PROGRAM_EPOCHS * len(val_ds))
+    if not (captured["made"] == 1 and eager["made"] == 0 and sorted(prog.graphs) == [-1, 128, 256]
+            and all(prog.warm[s] == prog.WARMUP for s in PLAN_SIZES)
+            and captured["step"] == eager["step"] == steps
+            and captured["launches"] == eager["launches"] == want
+            and np.isfinite(a).all() and loss_rel <= 2e-3 and param_rel <= 1e-4
+            and param_rel <= 0.1 * movement
+            and not any(row["kernels_differ"] or not row["kernels_per_step"]
+                        for row in by_size.values())):
+        raise AssertionError(f"train-step-program uni fit: {out}")
+    fits.clear()
+    del prog, captured, eager
+    shutil.rmtree(out_root, ignore_errors=True)
+    return want  # both routes' launches, asserted equal to it
+
+
+def run_train_step_program(state) -> dict:
+    """The stepped paths through the trainer's step programs on the card:
+    lr_find, then a fit under a size plan. Returns each one's launches."""
+    lr_find_launches = run_step_program_lr_find(state, train_dataset(8, seed=1))
+    return {"train_step_program_lr_find": lr_find_launches,
+            "train_step_program_uni_fit": run_step_program_fit(state)}
 
 
 # --- data parallelism -------------------------------------------------------
@@ -2776,6 +3041,7 @@ def main() -> None:
     run_train_routes(state)
     train, steps = run_train_slice(state)
     run_train_scan(state)
+    step_program = run_train_step_program(state)
     dp = run_dp_phase(launches)
     run_dp_nccl(state)
     cli = run_cli_phase()
@@ -2792,7 +3058,8 @@ def main() -> None:
              "mc_kernel_variant": launches["kernel_variant"], "mc_program": mc_program,
              "rotational_shear": rotational["shear"],
              "rotational_program_shear": rotational_program["shear"],
-             "rotational_program_gather": rotational_program["gather"], "train": train, **dp,
+             "rotational_program_gather": rotational_program["gather"], "train": train,
+             **step_program, **dp,
              **cli, **epoch_time}
     for row, name, main_path in zip(rows, ("dropblock_fused_apply", "dropblock_mask",
                                            "conv3x3_pair", "rotate_fan", "rotate_fan_table",

@@ -248,7 +248,8 @@ def _jax_stub(script, lr=0.01):
 def _port_stub(script, lr=0.01):
     stub = types.SimpleNamespace(cfg=types.SimpleNamespace(train_batch=1, lr=lr),
                                  policy=types.SimpleNamespace(uses_size_plan=False),
-                                 device=torch.device("cpu"), model=torch.nn.Linear(1, 1))
+                                 device=torch.device("cpu"), model=torch.nn.Linear(1, 1),
+                                 program=False)
     stub.create_state = lambda params, lr: None
     stub.train_step_indexed = lambda st, data, oi, lr, size: torch.tensor(
         script.next(lr), dtype=torch.float32)

@@ -25,19 +25,31 @@ every rank holds the same parameters. The seed and the initial weights are
 rank 0's. Validation splits the items over the ranks; rank 0 alone writes
 checkpoints and prints.
 
-Scanned epochs (`TrainerConfig.scan_epochs`, on by default, the twin of
-JAX's `train_epoch_scan`): under JAX's conditions (no size plan, batch 1,
-no detect_anomaly, no mesh) an epoch is one device program over the
-device-resident uint8 split. Its step is train_step on inputs that it
-reads from tables on the device (the epoch's order, each step's site keys
-and drop probability, filled on the host before the epoch from the same
-generator and ramp as the per-step path) at a step index that it advances
-on the device; the learning rate is the state's device word. On the card
-the first steps of the fit run eagerly, then the step is captured once as
-a CUDA graph and replayed for the rest of every epoch, with one host
-synchronisation per epoch (the losses); on the CPU the same step runs
-eagerly. It computes the per-step path's numbers. A failed capture or
-replay raises.
+Step programs (`_StepProgram`, the twin of JAX's jitted
+`train_step_indexed`, one program per static `size`, and of its
+`train_epoch_scan`): every batch-1 step without a mesh is train_step on
+inputs that it reads from tables on the device (the items' order, each
+step's site keys, drop probability and learning rate, filled on the host
+before a run of steps from the same generator, ramp and learning rates as
+the per-step path) at a step index that it advances on the device. On the
+card each size's first steps run eagerly, then its step is captured once as
+a CUDA graph and replayed for every later step at that size; on the CPU the
+same step runs eagerly. It computes the per-step path's numbers. A failed
+capture or replay raises. The runs are:
+
+- scanned epochs (`TrainerConfig.scan_epochs`, on by default): under JAX's
+  conditions (no size plan, batch 1, no detect_anomaly, no mesh) an epoch
+  of one size, with one host synchronisation (the losses);
+- stepped epochs (a size plan, detect_anomaly or scan_epochs=False at batch
+  1 without a mesh): an epoch over the plan's sizes, one graph per size,
+  the losses read once per epoch, or after every step under
+  detect_anomaly, as JAX reads them;
+- lr_find's sweep: its learning rates in the table, the loss read after
+  every step for the divergence stop.
+
+`Trainer(program=False)` and `lr_find(program=False)` (port-only) run the
+stepped epochs' and the sweep's steps from the host, one eager
+train_step_indexed at a time, for comparisons.
 
 Differences from the JAX trainer: the DropBlock site keys of each step
 are drawn from a torch.Generator seeded with the run's seed, where JAX
@@ -47,6 +59,7 @@ from one seed; `train_step` takes explicit `site_keys`.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import os
@@ -107,10 +120,11 @@ class Trainer:
     """Drives one model and one resize policy end to end, on `device` (the
     card unless the caller asks for the CPU; the model must live there).
     mesh: data-parallel over its ranks (module docstring); the mesh's size
-    must divide `train_batch`."""
+    must divide `train_batch`. program=False (port-only): the stepped
+    epochs' and lr_find's steps run from the host (module docstring)."""
 
     def __init__(self, model: UNet, policy: ResizePolicy, cfg: TrainerConfig, mesh=None,
-                 device=None):
+                 device=None, program: bool = True):
         if mesh is not None and cfg.train_batch % mesh.size:
             raise ValueError(f"train_batch {cfg.train_batch} does not divide over the "
                              f"{mesh.size} ranks of the mesh")
@@ -125,7 +139,8 @@ class Trainer:
             raise ValueError(f"the model lives on {where}, the trainer runs on {self.device}")
         self.has_dropblock = model.cfg.dropblock.kind is not None
         self.key_generator = torch.Generator().manual_seed(max(cfg.seed, 0))
-        self._scan = None  # the scanned fit's program (_EpochProgram)
+        self.program = program
+        self._program = None  # the fit's step program (_StepProgram)
 
     def scans(self, size_plan: Optional[np.ndarray] = None) -> bool:
         """Whether fit runs scanned epochs: JAX's `use_scan` conditions
@@ -213,10 +228,19 @@ class Trainer:
         at `lr`. Returns the (K,) float32 losses and advances state.step by
         K. The program (tables, captured graph) is kept for the next epoch
         of the same fit."""
-        prog = self._scan
-        if prog is None or not prog.serves(state, data, len(order)):
-            prog = self._scan = _EpochProgram(self, state, data, len(order))
-        return prog.run(order, lr)
+        prog = self._program_for(state, data, len(order))
+        prog.fill(order, lr)
+        for _ in range(len(order)):
+            prog.advance()
+        return prog.losses.cpu().numpy()
+
+    def _program_for(self, state: TrainState, data, num_steps: int) -> "_StepProgram":
+        """The fit's step program for runs of `num_steps` steps of `state`
+        on `data`, made anew when the cached one does not serve them."""
+        prog = self._program
+        if prog is None or not prog.serves(state, data, num_steps):
+            prog = self._program = _StepProgram(self, state, data, num_steps)
+        return prog
 
     @torch.no_grad()
     def eval_step(self, im, gt, mask) -> torch.Tensor:
@@ -319,7 +343,7 @@ class Trainer:
                             print(f"early stopping at epoch {epoch}")
                         break
         finally:
-            self._scan = None  # frees the captured graph and its memory pool
+            self._program = None  # frees the captured graphs and their memory pools
         if prof is not None:
             prof.stop()
             trace_dir = os.path.join(model_info_dir, "..", "profile")
@@ -335,9 +359,14 @@ class Trainer:
     def _step_epoch(self, state, dev_data, order, train_ds, lr, size_plan, shuffle, np_rng,
                     epoch) -> np.ndarray:
         """One epoch a step at a time: items `order` of the device-resident
-        split at batch 1, else batch_iterator's batches. Returns the float32
+        split at batch 1 (through the step program without a mesh, unless
+        program=False), else batch_iterator's batches. Returns the float32
         losses that the log gate keeps."""
         cfg = self.cfg
+        prog = None
+        if order is not None and self.mesh is None and self.program:
+            prog = self._program_for(state, dev_data, len(order))
+            prog.fill(order, lr)
         if order is not None:
             batches = ((i, int(oi)) for i, oi in enumerate(order))
         else:
@@ -346,7 +375,10 @@ class Trainer:
         step_losses = []
         for batch_idx, item in batches:
             size = int(size_plan[batch_idx]) if size_plan is not None else -1
-            if order is not None:
+            if prog is not None:
+                prog.advance(size)
+                loss = prog.losses[batch_idx]
+            elif order is not None:
                 loss = self.train_step_indexed(state, dev_data, item, lr, size)
             else:
                 loss = self.train_step(state, *item, lr, size)
@@ -396,24 +428,28 @@ class Trainer:
             yield (i, *(t.cpu().numpy() for t in out))
 
 
-class _EpochProgram:
-    """The static buffers of a scanned fit and, on the card, its captured
-    step (Trainer.train_epoch_scan).
 
-    The step reads every input that changes from step to step from these
-    buffers, at the step index `index` on the device, and advances the
-    index itself: a CUDA graph of one step, replayed K times, runs the K
-    steps of an epoch. Between epochs the host refills the tables, sets the
-    state's learning rate and resets the index, and reads the losses back:
-    the epoch's one synchronisation."""
 
-    # Eager steps before the capture, on a side stream, as PyTorch's CUDA
-    # graph notes ask. They are real steps of the first scanned epoch. The
+class _StepProgram:
+    """The static buffers of runs of batch-1 steps of one TrainState and, on
+    the card, one captured step per `size` (module docstring).
+
+    The step reads every input that changes from step to step from tables
+    on the device (order, site keys, drop probabilities, learning rates) at
+    the step index `index` on the device, writes its loss to the losses
+    table there and advances the index: a CUDA graph of one step at a size,
+    replayed, runs the next step of the run at that size. The host fills the
+    tables before a run (fill) and reads the losses back."""
+
+    # Eager steps at a size before its capture, on a side stream, as
+    # PyTorch's CUDA graph notes ask; counted across runs, so that runs of
+    # one step still reach a capture. They are real steps of the run. The
     # first does the one-time work that a capture cannot hold: it loads the
     # kernel libraries, raises K3's shared-memory limit and builds cuDNN's
     # plans for every conv of the forward, the remat re-run and the
-    # backward. The second is a step in the steady state that the capture
-    # will record, at the cost of one eager step per fit.
+    # backward at this size's feature maps. The second is a step in the
+    # steady state that the capture will record, at the cost of one eager
+    # step per size.
     WARMUP = 2
 
     def __init__(self, trainer: Trainer, state: TrainState, data, num_steps: int):
@@ -422,119 +458,162 @@ class _EpochProgram:
         self.order = torch.zeros(num_steps, dtype=torch.int64, device=dev)
         self.index = torch.zeros(1, dtype=torch.int64, device=dev)
         self.losses = torch.zeros(num_steps, dtype=torch.float32, device=dev)
+        self.lrs = torch.zeros(num_steps, dtype=torch.float32, device=dev)
         if trainer.has_dropblock:
             sites = trainer.model.num_mask_sites()
             self.keys = torch.zeros((num_steps, sites, 2), dtype=torch.int64, device=dev)
             self.drop_probs = torch.zeros(num_steps, dtype=torch.float32, device=dev)
-        self.graph = None
-        self.replay_counts = {}  # kernel launches of one replay (ops/cuda/launches.py)
-        self.capture_seconds = None
+        self.warm = collections.Counter()  # eager steps so far, by size
+        # by size: the graph, the kernel launches of one replay
+        # (ops/cuda/launches.py) and the capture's seconds
+        self.graphs, self.replay_counts, self.capture_seconds = {}, {}, {}
 
     def serves(self, state: TrainState, data, num_steps: int) -> bool:
         return state is self.state and data is self.data and num_steps == self.num_steps
 
-    def step(self) -> None:
+    def fill(self, order, lr) -> None:
+        """The tables of a run of K steps from state.step on items `order`
+        (K = num_steps): the site keys drawn from the trainer's
+        key_generator and the drop probabilities of the ramp
+        (Trainer.step_tables); `lr` one learning rate for every step, which
+        also becomes the state's, or K of them. The step index goes to 0."""
+        t, state = self.trainer, self.state
+        if t.has_dropblock:
+            keys, drop_probs = t.step_tables(state.step, self.num_steps)
+            self.keys.copy_(keys)
+            self.drop_probs.copy_(drop_probs)
+        self.order.copy_(torch.as_tensor(np.asarray(order), dtype=torch.int64))
+        if np.ndim(lr) == 0:
+            state.set_lr(float(lr))  # the optimizer's, which checkpoints keep
+        self.lrs.copy_(torch.tensor(np.broadcast_to(np.float32(lr), (self.num_steps,))))
+        self.index.zero_()
+
+    def step(self, size: int = -1) -> None:
         """One train step at the step index, on the buffers."""
         t, idx = self.trainer, self.index
         inputs = {}
         if t.has_dropblock:
             inputs = dict(site_keys=self.keys.index_select(0, idx)[0],
                           drop_prob=self.drop_probs.index_select(0, idx)[0])
+        self.state.lr_tensor.copy_(self.lrs.index_select(0, idx)[0])
         loss = t.train_step_indexed(self.state, self.data, self.order.index_select(0, idx), None,
-                                    **inputs)
+                                    size, **inputs)
         self.losses.index_copy_(0, idx, loss.reshape(1))
         idx.add_(1)
 
-    def capture(self) -> None:
-        """Record one step as a CUDA graph (launches.capture)."""
-        self.graph, self.replay_counts, self.capture_seconds = launches.capture(self.step)
+    def advance(self, size: int = -1) -> None:
+        """The run's next step at `size`: on the CPU the step itself; on the
+        card a replay of the size's graph, after its warm-up steps and its
+        capture. state.step counts it either way."""
+        dev = self.trainer.device
+        if dev.type != "cuda":
+            self.step(size)
+            return
+        graph = self.graphs.get(size)
+        if graph is None and self.warm[size] < self.WARMUP:
+            self.warm[size] += 1
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.step(size)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            return
+        if graph is None:
+            graph = self.capture(size)
+        graph.replay()
+        launches.credit(self.replay_counts[size])
+        self.state.step += 1  # apply_gradients' count is Python, which a replay does not run
 
-    def run(self, order, lr: float) -> np.ndarray:
-        """The epoch: tables filled, then K steps. Returns the (K,) losses."""
-        t, state, k = self.trainer, self.state, self.num_steps
-        step0 = state.step
-        if t.has_dropblock:
-            keys, drop_probs = t.step_tables(step0, k)
-            self.keys.copy_(keys)
-            self.drop_probs.copy_(drop_probs)
-        self.order.copy_(torch.as_tensor(np.asarray(order), dtype=torch.int64))
-        state.set_lr(lr)
-        self.index.zero_()
-        if t.device.type != "cuda":
-            for _ in range(k):
-                self.step()
-        else:
-            eager = 0
-            if self.graph is None:
-                eager = min(self.WARMUP, k)
-                side = torch.cuda.Stream(t.device)
-                side.wait_stream(torch.cuda.current_stream(t.device))
-                with torch.cuda.stream(side):
-                    for _ in range(eager):
-                        self.step()
-                torch.cuda.current_stream(t.device).wait_stream(side)
-                if eager < k:
-                    self.capture()
-            for _ in range(k - eager):
-                self.graph.replay()
-            launches.credit(self.replay_counts, k - eager)
-        losses = self.losses.cpu().numpy()
-        state.step = step0 + k  # apply_gradients counted the eager steps and the capture
-        return losses
+    def capture(self, size: int):
+        """Record one step at `size` as a CUDA graph (launches.capture); the
+        step does not run, so state.step stays where it is."""
+        step = self.state.step
+        graph, self.replay_counts[size], self.capture_seconds[size] = launches.capture(
+            lambda: self.step(size))
+        self.state.step = step
+        self.graphs[size] = graph
+        return graph
 
 
 def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,
             size_plan: Optional[np.ndarray], seed: int, num_training: int = 100,
-            min_lr: float = 1e-8, max_lr: float = 1.0, beta: float = 0.98) -> float:
+            min_lr: float = 1e-8, max_lr: float = 1.0, beta: float = 0.98,
+            program: Optional[bool] = None) -> float:
     """PL 1.5 lr_find: exponential LR sweep over `num_training` steps,
     EWMA-smoothed losses, divergence stop at 4x the best, steepest-negative-
     gradient suggestion skipping the first 10 and the last point. The probe
     starts from `params` (the model's current weights when None) and the
     model's weights are put back afterwards, as PL restores them. Under the
     trainer's mesh the probe steps are data-parallel steps, whose global
-    losses take the same decisions on every rank."""
+    losses take the same decisions on every rank.
+
+    At batch 1 without a mesh the sweep runs through a step program of its
+    own (module docstring), discarded at its end; program (port-only):
+    False steps from the host, None takes the trainer's. Either way the
+    trainer's key_generator ends where the steps that ran leave it."""
     saved = copy.deepcopy(trainer.model.state_dict())
     lrs = min_lr * (max_lr / min_lr) ** (np.arange(num_training) / (num_training - 1))
     state = trainer.create_state(params, float(lrs[0]))
     np_rng = np.random.default_rng(seed)
     losses = []
     avg, best = 0.0, float("inf")
-    i = 0
+
+    def record(loss: float) -> bool:
+        """One step's loss into the smoothed curve; False stops the sweep."""
+        nonlocal avg, best
+        if not np.isfinite(loss):
+            return False
+        avg = beta * avg + (1 - beta) * loss
+        smoothed = avg / (1 - beta ** (len(losses) + 1))
+        if losses and smoothed > 4 * best:
+            return False
+        best = min(best, smoothed)
+        losses.append(smoothed)
+        return True
+
     shuffle = not trainer.policy.uses_size_plan
     indexed = trainer.cfg.train_batch == 1
+    if program is None:
+        program = trainer.program
+
+    def shuffled():
+        order = np.arange(len(train_ds))
+        if shuffle:
+            np_rng.shuffle(order)
+        return order
+
     if indexed:
         data = to_device((train_ds.images, train_ds.targets, train_ds.masks), trainer.device)
     try:
-        while i < num_training:
-            if indexed:
-                order = np.arange(len(train_ds))
-                if shuffle:
-                    np_rng.shuffle(order)
-                batches = enumerate(order)
-            else:
-                batches = enumerate(batch_iterator(train_ds, trainer.cfg.train_batch, shuffle,
-                                                   np_rng, device=trainer.device,
-                                                   mesh=trainer.mesh))
-            for batch_idx, item in batches:
-                if i >= num_training:
-                    break
-                size = int(size_plan[batch_idx]) if size_plan is not None else -1
+        if indexed and program and trainer.mesh is None:
+            # one pass after another over the items, as the host steps take them
+            n = len(train_ds)
+            order = np.concatenate([shuffled() for _ in range(-(-num_training // n))])
+            sizes = (np.full(num_training, -1) if size_plan is None
+                     else np.asarray(size_plan)[np.arange(num_training) % n])
+            _program_sweep(trainer, state, data, order[:num_training], lrs, sizes, record)
+        else:
+            i = 0
+            while i < num_training:
                 if indexed:
-                    loss = trainer.train_step_indexed(state, data, int(item), float(lrs[i]), size)
+                    batches = enumerate(shuffled())
                 else:
-                    loss = trainer.train_step(state, *item, float(lrs[i]), size)
-                loss = float(loss)
-                if not np.isfinite(loss):
-                    i = num_training
-                    break
-                avg = beta * avg + (1 - beta) * loss
-                smoothed = avg / (1 - beta ** (len(losses) + 1))
-                if losses and smoothed > 4 * best:
-                    i = num_training
-                    break
-                best = min(best, smoothed)
-                losses.append(smoothed)
-                i += 1
+                    batches = enumerate(batch_iterator(train_ds, trainer.cfg.train_batch,
+                                                       shuffle, np_rng, device=trainer.device,
+                                                       mesh=trainer.mesh))
+                for batch_idx, item in batches:
+                    if i >= num_training:
+                        break
+                    size = int(size_plan[batch_idx]) if size_plan is not None else -1
+                    if indexed:
+                        loss = trainer.train_step_indexed(state, data, int(item), float(lrs[i]),
+                                                          size)
+                    else:
+                        loss = trainer.train_step(state, *item, float(lrs[i]), size)
+                    if not record(float(loss)):
+                        i = num_training
+                        break
+                    i += 1
     finally:
         trainer.model.load_state_dict(saved)
 
@@ -544,3 +623,24 @@ def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,
     seg_losses = np.array(losses[skip_begin:-skip_end])
     idx = int(np.gradient(seg_losses).argmin()) + skip_begin
     return float(lrs[idx])
+
+
+def _program_sweep(trainer: Trainer, state: TrainState, data, order, lrs, sizes, record) -> None:
+    """lr_find's steps through a step program of their own: step i on item
+    order[i] at lrs[i] and sizes[i], its loss read and handed to record,
+    until record returns False. The tables hold the whole sweep, so the site
+    keys of every step are drawn up front; the key generator is then set
+    back and moved on by the steps that ran, as the eager sweep draws them.
+    The program and its graphs go when the sweep returns."""
+    keys_at = trainer.key_generator.get_state()
+    prog = _StepProgram(trainer, state, data, len(order))
+    prog.fill(order, lrs)
+    ran = 0
+    for i, size in enumerate(sizes):
+        prog.advance(int(size))
+        ran += 1
+        if not record(float(prog.losses[i])):
+            break
+    if trainer.has_dropblock:
+        trainer.key_generator.set_state(keys_at)
+        trainer.step_tables(0, ran)
