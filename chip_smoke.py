@@ -28,7 +28,7 @@ statistics against one eager 1000-member predict from the same seed), the
 same at BENCH_RESIZE=256 (chunk 128) and the ladder's native/default and
 native/pair+fused rungs at 300 members (scripts/ladder_torch.py), each
 printed with the card's name and power limit, then training: K3's backward against the plain route's
-autograd at the train shapes (bf16 and float32), one train step through the
+autograd at the train shapes, batch 1 and 2 (bf16 and float32), one train step through the
 kernel route against the plain routes, Trainer.fit of the canonical model
 (bf16, remat, dependent DropBlock b=7 ramped 0 -> 0.15 over 8 steps,
 pair + kernel masks, SGD lr 1e-3 momentum 0.99 clip 0.5) for 3 epochs of 8
@@ -53,7 +53,23 @@ plan of -1, 256 and 128 (2 epochs of 24 synthetic 584x565 items, each size
 stepped once eagerly first) through one graph per size against the host's
 steps (the train-scan tolerances, equal launches, one capture per size,
 one replay's kernels those of one eager step at each size; each size's
-replayed and eager step ms, both fits' seconds and peaks), then data
+replayed and eager step ms, both fits' seconds and peaks), then
+`eval-program`: the forward programs (a CUDA graph per role and input
+shape after one eager warm-up forward) against every forward from the host
+(program=False), from one set of weights: Trainer.validate and
+Trainer.predict on 8 synthetic 584x565 images under `none` and `lft
+-new_size 256`, base_model_mf.predict_at at 128x128, 256x256 and 584x565
+(the loss and the outputs within twice the plain bf16 route's distance
+from plain float32, 3 K3 launches a forward on both routes), then a fit at
+train_batch 2 and val_batch 2 (5 training and 3 validation images, 3
+epochs: steps of 2, 2, 1 rows, a graph per (size, rows)) and lr_find's 30
+steps at train_batch 2 through the batched step programs (the train-scan
+tolerances, lr_find's as train-step-program's, equal launches); replayed
+and eager ms per forward and step, capture seconds per shape and peaks
+printed; then one-shot evaluation on 6 validation and 20 test images,
+base_model_mf.evaluate_at end to end and Trainer.predict's forwards, each
+run through a new program against program=False in turn (eager, captured,
+captured, eager), with the captures' and the collector's seconds, then data
 parallelism on the one card (`dp`): K1/K2 at a sample offset
 (8 of 16, 1 of 2) against their plain versions and the full launch's
 rows; two gloo ranks sharing the card (parallel/launch.py; NCCL refuses
@@ -106,7 +122,11 @@ study's size, 12 models x 6 validation images x 584x565 for DB and ROT
 (seeded synthetic maps, no files read), its seconds split the same way and
 the KDE's peak extra device memory (at most 1 GiB), and the card's KDE on
 a 200k-sample subset held against the dense float64 formula on the CPU
-(1e-9 of the curve's maximum). An early `env` line
+(1e-9 of the curve's maximum). Last, `eval-program`'s `failed-capture`
+part: a capture that the card refuses (a host read inside the validation
+forward) raises out of Trainer.validate; it runs last because PyTorch's
+caching allocator keeps every later free of the process after a failed
+capture. An early `env` line
 says which of PIL, pandas, sklearn, matplotlib and msgpack import here;
 the port needs none of them.
 Every phase prints one JSON line; the last line is
@@ -160,6 +180,7 @@ import collections
 import contextlib
 import csv
 import dataclasses
+import gc
 import inspect
 import io
 import json
@@ -214,6 +235,7 @@ from unet_research_tpu_torch.parallel.mesh import (  # noqa: E402
 from unet_research_tpu_torch.data import augment as data_augment  # noqa: E402
 from unet_research_tpu_torch.ops.losses import masked_rescaled_bce  # noqa: E402
 from unet_research_tpu_torch.train import POLICIES, Trainer, TrainerConfig, lr_find  # noqa: E402
+from unet_research_tpu_torch.train import lf_policy  # noqa: E402
 from unet_research_tpu_torch.train import loop as tloop  # noqa: E402
 from unet_research_tpu_torch.train import make_size_plan  # noqa: E402
 from unet_research_tpu_torch.train.loop import drop_prob_at  # noqa: E402
@@ -221,7 +243,11 @@ from unet_research_tpu_torch.ops.dropblock import (  # noqa: E402
     dropblock_gamma_dependent,
     dropblock_gamma_independent,
 )
-from unet_research_tpu_torch.ops.image import rotate_bilinear  # noqa: E402
+from unet_research_tpu_torch.ops.image import (  # noqa: E402
+    resize_bilinear,
+    rotate_bilinear,
+    square_pad,
+)
 from unet_research_tpu_torch.uncertainty.mc_dropblock import MCDropBlockEngine  # noqa: E402
 from unet_research_tpu_torch.uncertainty.rotational import RotationalEngine  # noqa: E402
 from unet_research_tpu_torch.train.checkpoint import find_checkpoint  # noqa: E402
@@ -1136,21 +1162,22 @@ def k3_grads(fn, x, w, cots):
 
 def check_k3_backward() -> tuple[dict, dict]:
     """K3's backward (the fold kernel, one dx launch, dK by cuDNN's wgrad)
-    against autograd of the plain version, at the train shapes (1, 592,
-    576, C_in) -> 64, with nonzero cotangents on the sums, in bf16 and
-    float32; in bf16 also the fold against its plain version and dK against
-    the float32 correlation; times in bf16. Returns the rows of K3's
-    backward and of the fold."""
+    against autograd of the plain version, at the train shapes (n, 592,
+    576, C_in) -> 64 for n = 1 and 2 (a train_batch 2 step's), with
+    nonzero (n, 64) cotangents on the sums, in bf16 and float32; in bf16
+    also the fold against its plain version and dK against the float32
+    correlation; times in bf16 at n = 1. Returns the rows of K3's backward
+    and of the fold."""
     row = fold_row = None
-    worst = 0.0
+    worst = fold_worst = 0.0
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-3)):
-        for cin in (64, 128):
-            g = torch.Generator(device=DEV).manual_seed(cin + 5)
-            x = torch.randn((1, H, W, cin), device=DEV, generator=g).to(dtype)
+        for cin, n in ((64, 1), (128, 1), (64, 2), (128, 2)):
+            g = torch.Generator(device=DEV).manual_seed(cin + 5 + 1000 * (n - 1))
+            x = torch.randn((n, H, W, cin), device=DEV, generator=g).to(dtype)
             w = conv_weights(cin, 64).to(dtype)
-            cots = (torch.randn((1, H, W, 64), device=DEV, generator=g).to(dtype),
-                    0.5 * torch.randn((1, 64), device=DEV, generator=g),
-                    0.5 * torch.randn((1, 64), device=DEV, generator=g))
+            cots = (torch.randn((n, H, W, 64), device=DEV, generator=g).to(dtype),
+                    0.5 * torch.randn((n, 64), device=DEV, generator=g),
+                    0.5 * torch.randn((n, 64), device=DEV, generator=g))
             before = pc.conv3x3_pair_dx.launches
             kdx, kdk = k3_grads(pc.conv3x3_pair, x, w, cots)
             if pc.conv3x3_pair_dx.launches != before + 1:
@@ -1162,11 +1189,12 @@ def check_k3_backward() -> tuple[dict, dict]:
             rel = {name: float((a.float() - b.float()).abs().max() / b.float().abs().max())
                    for name, a, b in (("dx", kdx, pdx), ("dK", kdk, pdk))}
             if max(rel.values()) > tol:
-                raise AssertionError(f"K3 backward {cin}->64 {dtype}: {rel} > {tol}")
-            emit({"phase": "K3-bwd", "shape": list(x.shape), "cout": 64, "dtype": str(dtype),
-                  "dx_path": pc.conv3x3_pair_dx.path, "dx_max_rel": rel["dx"],
-                  "dK_max_rel": rel["dK"], "limit": tol})
+                raise AssertionError(f"K3 backward {list(x.shape)}->64 {dtype}: {rel} > {tol}")
+            row_k3 = {"phase": "K3-bwd", "shape": list(x.shape), "cout": 64, "dtype": str(dtype),
+                      "dx_path": pc.conv3x3_pair_dx.path, "dx_max_rel": rel["dx"],
+                      "dK_max_rel": rel["dK"], "limit": tol}
             if dtype != torch.bfloat16:
+                emit(row_k3)
                 continue
             worst = max(worst, float((kdx.float() - pdx.float()).abs().max()))
             # the fold against its plain version; dK in bf16 is cuDNN's
@@ -1178,14 +1206,20 @@ def check_k3_backward() -> tuple[dict, dict]:
             fold = pc.conv3x3_pair_fold_plain(*fold_args)
             g = pc.conv3x3_pair_fold(*fold_args)
             g_ulps = bf16_ulps(g, fold)
+            fold_worst = max(fold_worst, float((g.float() - fold.float()).abs().max()))
             if g_ulps > 1 or not torch.equal(pc.conv3x3_pair_dx(*dx_args)[1], g):
-                raise AssertionError(f"K3 fold {cin}->64: g {g_ulps} bf16 ulps from the plain fold")
+                raise AssertionError(f"K3 fold {list(x.shape)}->64: g {g_ulps} bf16 ulps from "
+                                     "the plain fold")
             x_nchw, fold_nchw = x.permute(0, 3, 1, 2), fold.permute(0, 3, 1, 2)
             dk32 = torch.nn.grad.conv2d_weight(x_nchw.float(), (64, cin, 3, 3), fold_nchw.float(),
                                                padding=1).permute(2, 3, 1, 0)
             dk_rel = float((kdk.float() - dk32).abs().max() / dk32.abs().max())
             if dk_rel > 4e-3:
-                raise AssertionError(f"K3 backward {cin}->64: bf16 dK {dk_rel} from float32 > 4e-3")
+                raise AssertionError(f"K3 backward {list(x.shape)}->64: bf16 dK {dk_rel} from "
+                                     "float32 > 4e-3")
+            emit({**row_k3, "g_max_ulps": g_ulps, "dK_vs_f32_max_rel": dk_rel})
+            if n != 1:
+                continue
             routes = {}
             for name, fn in (("kernel", pc.conv3x3_pair), ("plain", pc.conv3x3_pair_plain)):
                 xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -1224,7 +1258,6 @@ def check_k3_backward() -> tuple[dict, dict]:
                             "source": "unet_research_tpu_torch/ops/cuda/csrc/pair_conv.cu",
                             "replaces": "unet_research_tpu/ops/pallas/pair_conv.py:399",
                             "shape": list(g.shape),
-                            "max_abs_err": float((g.float() - fold.float()).abs().max()),
                             "ms": time_ms(fold_call, 20), "device_ms": device_ms(fold_call, 20),
                             "plain_ms": time_ms(lambda: pc.conv3x3_pair_fold_plain(*fold_args), 20),
                             "library_ms": None}
@@ -1233,7 +1266,7 @@ def check_k3_backward() -> tuple[dict, dict]:
                 emit({"phase": "fold-time", **fold_row})
             else:
                 row["128_to_64"] = timing
-    row["max_abs_err"] = worst
+    row["max_abs_err"], fold_row["max_abs_err"] = worst, fold_worst
     return row, fold_row
 
 
@@ -1521,7 +1554,7 @@ def run_train_scan(state) -> None:
 
     def replay_step():
         prog.index.zero_()
-        prog.graphs[-1].replay()
+        prog.graphs[(-1, 1)].replay()
 
     eager = kernel_names(counted_events(eager_step))
     replay = kernel_names(counted_events(replay_step))
@@ -1542,7 +1575,7 @@ def run_train_scan(state) -> None:
     def epoch_of_replays():
         prog.index.zero_()
         for _ in range(k):
-            prog.graphs[-1].replay()
+            prog.graphs[(-1, 1)].replay()
 
     def timed_epoch():
         t0 = time.perf_counter()
@@ -1555,7 +1588,8 @@ def run_train_scan(state) -> None:
     by_name = kernel_names(epoch_events)
     replayed = {key: sum(n for name, n in by_name.items() if part in name)
                 for part, key in REPLAYED_KERNELS.items()}
-    credited = {key: k * prog.replay_counts[-1].get(key, 0) for key in REPLAYED_KERNELS.values()}
+    credited = {key: k * prog.replay_counts[(-1, 1)].get(key, 0)
+                for key in REPLAYED_KERNELS.values()}
     if replayed != credited or not replayed["dropblock_mask"]:
         raise AssertionError(f"an epoch of {k} replays launched {replayed}, credited {credited}")
 
@@ -1566,8 +1600,8 @@ def run_train_scan(state) -> None:
           "0->0.15 over 12 steps, pair + kernel masks, SGD 1e-3 momentum 0.99 clip 0.5",
           "input": [584, 565], "train_images": len(train_ds), "epochs": 3, "steps": steps,
           "card": card(),
-          "warmup_steps": prog.WARMUP, "capture_seconds": prog.capture_seconds[-1],
-          "replay_launches": prog.replay_counts[-1],
+          "warmup_steps": prog.WARMUP, "capture_seconds": prog.capture_seconds[(-1, 1)],
+          "replay_launches": prog.replay_counts[(-1, 1)],
           "replayed_step_ms": replay_ms, "eager_step_ms": eager_ms,
           "kernels_per_step": sum(replay.values()),
           "epoch_of_replays": {"wall_ms": wall_ms, "busy_ms": epoch_busy_ms,
@@ -1671,8 +1705,8 @@ def run_step_program_lr_find(state, train_ds) -> dict:
             ran = int(prog.index)
             raw = prog.losses[:ran].cpu().numpy()
             # the wrapper is called by the eager warm-up steps and the capture
-            extra = {"capture_seconds": prog.capture_seconds[-1],
-                     "eager_steps": prog.warm[-1], "graphs": sorted(prog.graphs),
+            extra = {"capture_seconds": prog.capture_seconds[(-1, 1)],
+                     "eager_steps": prog.warm[(-1, 1)], "graphs": sorted(prog.graphs),
                      "host_steps": len(host_losses)}
             del prog
         else:
@@ -1705,7 +1739,7 @@ def run_step_program_lr_find(state, train_ds) -> dict:
            "peak_gib": {"captured": captured["peak_gib"], "eager": eager["peak_gib"]},
            "launches": captured["launches"]}
     emit(out)
-    if not (captured["steps"] == eager["steps"] and captured["graphs"] == [-1]
+    if not (captured["steps"] == eager["steps"] and captured["graphs"] == [(-1, 1)]
             and len(captured["smoothed"]) == len(eager["smoothed"])
             and captured["host_steps"] == tloop._StepProgram.WARMUP + 1
             and np.isfinite(captured["smoothed"]).all() and smooth_rel <= 2e-3
@@ -1780,7 +1814,7 @@ def run_step_program_fit(state) -> dict:
 
         def replay_step(size=size):
             prog.index.zero_()
-            prog.graphs[size].replay()
+            prog.graphs[(size, 1)].replay()
 
         e_names = kernel_names(counted_events(eager_step))
         r_names = kernel_names(counted_events(replay_step))
@@ -1788,9 +1822,9 @@ def run_step_program_fit(state) -> dict:
                   for name in set(r_names) | set(e_names) if r_names[name] != e_names[name]}
         by_size[str(size)] = {"replayed_step_ms": time_ms(replay_step, 10, 2),
                               "eager_step_ms": time_ms(eager_step, 5),
-                              "capture_seconds": prog.capture_seconds[size],
+                              "capture_seconds": prog.capture_seconds[(size, 1)],
                               "kernels_per_step": sum(r_names.values()),
-                              "replay_launches": prog.replay_counts[size],
+                              "replay_launches": prog.replay_counts[(size, 1)],
                               "kernels_differ": differ}
     out = {"phase": "train-step-program", "part": "uni-fit", "card": card(),
            "config": "canonical 31M, bf16, remat, dependent b=7 ramp 0->0.15 over 24 steps, "
@@ -1808,8 +1842,9 @@ def run_step_program_fit(state) -> dict:
            "launches": captured["launches"]}
     emit(out)
     want = train_want(steps, STEP_PROGRAM_EPOCHS * len(val_ds))
-    if not (captured["made"] == 1 and eager["made"] == 0 and sorted(prog.graphs) == [-1, 128, 256]
-            and all(prog.warm[s] == prog.WARMUP for s in PLAN_SIZES)
+    if not (captured["made"] == 1 and eager["made"] == 0
+            and sorted(prog.graphs) == [(-1, 1), (128, 1), (256, 1)]
+            and all(prog.warm[(s, 1)] == prog.WARMUP for s in PLAN_SIZES)
             and captured["step"] == eager["step"] == steps
             and captured["launches"] == eager["launches"] == want
             and np.isfinite(a).all() and loss_rel <= 2e-3 and param_rel <= 1e-4
@@ -1829,6 +1864,479 @@ def run_train_step_program(state) -> dict:
     lr_find_launches = run_step_program_lr_find(state, train_dataset(8, seed=1))
     return {"train_step_program_lr_find": lr_find_launches,
             "train_step_program_uni_fit": run_step_program_fit(state)}
+
+
+# --- eval-program: the forward programs and batched steps ------------------
+
+EVAL_IMAGES = 8
+PREDICT_AT_SIZES = ((128, 128), (256, 256), (584, 565))
+# (program, model overrides) by route, in the order they run: the eager
+# route, the captured one, and the plain routes whose distance bounds the
+# first two's. A route's seconds are one run's, the first-use costs of its
+# shapes on the eager route's; run_eval_one_shot times the two routes in
+# turn
+EVAL_ROUTES = {"eager": (False, {}), "captured": (True, {}),
+               "plain_bf16": (False, {"conv_impl": "torch", "mask_impl": "elementwise"}),
+               "plain_f32": (False, {"conv_impl": "torch", "mask_impl": "elementwise",
+                                     "dtype": torch.float32})}
+
+
+@contextlib.contextmanager
+def forward_programs():
+    """While active, collect every forward program made that captures
+    (train/loop.py::ForwardProgram), to read its graphs, buffers and
+    capture seconds after the run."""
+    made = []
+    init = tloop.ForwardProgram.__init__
+
+    def record(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        if self.captures:
+            made.append(self)
+
+    tloop.ForwardProgram.__init__ = record
+    try:
+        yield made
+    finally:
+        tloop.ForwardProgram.__init__ = init
+
+
+def added(*runs) -> dict:
+    """The summed launch counts of runs (each as counts() gives them)."""
+    return {name: sum(run[name] for run in runs) for name in COUNTERS}
+
+
+def output_dists(preds, others) -> list:
+    """The largest |a - b| over the images of each of predict's four
+    outputs, between two routes' (seg, im, gt, mask) lists."""
+    return [max(float(np.max(np.abs(a[j].astype(np.float64) - b[j])))
+                for a, b in zip(preds, others)) for j in range(4)]
+
+
+def forward_times(prog, role: str, eager) -> dict:
+    """By input shape: one replay of the (role, shape) graph and one eager
+    call of `eager` on the same buffers, ms on the card's clock, and the
+    capture's seconds."""
+    out = {}
+    for (r, shapes), graph in prog.graphs.items():
+        if r != role:
+            continue
+        bufs = prog.buffers[shapes]
+
+        def eager_call(bufs=bufs):
+            with torch.no_grad():
+                eager(*bufs)
+
+        out["x".join(map(str, shapes[0]))] = {
+            "replayed_ms": time_ms(graph.replay, 10), "eager_ms": time_ms(eager_call, 5),
+            "capture_seconds": prog.capture_seconds[(r, shapes)]}
+    return out
+
+
+def run_eval_trainer_forwards(state) -> dict:
+    """(a) Trainer.validate and (b) Trainer.predict on EVAL_IMAGES synthetic
+    584x565 images under `none` and `lft -new_size 256`, through the
+    forward program (one warm-up, one capture, replays) against
+    program=False: the loss and each of predict's four outputs within twice
+    the plain bf16 route's distance from plain float32, equal launches (3
+    K3 per forward). Returns the captured route's launches."""
+    ds = train_dataset(EVAL_IMAGES, seed=7)
+    policies = {"none": POLICIES["none"], "lft256": lf_policy("lft", 256)}
+    captured_launches = []
+    for pname, policy in policies.items():
+        res = {}
+        for route, (program, overrides) in EVAL_ROUTES.items():
+            model = train_model(state, **overrides)
+            trainer = Trainer(model, policy, TrainerConfig(verbose=False), device=DEV,
+                              program=program)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            val = trainer.validate(None, ds)
+            t1 = time.perf_counter()
+            preds = [p[1:] for p in trainer.predict(None, ds)]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            got = counts()
+            if route in ("captured", "eager"):
+                assert_wgmma(f"eval-program {pname} {route}")
+            res[route] = {"val": val, "preds": preds, "launches": got,
+                          "validate_seconds": t1 - t0, "predict_seconds": t2 - t1,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            if route == "captured":
+                prog = trainer._forward
+                res[route]["times"] = {
+                    "val": forward_times(prog, "val", trainer.eval_step),
+                    "predict": forward_times(
+                        prog, "predict",
+                        lambda *b, model=model, policy=policy: policy.predict_io(model, *b))}
+                res[route]["graphs"] = sorted(role for role, _ in prog.graphs)
+                res[route]["warm"] = sorted(prog.warm.values())
+                del prog
+            del trainer, model
+        cap, eag, bf, f32 = (res[k] for k in ("captured", "eager", "plain_bf16", "plain_f32"))
+        val_noise = abs(bf["val"] - f32["val"])
+        out_names = ("seg", "im", "gt", "mask")
+        pred_noise = output_dists(bf["preds"], f32["preds"])
+        pred_dist = output_dists(cap["preds"], eag["preds"])
+        shapes = [tuple(x.shape) for x in cap["preds"][0]]
+        want = {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3 * 2 * EVAL_IMAGES}
+        row = {"phase": "eval-program", "part": f"validate+predict {pname}", "card": card(),
+               "config": "canonical 31M, bf16, pair + kernel masks (DropBlock off in eval), "
+                         "random weights seed 0",
+               "input": [584, 565], "images": EVAL_IMAGES, "output_shapes": shapes,
+               "val_loss": {k: res[k]["val"] for k in EVAL_ROUTES},
+               "val_dist_captured_eager": abs(cap["val"] - eag["val"]),
+               "val_noise_bf16_f32": val_noise,
+               "pred_dist_captured_eager": dict(zip(out_names, pred_dist)),
+               "pred_noise_bf16_f32": dict(zip(out_names, pred_noise)),
+               "ms_per_forward": cap["times"], "graphs": cap["graphs"], "warm": cap["warm"],
+               "seconds": {k: {"validate": res[k]["validate_seconds"],
+                               "predict": res[k]["predict_seconds"]} for k in EVAL_ROUTES},
+               "peak_gib": {k: res[k]["peak_gib"] for k in EVAL_ROUTES},
+               "launches": {"captured": cap["launches"], "eager": eag["launches"]}}
+        emit(row)
+        if not (cap["launches"] == eag["launches"] == want
+                and cap["graphs"] == ["predict", "val"] and cap["warm"] == [1, 1]
+                and np.isfinite(cap["val"]) and all(np.isfinite(p[0]).all() for p in cap["preds"])
+                and row["val_dist_captured_eager"] <= 2.0 * val_noise
+                and all(d <= 2.0 * n for d, n in zip(pred_dist, pred_noise))
+                and len(cap["preds"]) == EVAL_IMAGES
+                and shapes[0] == ((1, 584, 565, 1) if pname == "none" else (1, 256, 256, 1))):
+            raise AssertionError(f"eval-program {pname}: {row}")
+        captured_launches.append(cap["launches"])
+    return added(*captured_launches)
+
+
+def run_eval_predict_at(state) -> dict:
+    """(c) base_model_mf.predict_at at 128^2, 256^2 and 584x565 on the same
+    images, DropBlock off, through its forward program against
+    program=False, compared as (b). Returns the captured route's launches."""
+    ds = train_dataset(EVAL_IMAGES, seed=7)
+    captured_launches, by_size = [], {}
+    for h, w in PREDICT_AT_SIZES:
+        res = {}
+        for route, (program, overrides) in EVAL_ROUTES.items():
+            model = model_for(state, kind=None, **overrides)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with forward_programs() as made:
+                preds = [p[1:] for p in cli_base_model_mf.predict_at(model, ds, h, w,
+                                                                     program=program)]
+            seconds = time.perf_counter() - t0
+            res[route] = {"preds": preds, "launches": counts(), "seconds": seconds}
+            if route == "captured":
+                prog, = made
+
+                def forward(im, gt, mask, model=model, h=h, w=w):
+                    im, gt, mask = (resize_bilinear(square_pad(t), (h, w))
+                                    for t in (im, gt, mask))
+                    return model(im) * mask
+
+                res[route]["times"] = forward_times(prog, "predict", forward)
+                del prog
+            made.clear()
+            del model
+        cap, eag, bf, f32 = (res[k] for k in ("captured", "eager", "plain_bf16", "plain_f32"))
+        noise = output_dists(bf["preds"], f32["preds"])
+        dist = output_dists(cap["preds"], eag["preds"])
+        want = {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3 * EVAL_IMAGES}
+        by_size[f"{h}x{w}"] = {"dist_captured_eager": dist, "noise_bf16_f32": noise,
+                               "ms_per_forward": cap["times"],
+                               "seconds": {k: res[k]["seconds"] for k in EVAL_ROUTES},
+                               "launches": cap["launches"]["conv3x3_pair"]}
+        if not (cap["launches"] == eag["launches"] == want
+                and tuple(cap["preds"][0][0].shape) == (1, h, w, 1)
+                and all(np.isfinite(p[0]).all() for p in cap["preds"])
+                and all(d <= 2.0 * n for d, n in zip(dist, noise))):
+            raise AssertionError(f"eval-program predict_at {h}x{w}: {by_size[f'{h}x{w}']}, "
+                                 f"launches {cap['launches']} / {eag['launches']}")
+        assert_wgmma(f"eval-program predict_at {h}x{w}")
+        captured_launches.append(cap["launches"])
+    emit({"phase": "eval-program", "part": "predict_at", "card": card(),
+          "config": "canonical 31M, bf16, pair, DropBlock off, random weights seed 0",
+          "input": [584, 565], "images": EVAL_IMAGES, "by_size": by_size})
+    return added(*captured_launches)
+
+
+def run_eval_batched_fit(state) -> tuple:
+    """(d) A fit at train_batch 2, val_batch 2 (5 training and 3 validation
+    images: steps of 2, 2, 1 rows, validation batches of 2, 1) for 3
+    epochs (the partial batch's third step is its first replay, after two
+    warm-up steps), then lr_find at train_batch 2 for 30 steps, through the
+    step and forward programs against program=False: losses within 2e-3
+    relative, parameters within 1e-4 relative L2 and a tenth of the fit's
+    movement, lr_find's smoothed losses within 2e-3 and its suggestion
+    within one step of its grid, equal launches (K2 40, K3 6, dx 3, fold 3
+    per step; K3 3 per validation batch). Returns the captured route's fit
+    and lr_find launches."""
+    train_ds, val_ds = train_dataset(5, seed=8), train_dataset(3, seed=9)
+    epochs, steps, sweep = 3, 3 * 3, 30
+    out_root = os.path.join(ROOT, "_runs", "chip_smoke_eval_program")
+    shutil.rmtree(out_root, ignore_errors=True)
+    runs = {}
+    for program in (False, True):
+        model = train_model(state, nr_steps=steps)
+        start = flat_params(model)
+        cfg = TrainerConfig(max_epochs=epochs, lr=1e-3, momentum=0.99, clip_norm=0.5,
+                            auto_lr_find=False, seed=0, verbose=False, train_batch=2,
+                            val_batch=2)
+        trainer = Trainer(model, POLICIES["none"], cfg, device=DEV, program=program)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with step_programs() as made, forward_programs() as made_forward:
+            fit_state, history, _ = trainer.fit(train_ds, val_ds,
+                                                os.path.join(out_root, f"program_{program}"),
+                                                params=state)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        fit_launches = counts()
+        assert_wgmma(f"eval-program batched fit, program={program}")
+        run = {"history": history, "params": flat_params(model), "start": start,
+               "launches": fit_launches, "seconds": seconds, "step": fit_state.step,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "programs": len(made), "forward_programs": len(made_forward)}
+        if program:
+            prog, fwd = made[0], made_forward[0]
+
+            def eager_step(rows, prog=prog):
+                prog.index.zero_()
+                prog.step(-1, rows)
+
+            def replay_step(rows, prog=prog):
+                prog.index.zero_()
+                prog.graphs[(-1, rows)].replay()
+
+            run["graphs"] = sorted(prog.graphs)
+            run["step_ms"] = {str(rows): {"replayed_ms": time_ms(lambda: replay_step(rows), 10),
+                                          "eager_ms": time_ms(lambda: eager_step(rows), 5),
+                                          "capture_seconds": prog.capture_seconds[(-1, rows)]}
+                              for rows in (2, 1)}
+            run["val_ms"] = forward_times(fwd, "val", trainer.eval_step)
+            run["forward_graphs"] = len(fwd.graphs)
+            del prog, fwd
+        made.clear()
+        made_forward.clear()
+
+        # lr_find at train_batch 2 from the same weights, its losses read
+        # from the step program or the host's steps
+        host_losses = []
+        step_fn = trainer.train_step
+
+        def spy(*args, step_fn=step_fn, host_losses=host_losses, **kwargs):
+            loss = step_fn(*args, **kwargs)
+            host_losses.append(loss)
+            return loss
+
+        trainer.train_step = spy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with step_programs() as made:
+            suggestion = lr_find(trainer, state, train_ds, None, 0, num_training=sweep)
+        torch.cuda.synchronize()
+        run["lr_find_seconds"] = time.perf_counter() - t0
+        run["lr_find_launches"] = counts()
+        run["lr_find_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        assert_wgmma(f"eval-program batched lr_find, program={program}")
+        if program:
+            prog, = made
+            ran = int(prog.index)
+            raw = prog.losses[:ran].cpu().numpy()
+            run["lr_find_graphs"] = sorted(prog.graphs)
+            del prog
+        else:
+            ran = len(host_losses)
+            raw = torch.stack(host_losses).cpu().numpy()
+        made.clear()
+        run.update(suggestion=suggestion, lr_find_steps=ran, smoothed=smoothed_losses(raw))
+        runs[program] = run
+        del trainer, model, host_losses, made, made_forward
+    cap, eag = runs[True], runs[False]
+    a = np.array(cap["history"]["train_loss_epoch"] + cap["history"]["val_loss_epoch"])
+    b = np.array(eag["history"]["train_loss_epoch"] + eag["history"]["val_loss_epoch"])
+    loss_rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    param_rel = rel_l2(cap["params"], eag["params"])
+    movement = rel_l2(eag["params"], eag["start"])
+    lrs = 1e-8 * (1.0 / 1e-8) ** (np.arange(sweep) / (sweep - 1))
+    grid = [int(np.argmin(np.abs(np.log(lrs) - np.log(r["suggestion"])))) for r in (cap, eag)]
+    n = min(len(cap["smoothed"]), len(eag["smoothed"]))
+    smooth_rel = float(np.max(np.abs(cap["smoothed"][:n] - eag["smoothed"][:n])
+                              / np.abs(eag["smoothed"][:n])))
+    row = {"phase": "eval-program", "part": "batched fit + lr_find", "card": card(),
+           "config": "canonical 31M, bf16, remat, dependent b=7 ramp 0->0.15 over 9 steps, "
+                     "pair + kernel masks, SGD 1e-3 momentum 0.99 clip 0.5, train_batch 2, "
+                     "val_batch 2",
+           "input": [584, 565], "train_images": len(train_ds), "val_images": len(val_ds),
+           "epochs": epochs, "steps": steps, "graphs": cap["graphs"],
+           "forward_graphs": cap["forward_graphs"], "step_ms": cap["step_ms"],
+           "val_ms": cap["val_ms"],
+           "fit_seconds": {"captured": cap["seconds"], "eager": eag["seconds"]},
+           "peak_gib": {"captured": cap["peak_gib"], "eager": eag["peak_gib"]},
+           "loss_max_rel": loss_rel, "param_rel_l2": param_rel, "param_movement": movement,
+           "history": {"captured": cap["history"], "eager": eag["history"]},
+           "lr_find": {"steps": [cap["lr_find_steps"], eag["lr_find_steps"]],
+                       "suggestion": [cap["suggestion"], eag["suggestion"]],
+                       "same_suggestion": cap["suggestion"] == eag["suggestion"],
+                       "grid_index": grid, "smoothed_max_rel": smooth_rel,
+                       "graphs": cap["lr_find_graphs"],
+                       "seconds": [cap["lr_find_seconds"], eag["lr_find_seconds"]],
+                       "peak_gib": [cap["lr_find_peak_gib"], eag["lr_find_peak_gib"]]},
+           "launches": {"fit": cap["launches"], "lr_find": cap["lr_find_launches"]}}
+    emit(row)
+    if not (cap["programs"] == 1 and eag["programs"] == 0 and eag["forward_programs"] == 0
+            and cap["graphs"] == [(-1, 1), (-1, 2)] and cap["forward_graphs"] == 2
+            and cap["step"] == eag["step"] == steps
+            and cap["launches"] == eag["launches"] == train_want(steps, epochs * 2)
+            and np.isfinite(a).all() and loss_rel <= 2e-3 and param_rel <= 1e-4
+            and param_rel <= 0.1 * movement
+            and cap["lr_find_steps"] == eag["lr_find_steps"]
+            and cap["lr_find_graphs"] == [(-1, 1), (-1, 2)]
+            and len(cap["smoothed"]) == len(eag["smoothed"])
+            and np.isfinite(cap["smoothed"]).all() and smooth_rel <= 2e-3
+            and abs(grid[0] - grid[1]) <= 1
+            and cap["lr_find_launches"] == eag["lr_find_launches"]
+            == train_want(cap["lr_find_steps"], 0)):
+        raise AssertionError(f"eval-program batched fit: {row}")
+    runs.clear()
+    shutil.rmtree(out_root, ignore_errors=True)
+    return cap["launches"], cap["lr_find_launches"]
+
+
+ONE_SHOT_SPLITS = (6, 20)   # the README's DRIVE validation and test splits
+
+
+def run_eval_one_shot(state) -> dict:
+    """(e) One-shot evaluation at 584x565 on ONE_SHOT_SPLITS' 6 validation
+    and 20 test images, each run through a new forward program (one eager
+    forward, one capture, 24 replays) against program=False, in the order
+    eager, captured, captured, eager: base_model_mf.evaluate_at end to end
+    (final_test_metrics' metrics and files included), and Trainer.predict's
+    forwards over both splits (the forwards of final_test_metrics in
+    `training -mode test`). Prints each run's seconds, the captures'
+    seconds and the seconds of one run of the collector, which every
+    capture starts with (ops/cuda/launches.py::capture). Returns the
+    captured runs' launches."""
+    val_ds, test_ds = (train_dataset(n, seed=11 + i) for i, n in enumerate(ONE_SHOT_SPLITS))
+    images = sum(ONE_SHOT_SPLITS)
+    out_root = os.path.join(ROOT, "_runs", "chip_smoke_one_shot")
+    want = {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3 * images}
+    paths = ("evaluate_at", "predict")
+    seconds = {p: {"captured": [], "eager": []} for p in paths}
+    capture_s = {p: [] for p in paths}
+    collect_s, captured_launches = [], []
+    for program in (False, True, True, False):
+        route = "captured" if program else "eager"
+        for path in paths:
+            if path == "evaluate_at":
+                model = model_for(state, kind=None)
+
+                def run(model=model, program=program):
+                    shutil.rmtree(out_root, ignore_errors=True)
+                    cli_base_model_mf.evaluate_at(model, val_ds, test_ds, 584, 565, out_root,
+                                                  program=program)
+                    return images
+            else:
+                trainer = Trainer(train_model(state), POLICIES["none"],
+                                  TrainerConfig(verbose=False), device=DEV, program=program)
+
+                def run(trainer=trainer):
+                    return sum(1 for ds in (val_ds, test_ds) for _ in trainer.predict(None, ds))
+            if program:
+                t0 = time.perf_counter()
+                gc.collect()
+                collect_s.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with forward_programs() as made:
+                done = run()
+            torch.cuda.synchronize()
+            seconds[path][route].append(time.perf_counter() - t0)
+            got = counts()
+            assert_wgmma(f"eval-program one-shot {path} {route}")
+            if program:
+                prog, = made
+                capture_s[path].append(sum(prog.capture_seconds.values()))
+                if not (len(prog.graphs) == 1 and sum(prog.warm.values()) == 1):
+                    raise AssertionError(f"one-shot {path}: graphs {list(prog.graphs)}, "
+                                         f"warm {prog.warm}")
+                captured_launches.append(got)
+                del prog
+            made.clear()
+            if not (done == images and got == want):
+                raise AssertionError(f"one-shot {path} {route}: {done} images, launches {got}")
+    shutil.rmtree(out_root, ignore_errors=True)
+    mean = {p: {r: float(np.mean(v)) for r, v in seconds[p].items()} for p in paths}
+    emit({"phase": "eval-program", "part": "one-shot", "card": card(),
+          "config": "canonical 31M, bf16, pair, DropBlock off, random weights seed 0",
+          "input": [584, 565], "splits": list(ONE_SHOT_SPLITS), "order": "eager, captured, "
+          "captured, eager", "seconds": seconds, "mean_seconds": mean,
+          "captured_minus_eager": {p: mean[p]["captured"] - mean[p]["eager"] for p in paths},
+          "capture_seconds": capture_s, "collect_seconds": collect_s})
+    return added(*captured_launches)
+
+
+def check_failed_capture(state) -> None:
+    """A capture that the card refuses raises out of Trainer.validate, and
+    nothing goes back to the host's forwards: a validation whose forward
+    reads its loss on the host (a synchronisation, which a capture
+    forbids) runs its first image eagerly (3 K3 launches, the failed
+    capture's taken back) and raises at the second's capture; the card
+    then runs a validation through a new program. It runs last: PyTorch's
+    caching allocator never ends a capture that failed, and from then on
+    holds every block freed in the process (run before the later phases,
+    it ran one of them out of the card's memory)."""
+    ds = train_dataset(2, seed=7)
+    trainer = Trainer(train_model(state), POLICIES["none"], TrainerConfig(verbose=False),
+                      device=DEV)
+    eval_step = trainer.eval_step
+
+    def host_read(im, gt, mask):
+        loss = eval_step(im, gt, mask)
+        float(loss)
+        return loss
+
+    trainer.eval_step = host_read
+    reset_counts()
+    try:
+        trainer.validate(None, ds)
+    except RuntimeError as e:
+        error = f"{type(e).__name__}: {e}"
+    else:
+        raise AssertionError("a capture holding a host read did not raise")
+    got = counts()
+    prog = trainer._forward
+    if (prog.graphs or sum(prog.warm.values()) != 1
+            or got != {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3}):
+        raise AssertionError(f"failed capture: graphs {list(prog.graphs)}, warm {prog.warm}, "
+                             f"launches {got} (the warm-up's alone expected)")
+    del prog, trainer
+    after = Trainer(train_model(state), POLICIES["none"], TrainerConfig(verbose=False),
+                    device=DEV)
+    loss = after.validate(None, ds)
+    if not (np.isfinite(loss) and len(after._forward.graphs) == 1):
+        raise AssertionError(f"validation after a failed capture: {loss}")
+    emit({"phase": "eval-program", "part": "failed-capture", "raised": error[:300],
+          "launches_before_the_raise": got, "validation_after": loss})
+
+
+def run_eval_program(state) -> dict:
+    """Phase `eval-program`: the trainer's and base_model_mf's forwards and
+    the batched steps through their programs against the host's. Returns
+    each part's launches."""
+    forwards = run_eval_trainer_forwards(state)
+    predict_at = run_eval_predict_at(state)
+    fit, sweep = run_eval_batched_fit(state)
+    one_shot = run_eval_one_shot(state)
+    return {"eval_program_validate_predict": forwards, "eval_program_predict_at": predict_at,
+            "eval_program_batched_fit": fit, "eval_program_batched_lr_find": sweep,
+            "eval_program_one_shot": one_shot}
 
 
 # --- data parallelism -------------------------------------------------------
@@ -3042,6 +3550,7 @@ def main() -> None:
     train, steps = run_train_slice(state)
     run_train_scan(state)
     step_program = run_train_step_program(state)
+    eval_program = run_eval_program(state)
     dp = run_dp_phase(launches)
     run_dp_nccl(state)
     cli = run_cli_phase()
@@ -3051,6 +3560,7 @@ def main() -> None:
     epoch_time = run_epoch_time_phase(data)
     shutil.rmtree(DRIVE_ROOT)
     run_density_scale_phase()
+    check_failed_capture(state)
     # each path's counts, read right after it ran; `launches` is the path
     # that runs the kernel by default (K1 and K3: bench_gpu's 1000-member
     # measurement, K2: training)
@@ -3059,7 +3569,7 @@ def main() -> None:
              "rotational_shear": rotational["shear"],
              "rotational_program_shear": rotational_program["shear"],
              "rotational_program_gather": rotational_program["gather"], "train": train,
-             **step_program, **dp,
+             **step_program, **eval_program, **dp,
              **cli, **epoch_time}
     for row, name, main_path in zip(rows, ("dropblock_fused_apply", "dropblock_mask",
                                            "conv3x3_pair", "rotate_fan", "rotate_fan_table",

@@ -351,7 +351,7 @@ def test_the_card_schedule_on_the_cpu(tmp_path, monkeypatch, case):
             out[program] = (lr, trainer.key_generator.get_state())
         assert out[True][0] == out[False][0] and torch.equal(out[True][1], out[False][1])
         prog, = programs
-        assert sorted(prog.graphs) == [-1, 128, 256] and len(captures) == 3
+        assert sorted(prog.graphs) == [(-1, 1), (128, 1), (256, 1)] and len(captures) == 3
         replays = 16 - 3 * prog.WARMUP
     else:
         fit = _one_item_fit if case == "one_item_epochs" else _fit
@@ -359,8 +359,8 @@ def test_the_card_schedule_on_the_cpu(tmp_path, monkeypatch, case):
         _assert_same_fit(fits[True], fits[False])
         prog, = programs
         sizes = [-1] if case == "one_item_epochs" else [-1, 128, 256]
-        assert sorted(prog.graphs) == sizes and len(captures) == len(sizes)
-        assert all(prog.warm[s] == prog.WARMUP for s in sizes)
+        assert sorted(prog.graphs) == [(s, 1) for s in sizes] and len(captures) == len(sizes)
+        assert all(prog.warm[(s, 1)] == prog.WARMUP for s in sizes)
         replays = fits[True][1].step - len(sizes) * prog.WARMUP
         assert replays == (2 if case == "one_item_epochs" else 6)
     assert sum(g.replays for g in captures) == replays
@@ -422,7 +422,7 @@ def test_replays_equal_eager_steps_on_the_card():
             for size in plan:
                 prog.advance(int(size))
             losses = prog.losses.cpu().numpy()
-            assert sorted(prog.graphs) == [-1, 128, 256]
+            assert sorted(prog.graphs) == [(-1, 1), (128, 1), (256, 1)]
         else:
             losses = np.array([float(trainer.train_step_indexed(state, data, i, 1e-3, int(s)))
                                for i, s in enumerate(plan)], np.float32)

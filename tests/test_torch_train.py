@@ -199,7 +199,7 @@ def test_resume_restores_weights_momentum_lr_and_step(tmp_path):
 
 
 def test_fit_batched_plan_profiler_and_anomaly_check(tmp_path):
-    """train_batch 2 through batch_iterator, an MF size plan (unshuffled),
+    """train_batch 2 through the step program, an MF size plan (unshuffled),
     DropBlock on with the ramp, detect_anomaly and the 'trace' profiler."""
     db = tunet.DropBlockConfig(kind="dependent", block_size=3, nr_steps=4, max_drop_prob=0.2)
     model = tunet.UNet(tunet.canonical_config(dropblock=db, remat=True, **SMALL), device="cpu",

@@ -21,31 +21,43 @@ import os
 from os.path import join
 
 import numpy as np
-import torch
 
 from unet_research_tpu_torch.cli import common
 from unet_research_tpu_torch.data.loading import batch_iterator
 from unet_research_tpu_torch.evaluation.metrics import final_test_metrics
 from unet_research_tpu_torch.ops.image import resize_bilinear, square_pad
+from unet_research_tpu_torch.train.loop import ForwardProgram
 from unet_research_tpu_torch.utils.convert import load_model_checkpoint
 
 
-def predict_at(model, ds, h: int, w: int):
+def predict_at(model, ds, h: int, w: int, program: bool = True, forward=None):
     """Trainer.predict's yield of (idx, seg, im, gt, mask) for `model`
     (weights loaded, on its device) with every image, target and mask
-    square-padded and resized to h x w first."""
+    square-padded and resized to h x w first, through `forward` (a
+    train/loop.py::ForwardProgram, JAX's jitted predict_step), a new one
+    when None; program=False (port-only) runs each forward from the host."""
     device = model.output_conv[0].weight.device
+    if forward is None:
+        forward = ForwardProgram(device, capture=program)
+
+    def predict_step(im, gt, mask):
+        im, gt, mask = (resize_bilinear(square_pad(t), (h, w)) for t in (im, gt, mask))
+        return model(im) * mask, im, gt, mask
+
     for i, batch in enumerate(batch_iterator(ds, 1, False, device=device)):
-        with torch.no_grad():
-            im, gt, mask = (resize_bilinear(square_pad(t), (h, w)) for t in batch)
-            out = (model(im) * mask, im, gt, mask)
+        out = forward("predict", predict_step, *batch)
         yield (i, *(t.cpu().numpy() for t in out))
 
 
-def evaluate_at(model, val_ds, test_ds, h: int, w: int, out_dir: str) -> dict:
-    """final_test_metrics of `model` at h x w into out_dir."""
+def evaluate_at(model, val_ds, test_ds, h: int, w: int, out_dir: str,
+                program: bool = True) -> dict:
+    """final_test_metrics of `model` at h x w into out_dir; the val and test
+    forwards share one forward program (program=False: from the host),
+    freed on return."""
     os.makedirs(out_dir, exist_ok=True)
-    return final_test_metrics(lambda ds: predict_at(model, ds, h, w), val_ds, test_ds, out_dir)
+    forward = ForwardProgram(model.output_conv[0].weight.device, capture=program)
+    return final_test_metrics(lambda ds: predict_at(model, ds, h, w, forward=forward), val_ds,
+                              test_ds, out_dir)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -6,11 +6,13 @@ conv3x3_pair's launches are also counted by kernel in `path_launches`). A
 CUDA graph replays the kernels that its capture recorded without calling a
 wrapper, so whoever replays one credits the counts that the capture added
 (`since`), once per replay (`credit`), and takes them back from the capture
-itself, which launched nothing (`capture`).
+itself, which launched nothing (`capture`). `KeyedGraphs` keeps one such
+graph per key, each after eager warm-up runs of its own.
 """
 
 from __future__ import annotations
 
+import collections
 import gc
 import time
 from typing import Callable
@@ -53,7 +55,7 @@ def capture(step: Callable[[], None]) -> tuple:
     """Record step() as a CUDA graph on the current device. Returns (the
     graph, the counts that one replay is to be credited with, the capture's
     seconds); the counts that the capture's wrapper calls added are taken
-    back.
+    back, also when the capture fails.
 
     Python's cyclic garbage collector runs before the capture and is held
     off during it. A program cached on an engine or a trainer keeps its
@@ -61,10 +63,10 @@ def capture(step: Callable[[], None]) -> tuple:
     freeing a graph destroys its executable graph, a call that a capture
     forbids, and the capture then fails where it ends."""
     gc.collect()
+    before = snapshot()
     enabled = gc.isenabled()
     gc.disable()
     try:
-        before = snapshot()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with torch.cuda.graph(graph):
@@ -73,6 +75,44 @@ def capture(step: Callable[[], None]) -> tuple:
     finally:
         if enabled:
             gc.enable()
-    counts = since(before)
-    credit(counts, -1)
+        counts = since(before)
+        credit(counts, -1)
     return graph, counts, seconds
+
+
+class KeyedGraphs:
+    """One CUDA graph per key (an input shape, a step's size and rows),
+    each recorded after WARMUP eager runs of its own, as PyTorch's CUDA
+    graph notes ask: the first run of a shape does the one-time work that
+    a capture cannot hold (the kernel libraries' loading, K3's
+    shared-memory limit, cuDNN's plans). Subclasses set WARMUP."""
+
+    WARMUP = 1
+
+    def __init__(self):
+        self.warm = collections.Counter()  # eager runs so far, by key
+        # by key: the graph, the kernel launches of one replay and the
+        # capture's seconds
+        self.graphs, self.replay_counts, self.capture_seconds = {}, {}, {}
+
+    def run(self, key, fn: Callable[[], None], device: torch.device) -> bool:
+        """fn() for `key` on the card: eagerly on a side stream while the
+        key has had fewer than WARMUP eager runs, else a replay of its
+        graph, which is recorded from fn first (`capture`; fn does not run
+        then), crediting the capture's counts. Returns whether the graph
+        replayed. A failed capture or replay raises."""
+        graph = self.graphs.get(key)
+        if graph is None and self.warm[key] < self.WARMUP:
+            self.warm[key] += 1
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream(device).wait_stream(side)
+            return False
+        if graph is None:
+            graph, self.replay_counts[key], self.capture_seconds[key] = capture(fn)
+            self.graphs[key] = graph
+        graph.replay()
+        credit(self.replay_counts[key])
+        return True

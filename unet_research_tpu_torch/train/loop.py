@@ -25,31 +25,42 @@ every rank holds the same parameters. The seed and the initial weights are
 rank 0's. Validation splits the items over the ranks; rank 0 alone writes
 checkpoints and prints.
 
-Step programs (`_StepProgram`, the twin of JAX's jitted
-`train_step_indexed`, one program per static `size`, and of its
-`train_epoch_scan`): every batch-1 step without a mesh is train_step on
-inputs that it reads from tables on the device (the items' order, each
-step's site keys, drop probability and learning rate, filled on the host
-before a run of steps from the same generator, ramp and learning rates as
-the per-step path) at a step index that it advances on the device. On the
-card each size's first steps run eagerly, then its step is captured once as
-a CUDA graph and replayed for every later step at that size; on the CPU the
-same step runs eagerly. It computes the per-step path's numbers. A failed
-capture or replay raises. The runs are:
+Step programs (`_StepProgram`, the twin of JAX's jitted `train_step` and
+`train_step_indexed`, one program per static `size` and batch shape, and of
+its `train_epoch_scan`): every step without a mesh is train_step on inputs
+that it reads from tables on the device (each step's rows of the
+device-resident uint8 split, its site keys, drop probability and learning
+rate, filled on the host before a run of steps from the same shuffle,
+generator, ramp and learning rates as the per-step path) at a step index
+that it advances on the device. On the card the first steps of each
+(size, rows) run eagerly, then its step is captured once as a CUDA graph
+and replayed for every later step of that shape; on the CPU the same step
+runs eagerly. It computes the per-step path's numbers. A failed capture or
+replay raises. The runs are:
 
 - scanned epochs (`TrainerConfig.scan_epochs`, on by default): under JAX's
   conditions (no size plan, batch 1, no detect_anomaly, no mesh) an epoch
   of one size, with one host synchronisation (the losses);
-- stepped epochs (a size plan, detect_anomaly or scan_epochs=False at batch
-  1 without a mesh): an epoch over the plan's sizes, one graph per size,
-  the losses read once per epoch, or after every step under
-  detect_anomaly, as JAX reads them;
+- stepped epochs (a size plan, detect_anomaly, scan_epochs=False or
+  train_batch > 1, without a mesh): an epoch over the plan's sizes and
+  batch_iterator's batches (no drop_last: a final partial batch gets a
+  graph of its own, as JAX compiles one for its shape), the losses read
+  once per epoch, or after every step under detect_anomaly, as JAX reads
+  them;
 - lr_find's sweep: its learning rates in the table, the loss read after
   every step for the divergence stop.
 
+Forward programs (`ForwardProgram`, the twin of JAX's jitted `eval_step`
+and `predict_step`): validation (in fit and `validate`) and `predict`
+without a mesh copy each batch into static buffers of its shape; on the
+card the first forward of each (role, shape) runs eagerly, then it is
+captured once and replayed. Validation adds each batch's loss and a count
+into a float64 pair on the device, read once per validation.
+
 `Trainer(program=False)` and `lr_find(program=False)` (port-only) run the
-stepped epochs' and the sweep's steps from the host, one eager
-train_step_indexed at a time, for comparisons.
+stepped epochs', the sweep's steps and the forwards from the host (the
+steps at batch 1 one eager train_step_indexed at a time, at batch > 1
+train_step on batch_iterator's batches), for comparisons.
 
 Differences from the JAX trainer: the DropBlock site keys of each step
 are drawn from a torch.Generator seeded with the run's seed, where JAX
@@ -59,11 +70,11 @@ from one seed; `train_step` takes explicit `site_keys`.
 
 from __future__ import annotations
 
-import collections
 import copy
 import dataclasses
 import os
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -121,7 +132,8 @@ class Trainer:
     card unless the caller asks for the CPU; the model must live there).
     mesh: data-parallel over its ranks (module docstring); the mesh's size
     must divide `train_batch`. program=False (port-only): the stepped
-    epochs' and lr_find's steps run from the host (module docstring)."""
+    epochs', lr_find's steps and the forwards of validation and predict run
+    from the host (module docstring)."""
 
     def __init__(self, model: UNet, policy: ResizePolicy, cfg: TrainerConfig, mesh=None,
                  device=None, program: bool = True):
@@ -141,6 +153,7 @@ class Trainer:
         self.key_generator = torch.Generator().manual_seed(max(cfg.seed, 0))
         self.program = program
         self._program = None  # the fit's step program (_StepProgram)
+        self._forward = None  # validation's and predict's (ForwardProgram)
 
     def scans(self, size_plan: Optional[np.ndarray] = None) -> bool:
         """Whether fit runs scanned epochs: JAX's `use_scan` conditions
@@ -234,13 +247,23 @@ class Trainer:
             prog.advance()
         return prog.losses.cpu().numpy()
 
-    def _program_for(self, state: TrainState, data, num_steps: int) -> "_StepProgram":
+    def _program_for(self, state: TrainState, data, num_steps: int,
+                     batch: int = 1) -> "_StepProgram":
         """The fit's step program for runs of `num_steps` steps of `state`
-        on `data`, made anew when the cached one does not serve them."""
+        on batches of up to `batch` items of `data`, made anew when the
+        cached one does not serve them."""
         prog = self._program
-        if prog is None or not prog.serves(state, data, num_steps):
-            prog = self._program = _StepProgram(self, state, data, num_steps)
+        if prog is None or not prog.serves(state, data, num_steps, batch):
+            prog = self._program = _StepProgram(self, state, data, num_steps, batch)
         return prog
+
+    def _forward_program(self) -> "ForwardProgram":
+        """The trainer's forward program, which runs every forward from the
+        host under program=False or a mesh."""
+        if self._forward is None:
+            self._forward = ForwardProgram(self.device,
+                                           capture=self.program and self.mesh is None)
+        return self._forward
 
     @torch.no_grad()
     def eval_step(self, im, gt, mask) -> torch.Tensor:
@@ -301,12 +324,14 @@ class Trainer:
         t_fit = time.time()
         shuffle = not self.policy.uses_size_plan  # MF plans index by batch_idx
         use_scan = self.scans(size_plan)
+        # the steps index the device-resident split (else batch_iterator's)
+        indexed = cfg.train_batch == 1 or (self.program and self.mesh is None)
         dev_data = None
         try:
             for epoch in range(start_epoch, cfg.max_epochs):
                 t0 = time.time()
-                if cfg.train_batch == 1:
-                    # the uint8 split uploaded once; each step indexes one item
+                if indexed:
+                    # the uint8 split uploaded once; each step indexes its items
                     if dev_data is None:
                         dev_data = to_device((train_ds.images, train_ds.targets,
                                               train_ds.masks), self.device)
@@ -317,9 +342,9 @@ class Trainer:
                     losses = self.train_epoch_scan(state, dev_data, order, lr)
                     step_losses = losses[np.arange(len(losses)) % cfg.log_gate != 0]
                 else:
-                    step_losses = self._step_epoch(state, dev_data, order if cfg.train_batch == 1
-                                                   else None, train_ds, lr, size_plan, shuffle,
-                                                   np_rng, epoch)
+                    step_losses = self._step_epoch(state, dev_data, order if indexed else None,
+                                                   train_ds, lr, size_plan, shuffle, np_rng,
+                                                   epoch)
                 train_loss = float(np.mean(step_losses)) if len(step_losses) else float("nan")
                 history["train_loss_epoch"].append(train_loss)
                 history["lr"].append(lr)
@@ -343,7 +368,8 @@ class Trainer:
                             print(f"early stopping at epoch {epoch}")
                         break
         finally:
-            self._program = None  # frees the captured graphs and their memory pools
+            # frees the captured graphs and their memory pools
+            self._program = self._forward = None
         if prof is not None:
             prof.stop()
             trace_dir = os.path.join(model_info_dir, "..", "profile")
@@ -358,28 +384,30 @@ class Trainer:
 
     def _step_epoch(self, state, dev_data, order, train_ds, lr, size_plan, shuffle, np_rng,
                     epoch) -> np.ndarray:
-        """One epoch a step at a time: items `order` of the device-resident
-        split at batch 1 (through the step program without a mesh, unless
-        program=False), else batch_iterator's batches. Returns the float32
-        losses that the log gate keeps."""
+        """One epoch a step at a time: the batches of items `order` of the
+        device-resident split, as batch_iterator cuts them (through the step
+        program without a mesh, unless program=False; else at batch 1 from
+        the host), or batch_iterator's host batches (order None). Returns
+        the float32 losses that the log gate keeps."""
         cfg = self.cfg
         prog = None
-        if order is not None and self.mesh is None and self.program:
-            prog = self._program_for(state, dev_data, len(order))
-            prog.fill(order, lr)
         if order is not None:
-            batches = ((i, int(oi)) for i, oi in enumerate(order))
+            table, rows = _cut_batches(order, cfg.train_batch)
+            if self.mesh is None and self.program:
+                prog = self._program_for(state, dev_data, len(table), cfg.train_batch)
+                prog.fill(table, lr, rows)
+            items = enumerate(table)
         else:
-            batches = enumerate(batch_iterator(train_ds, cfg.train_batch, shuffle, np_rng,
-                                               device=self.device, mesh=self.mesh))
+            items = enumerate(batch_iterator(train_ds, cfg.train_batch, shuffle, np_rng,
+                                             device=self.device, mesh=self.mesh))
         step_losses = []
-        for batch_idx, item in batches:
+        for batch_idx, item in items:
             size = int(size_plan[batch_idx]) if size_plan is not None else -1
             if prog is not None:
                 prog.advance(size)
                 loss = prog.losses[batch_idx]
-            elif order is not None:
-                loss = self.train_step_indexed(state, dev_data, item, lr, size)
+            elif order is not None:  # batch 1
+                loss = self.train_step_indexed(state, dev_data, int(item[0]), lr, size)
             else:
                 loss = self.train_step(state, *item, lr, size)
             if cfg.detect_anomaly and not np.isfinite(float(loss)):
@@ -393,69 +421,139 @@ class Trainer:
         return torch.stack(step_losses).cpu().numpy()
 
     def _mean_val_loss(self, ds: ArrayDataset, batch: int) -> float:
-        """The mean of the batches' losses. Under a mesh rank r takes batches
-        r, r + R, ...; the ranks' sums of losses and counts are all-reduced,
-        so every rank reads the same mean."""
+        """The mean of the batches' losses, summed with their count in a
+        float64 pair on the device and read once; the batches go through the
+        trainer's forward program (captured on the card without a mesh,
+        unless program=False). Under a mesh rank r takes
+        batches r, r + R, ...; the ranks' pairs are all-reduced, so every
+        rank reads the same mean."""
+        forward = self._forward_program()
+        total = forward.zeroed_sums()
+
+        def accumulate(im, gt, mask):
+            total[0] += self.eval_step(im, gt, mask).to(torch.float64)
+            total[1] += 1
+
         starts = range(0, len(ds), batch)
         if self.mesh is not None:
             starts = starts[self.mesh.rank::self.mesh.size]
-        total = torch.zeros(2, dtype=torch.float64, device=self.device)
         for s in starts:
-            im, gt, mask = to_device(ds[np.arange(s, min(s + batch, len(ds)))], self.device)
-            total[0] += self.eval_step(im, gt, mask).to(torch.float64)
-            total[1] += 1
+            forward("val", accumulate,
+                    *to_device(ds[np.arange(s, min(s + batch, len(ds)))], self.device))
         if self.mesh is not None:
             total = psum(total, self.mesh)
         return float(total[0] / total[1])
 
     # ------------------------------------------------------------------
     def validate(self, params: Optional[dict], val_ds: ArrayDataset) -> float:
-        """Mean validation loss; `params` (a state_dict) is loaded into the
-        model first when given."""
+        """Mean validation loss; `params` (a state_dict) is copied into the
+        model's tensors first when given."""
         if params is not None:
             self.model.load_state_dict(params)
         return self._mean_val_loss(val_ds, 1)
 
     def predict(self, params: Optional[dict], ds: ArrayDataset):
         """Batch-1 predictions as trainer.predict over a re-wrapped loader
-        (utils_metrics.py:52-56,87-90). Yields (idx, seg, im, gt, mask) as
-        numpy NHWC; `params` is loaded into the model first when given."""
+        (utils_metrics.py:52-56,87-90), through the trainer's forward
+        program. Yields (idx, seg, im, gt, mask) as numpy NHWC; `params` is
+        copied into the model's tensors first when given."""
         if params is not None:
             self.model.load_state_dict(params)
-        for i, (im, gt, mask) in enumerate(batch_iterator(ds, 1, False, device=self.device)):
-            with torch.no_grad():
-                out = self.policy.predict_io(self.model, im, gt, mask)
+        forward = self._forward_program()
+
+        def predict_io(im, gt, mask):
+            return self.policy.predict_io(self.model, im, gt, mask)
+
+        for i, batch in enumerate(batch_iterator(ds, 1, False, device=self.device)):
+            out = forward("predict", predict_io, *batch)
             yield (i, *(t.cpu().numpy() for t in out))
 
 
+class ForwardProgram(launches.KeyedGraphs):
+    """Static input buffers per batch shape and, on the card, one captured
+    forward per (role, input shapes): the twin of JAX's jitted eval_step
+    and predict_step, compiled per input shape (module docstring).
+
+    Calling it with (role, fn, im, gt, mask) runs fn on the batch under
+    torch.no_grad(). On the CPU, or with capture=False (program=False, a
+    mesh), fn runs on the batch itself, from the host. On the card the
+    batch is copied into its shape's buffers and fn runs on them through
+    launches.KeyedGraphs.run: one eager call per (role, shape), then its
+    capture and replays. fn must be the same function of the buffers for
+    one role, and what it returns on the card is the graph's output, valid
+    until the next call. A failed capture or replay raises.
+
+    The program keeps no reference to fn or to its owner, so a trainer that
+    drops it frees its graphs at once."""
+
+    WARMUP = 1  # eager calls of a (role, shape) before its capture
+
+    def __init__(self, device, capture: bool = True):
+        super().__init__()
+        self.device, self.captures = torch.device(device), capture
+        self.sums = None  # zeroed_sums' pair
+        self.buffers = {}  # by input shapes: the static (im, gt, mask)
+        self.outputs = {}  # by (role, shapes): the graph's output
+
+    def zeroed_sums(self) -> torch.Tensor:
+        """A float64 pair on the device at a fixed address, set to zero:
+        captured forwards add into it (validation's loss sum and count)."""
+        if self.sums is None:
+            self.sums = torch.zeros(2, dtype=torch.float64, device=self.device)
+        return self.sums.zero_()
+
+    @torch.no_grad()
+    def __call__(self, role: str, fn, *batch):
+        if self.device.type != "cuda" or not self.captures:
+            return fn(*batch)
+        shapes = tuple(tuple(t.shape) for t in batch)
+        bufs = self.buffers.get(shapes)
+        if bufs is None:
+            bufs = self.buffers[shapes] = tuple(torch.empty_like(t) for t in batch)
+        for buf, t in zip(bufs, batch):
+            buf.copy_(t)
+        key = (role, shapes)
+
+        def call():
+            self.outputs[key] = fn(*bufs)
+
+        if self.run(key, call, self.device):
+            return self.outputs[key]
+        return self.outputs.pop(key)  # an eager call's
 
 
-class _StepProgram:
-    """The static buffers of runs of batch-1 steps of one TrainState and, on
-    the card, one captured step per `size` (module docstring).
+class _StepProgram(launches.KeyedGraphs):
+    """The static buffers of runs of steps of one TrainState on batches of
+    up to `batch` items and, on the card, one captured step per (size,
+    rows) (module docstring).
 
     The step reads every input that changes from step to step from tables
-    on the device (order, site keys, drop probabilities, learning rates) at
-    the step index `index` on the device, writes its loss to the losses
-    table there and advances the index: a CUDA graph of one step at a size,
-    replayed, runs the next step of the run at that size. The host fills the
-    tables before a run (fill) and reads the losses back."""
+    on the device (each step's items, site keys, drop probabilities,
+    learning rates) at the step index `index` on the device, writes its loss
+    to the losses table there and advances the index: a CUDA graph of one
+    step of a shape, replayed, runs the next step of the run of that shape.
+    The host fills the tables before a run (fill), keeps each step's number
+    of rows, and reads the losses back. The program reaches its trainer
+    through a weak reference, so a trainer that drops it frees its graphs
+    at once."""
 
-    # Eager steps at a size before its capture, on a side stream, as
-    # PyTorch's CUDA graph notes ask; counted across runs, so that runs of
-    # one step still reach a capture. They are real steps of the run. The
-    # first does the one-time work that a capture cannot hold: it loads the
-    # kernel libraries, raises K3's shared-memory limit and builds cuDNN's
-    # plans for every conv of the forward, the remat re-run and the
-    # backward at this size's feature maps. The second is a step in the
-    # steady state that the capture will record, at the cost of one eager
-    # step per size.
+    # Eager steps of a shape before its capture (launches.KeyedGraphs),
+    # counted across runs, so that runs of one step still reach a capture.
+    # They are real steps of the run. The first does the one-time work for
+    # the forward, the remat re-run and the backward at this shape's
+    # feature maps; the second is a step in the steady state that the
+    # capture will record, at the cost of one eager step per shape.
     WARMUP = 2
 
-    def __init__(self, trainer: Trainer, state: TrainState, data, num_steps: int):
-        self.trainer, self.state, self.data, self.num_steps = trainer, state, data, num_steps
+    def __init__(self, trainer: Trainer, state: TrainState, data, num_steps: int,
+                 batch: int = 1):
+        super().__init__()
+        self._trainer = weakref.ref(trainer)
+        self.state, self.data, self.num_steps, self.batch = state, data, num_steps, batch
         dev = trainer.device
-        self.order = torch.zeros(num_steps, dtype=torch.int64, device=dev)
+        self.order = torch.zeros((num_steps, batch), dtype=torch.int64, device=dev)
+        self.rows = [batch] * num_steps  # each step's number of items, on the host
+        self.at = 0  # the host's step index of the run
         self.index = torch.zeros(1, dtype=torch.int64, device=dev)
         self.losses = torch.zeros(num_steps, dtype=torch.float32, device=dev)
         self.lrs = torch.zeros(num_steps, dtype=torch.float32, device=dev)
@@ -463,76 +561,65 @@ class _StepProgram:
             sites = trainer.model.num_mask_sites()
             self.keys = torch.zeros((num_steps, sites, 2), dtype=torch.int64, device=dev)
             self.drop_probs = torch.zeros(num_steps, dtype=torch.float32, device=dev)
-        self.warm = collections.Counter()  # eager steps so far, by size
-        # by size: the graph, the kernel launches of one replay
-        # (ops/cuda/launches.py) and the capture's seconds
-        self.graphs, self.replay_counts, self.capture_seconds = {}, {}, {}
 
-    def serves(self, state: TrainState, data, num_steps: int) -> bool:
-        return state is self.state and data is self.data and num_steps == self.num_steps
+    @property
+    def trainer(self) -> Trainer:
+        return self._trainer()
 
-    def fill(self, order, lr) -> None:
-        """The tables of a run of K steps from state.step on items `order`
-        (K = num_steps): the site keys drawn from the trainer's
-        key_generator and the drop probabilities of the ramp
-        (Trainer.step_tables); `lr` one learning rate for every step, which
-        also becomes the state's, or K of them. The step index goes to 0."""
+    def serves(self, state: TrainState, data, num_steps: int, batch: int = 1) -> bool:
+        return (state is self.state and data is self.data and num_steps == self.num_steps
+                and batch == self.batch)
+
+    def fill(self, order, lr, rows=None) -> None:
+        """The tables of a run of K steps from state.step (K = num_steps):
+        step k on the items order[k] (a (K,) order: one item a step; a (K,
+        batch) table: its first rows[k] items, all `batch` when rows is
+        None), the site keys drawn from the trainer's key_generator and the
+        drop probabilities of the ramp (Trainer.step_tables); `lr` one
+        learning rate for every step, which also becomes the state's, or K
+        of them. The step index goes to 0."""
         t, state = self.trainer, self.state
         if t.has_dropblock:
             keys, drop_probs = t.step_tables(state.step, self.num_steps)
             self.keys.copy_(keys)
             self.drop_probs.copy_(drop_probs)
-        self.order.copy_(torch.as_tensor(np.asarray(order), dtype=torch.int64))
+        self.order.copy_(torch.from_numpy(
+            np.asarray(order, np.int64).reshape(self.num_steps, self.batch)))
+        self.rows = [self.batch] * self.num_steps if rows is None else np.asarray(rows).tolist()
         if np.ndim(lr) == 0:
             state.set_lr(float(lr))  # the optimizer's, which checkpoints keep
         self.lrs.copy_(torch.tensor(np.broadcast_to(np.float32(lr), (self.num_steps,))))
         self.index.zero_()
+        self.at = 0
 
-    def step(self, size: int = -1) -> None:
-        """One train step at the step index, on the buffers."""
+    def step(self, size: int = -1, rows: Optional[int] = None) -> None:
+        """One train step at the step index on its first `rows` items
+        (`batch` when None), on the buffers."""
         t, idx = self.trainer, self.index
         inputs = {}
         if t.has_dropblock:
             inputs = dict(site_keys=self.keys.index_select(0, idx)[0],
                           drop_prob=self.drop_probs.index_select(0, idx)[0])
         self.state.lr_tensor.copy_(self.lrs.index_select(0, idx)[0])
-        loss = t.train_step_indexed(self.state, self.data, self.order.index_select(0, idx), None,
-                                    size, **inputs)
+        items = self.order.index_select(0, idx)[0, :rows or self.batch]
+        loss = t.train_step_indexed(self.state, self.data, items, None, size, **inputs)
         self.losses.index_copy_(0, idx, loss.reshape(1))
         idx.add_(1)
 
     def advance(self, size: int = -1) -> None:
         """The run's next step at `size`: on the CPU the step itself; on the
-        card a replay of the size's graph, after its warm-up steps and its
-        capture. state.step counts it either way."""
+        card its (size, rows) through launches.KeyedGraphs.run. state.step
+        counts it either way (apply_gradients' count is Python, which
+        neither a capture keeps nor a replay runs)."""
+        rows = self.rows[self.at]
+        self.at += 1
         dev = self.trainer.device
         if dev.type != "cuda":
-            self.step(size)
+            self.step(size, rows)
             return
-        graph = self.graphs.get(size)
-        if graph is None and self.warm[size] < self.WARMUP:
-            self.warm[size] += 1
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self.step(size)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            return
-        if graph is None:
-            graph = self.capture(size)
-        graph.replay()
-        launches.credit(self.replay_counts[size])
-        self.state.step += 1  # apply_gradients' count is Python, which a replay does not run
-
-    def capture(self, size: int):
-        """Record one step at `size` as a CUDA graph (launches.capture); the
-        step does not run, so state.step stays where it is."""
         step = self.state.step
-        graph, self.replay_counts[size], self.capture_seconds[size] = launches.capture(
-            lambda: self.step(size))
-        self.state.step = step
-        self.graphs[size] = graph
-        return graph
+        if self.run((size, rows), lambda: self.step(size, rows), dev):
+            self.state.step = step + 1
 
 
 def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,
@@ -547,10 +634,11 @@ def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,
     trainer's mesh the probe steps are data-parallel steps, whose global
     losses take the same decisions on every rank.
 
-    At batch 1 without a mesh the sweep runs through a step program of its
-    own (module docstring), discarded at its end; program (port-only):
-    False steps from the host, None takes the trainer's. Either way the
-    trainer's key_generator ends where the steps that ran leave it."""
+    Without a mesh the sweep runs through a step program of its own
+    (module docstring) on batch_iterator's batches of passes over the
+    items, discarded at its end; program (port-only): False steps from the
+    host, None takes the trainer's. Either way the trainer's key_generator
+    ends where the steps that ran leave it."""
     saved = copy.deepcopy(trainer.model.state_dict())
     lrs = min_lr * (max_lr / min_lr) ** (np.arange(num_training) / (num_training - 1))
     state = trainer.create_state(params, float(lrs[0]))
@@ -572,9 +660,11 @@ def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,
         return True
 
     shuffle = not trainer.policy.uses_size_plan
-    indexed = trainer.cfg.train_batch == 1
+    batch = trainer.cfg.train_batch
     if program is None:
         program = trainer.program
+    programmed = program and trainer.mesh is None
+    indexed = batch == 1 or programmed
 
     def shuffled():
         order = np.arange(len(train_ds))
@@ -585,23 +675,26 @@ def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,
     if indexed:
         data = to_device((train_ds.images, train_ds.targets, train_ds.masks), trainer.device)
     try:
-        if indexed and program and trainer.mesh is None:
-            # one pass after another over the items, as the host steps take them
-            n = len(train_ds)
-            order = np.concatenate([shuffled() for _ in range(-(-num_training // n))])
+        if programmed:
+            # one pass after another over the items, cut into batches as
+            # batch_iterator cuts them, as the host steps take them
+            per_pass = -(-len(train_ds) // batch)
+            passes = [_cut_batches(shuffled(), batch)
+                      for _ in range(-(-num_training // per_pass))]
+            table = np.concatenate([p[0] for p in passes])[:num_training]
+            rows = np.concatenate([p[1] for p in passes])[:num_training]
             sizes = (np.full(num_training, -1) if size_plan is None
-                     else np.asarray(size_plan)[np.arange(num_training) % n])
-            _program_sweep(trainer, state, data, order[:num_training], lrs, sizes, record)
+                     else np.asarray(size_plan)[np.arange(num_training) % per_pass])
+            _program_sweep(trainer, state, data, table, rows, lrs, sizes, record)
         else:
             i = 0
             while i < num_training:
                 if indexed:
-                    batches = enumerate(shuffled())
+                    items = enumerate(shuffled())
                 else:
-                    batches = enumerate(batch_iterator(train_ds, trainer.cfg.train_batch,
-                                                       shuffle, np_rng, device=trainer.device,
-                                                       mesh=trainer.mesh))
-                for batch_idx, item in batches:
+                    items = enumerate(batch_iterator(train_ds, batch, shuffle, np_rng,
+                                                     device=trainer.device, mesh=trainer.mesh))
+                for batch_idx, item in items:
                     if i >= num_training:
                         break
                     size = int(size_plan[batch_idx]) if size_plan is not None else -1
@@ -625,16 +718,17 @@ def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,
     return float(lrs[idx])
 
 
-def _program_sweep(trainer: Trainer, state: TrainState, data, order, lrs, sizes, record) -> None:
-    """lr_find's steps through a step program of their own: step i on item
-    order[i] at lrs[i] and sizes[i], its loss read and handed to record,
-    until record returns False. The tables hold the whole sweep, so the site
+def _program_sweep(trainer: Trainer, state: TrainState, data, table, rows, lrs, sizes,
+                   record) -> None:
+    """lr_find's steps through a step program of their own: step i on the
+    first rows[i] items of table[i] at lrs[i] and sizes[i], its loss read
+    and handed to record, until record returns False. The tables hold the whole sweep, so the site
     keys of every step are drawn up front; the key generator is then set
     back and moved on by the steps that ran, as the eager sweep draws them.
     The program and its graphs go when the sweep returns."""
     keys_at = trainer.key_generator.get_state()
-    prog = _StepProgram(trainer, state, data, len(order))
-    prog.fill(order, lrs)
+    prog = _StepProgram(trainer, state, data, len(table), trainer.cfg.train_batch)
+    prog.fill(table, lrs, rows)
     ran = 0
     for i, size in enumerate(sizes):
         prog.advance(int(size))
@@ -644,3 +738,15 @@ def _program_sweep(trainer: Trainer, state: TrainState, data, order, lrs, sizes,
     if trainer.has_dropblock:
         trainer.key_generator.set_state(keys_at)
         trainer.step_tables(0, ran)
+
+
+def _cut_batches(order: np.ndarray, batch: int) -> tuple:
+    """`order` cut as batch_iterator cuts it (no drop_last): a (K, batch)
+    table whose last row is padded with zeros, and each row's number of
+    items."""
+    k = -(-len(order) // batch)
+    table = np.zeros(k * batch, np.int64)
+    table[:len(order)] = order
+    rows = np.full(k, batch)
+    rows[-1] = len(order) - (k - 1) * batch
+    return table.reshape(k, batch), rows
