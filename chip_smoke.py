@@ -76,10 +76,25 @@ rows; two gloo ranks sharing the card (parallel/launch.py; NCCL refuses
 two ranks on one card) take one train step at a global batch of 2 in
 float32 and in bf16 against the one-process steps, compare their
 parameters' float64 checksums, run Trainer.fit (1 epoch of 4 images at
-train_batch 2) with each kernel's launches and rank 0's checkpoint, time a
-step and the gradient all-reduce, and run the 48-member MC engine split
-over them against the one-process run above; then NCCL at world size 1
-(`dp-nccl`): the data-parallel step bit-equal to the plain step, then the CLIs: on a synthetic augmented tree of 584x565 PNGs (train 4, val
+train_batch 2, 4 validation images) with each kernel's launches and rank
+0's checkpoint, time a step and the gradient all-reduce, and run the
+48-member MC engine split over them against the one-process run above;
+under gloo the steps and the MC chunks take the program's table route
+eagerly (no graph: gloo's collectives run on the host) and the validation
+forward is captured, which the phase asserts; then NCCL at world size 1
+(`dp-nccl`): the data-parallel step bit-equal to the plain step, then the
+mesh programs captured under NCCL: eval-program's batched fit (3 epochs of
+5 images at train_batch 2, so a partial batch with a graph of its own) and
+its 30-step lr_find through the mesh step program against program=False
+under the mesh and against eval-program's mesh-less captured run (the
+train-scan and train-step-program tolerances, equal launches, the psums
+and the gradient all-reduce in every captured step's counts),
+Trainer.validate and Trainer.predict under the mesh against both (the
+eval-program gates), and the 172-member MC engine under the mesh (its
+chunk and all_gather in one graph) against its host route and the
+mesh-less engine (the ensembles' gate); it prints the captures' decision,
+the replayed and eager step and chunk ms, the capture seconds and the
+peaks; then the CLIs: on a synthetic augmented tree of 584x565 PNGs (train 4, val
 2, test 1; written under _runs/chip_smoke_cli/ and deleted at the end) it
 runs, through their main(argv), `training -mode train` (1 epoch, bf16,
 default routes), `training -mode test` on the kept checkpoint,
@@ -171,7 +186,10 @@ within twice the plain bf16 route's distance from plain float32; the
 ranks' checksums equal; the split MC run's mean, std and saved members
 within twice the plain bf16 route's distance from float32 of the
 one-process run (the masks are the same bits); NCCL at world size 1
-bit-equal to the plain step (cuDNN deterministic, cuDNN convs).
+bit-equal to the plain step (cuDNN deterministic, cuDNN convs), and its
+captured mesh programs within the tolerances of the phases whose runs
+they repeat (train-scan's for the fit, train-step-program's for lr_find,
+eval-program's for the forwards, the ensembles' gate for the MC engine).
 """
 
 from __future__ import annotations
@@ -1942,7 +1960,7 @@ def run_eval_trainer_forwards(state) -> dict:
     K3 per forward). Returns the captured route's launches."""
     ds = train_dataset(EVAL_IMAGES, seed=7)
     policies = {"none": POLICIES["none"], "lft256": lf_policy("lft", 256)}
-    captured_launches = []
+    captured_launches, reference = [], {}
     for pname, policy in policies.items():
         res = {}
         for route, (program, overrides) in EVAL_ROUTES.items():
@@ -2006,7 +2024,10 @@ def run_eval_trainer_forwards(state) -> dict:
                 and shapes[0] == ((1, 584, 565, 1) if pname == "none" else (1, 256, 256, 1))):
             raise AssertionError(f"eval-program {pname}: {row}")
         captured_launches.append(cap["launches"])
-    return added(*captured_launches)
+        if pname == "none":
+            reference = {"val": cap["val"], "preds": cap["preds"], "val_noise": val_noise,
+                         "pred_noise": pred_noise}
+    return added(*captured_launches), reference
 
 
 def run_eval_predict_at(state) -> dict:
@@ -2061,151 +2082,180 @@ def run_eval_predict_at(state) -> dict:
     return added(*captured_launches)
 
 
+BATCHED_EPOCHS, BATCHED_STEPS, BATCHED_SWEEP = 3, 3 * 3, 30
+
+
+def batched_run(state, program: bool, out_dir: str, mesh=None) -> dict:
+    """One route of the batched fit and lr_find (run_eval_batched_fit's):
+    a fit at train_batch 2, val_batch 2 of 5 training and 3 validation
+    images for BATCHED_EPOCHS epochs, then lr_find at train_batch 2 for
+    BATCHED_SWEEP steps from the same weights, under `mesh` when given.
+    Returns the history, weights, launches, seconds and peaks and, through
+    the step program, its graphs, the collectives one replay of each holds
+    and its steps' replayed and eager ms."""
+    train_ds, val_ds = train_dataset(5, seed=8), train_dataset(3, seed=9)
+    model = train_model(state, nr_steps=BATCHED_STEPS)
+    start = flat_params(model)
+    cfg = TrainerConfig(max_epochs=BATCHED_EPOCHS, lr=1e-3, momentum=0.99, clip_norm=0.5,
+                        auto_lr_find=False, seed=0, verbose=False, train_batch=2, val_batch=2)
+    trainer = Trainer(model, POLICIES["none"], cfg, mesh=mesh, device=DEV, program=program)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with step_programs() as made, forward_programs() as made_forward:
+        fit_state, history, _ = trainer.fit(train_ds, val_ds, out_dir, params=state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    fit_launches = counts()
+    assert_wgmma(f"batched fit, program={program}, mesh={mesh is not None}")
+    run = {"history": history, "params": flat_params(model), "start": start,
+           "launches": fit_launches, "seconds": seconds, "step": fit_state.step,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "programs": len(made), "forward_programs": len(made_forward),
+           "captures": [trainer.captures_steps, trainer.captures_forwards]}
+    if program:
+        prog, fwd = made[0], made_forward[0]
+
+        def eager_step(rows, prog=prog):
+            prog.index.zero_()
+            prog.step(-1, rows)
+
+        def replay_step(rows, prog=prog):
+            prog.index.zero_()
+            prog.graphs[(-1, rows)].replay()
+
+        run["graphs"] = sorted(prog.graphs)
+        run["step_collectives"] = replayed_collectives(prog.replay_counts)
+        run["step_ms"] = {str(rows): {"replayed_ms": time_ms(lambda: replay_step(rows), 10),
+                                      "eager_ms": time_ms(lambda: eager_step(rows), 5),
+                                      "capture_seconds": prog.capture_seconds[(-1, rows)]}
+                          for rows in (2, 1)}
+        run["val_ms"] = forward_times(fwd, "val", trainer.eval_step)
+        run["forward_graphs"] = len(fwd.graphs)
+        del prog, fwd
+    made.clear()
+    made_forward.clear()
+
+    # lr_find at train_batch 2 from the same weights, its losses read
+    # from the step program or the host's steps
+    host_losses = []
+    step_fn = trainer.train_step
+
+    def spy(*args, step_fn=step_fn, host_losses=host_losses, **kwargs):
+        loss = step_fn(*args, **kwargs)
+        host_losses.append(loss)
+        return loss
+
+    trainer.train_step = spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with step_programs() as made:
+        suggestion = lr_find(trainer, state, train_ds, None, 0, num_training=BATCHED_SWEEP)
+    torch.cuda.synchronize()
+    run["lr_find_seconds"] = time.perf_counter() - t0
+    run["lr_find_launches"] = counts()
+    run["lr_find_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    assert_wgmma(f"batched lr_find, program={program}, mesh={mesh is not None}")
+    if program:
+        prog, = made
+        ran = int(prog.index)
+        raw = prog.losses[:ran].cpu().numpy()
+        run["lr_find_graphs"] = sorted(prog.graphs)
+        run["lr_find_collectives"] = replayed_collectives(prog.replay_counts)
+        del prog
+    else:
+        ran = len(host_losses)
+        raw = torch.stack(host_losses).cpu().numpy()
+    made.clear()
+    run.update(suggestion=suggestion, lr_find_steps=ran, smoothed=smoothed_losses(raw))
+    del trainer, model, host_losses, made, made_forward
+    return run
+
+
+def compare_batched(cap: dict, other: dict) -> tuple:
+    """A batched run against another route's: the fit's losses' largest
+    relative distance (bound 2e-3), the weights' relative L2 (bound 1e-4
+    and a tenth of the other fit's movement), lr_find's smoothed losses'
+    (2e-3) and the suggestions' grid steps (at most one apart), equal
+    step counts and launches. Returns (the numbers, whether they pass)."""
+    a = np.array(cap["history"]["train_loss_epoch"] + cap["history"]["val_loss_epoch"])
+    b = np.array(other["history"]["train_loss_epoch"] + other["history"]["val_loss_epoch"])
+    loss_rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    param_rel = rel_l2(cap["params"], other["params"])
+    movement = rel_l2(other["params"], other["start"])
+    lrs = 1e-8 * (1.0 / 1e-8) ** (np.arange(BATCHED_SWEEP) / (BATCHED_SWEEP - 1))
+    grid = [int(np.argmin(np.abs(np.log(lrs) - np.log(r["suggestion"])))) for r in (cap, other)]
+    n = min(len(cap["smoothed"]), len(other["smoothed"]))
+    smooth_rel = float(np.max(np.abs(cap["smoothed"][:n] - other["smoothed"][:n])
+                              / np.abs(other["smoothed"][:n])))
+    numbers = {"loss_max_rel": loss_rel, "param_rel_l2": param_rel, "param_movement": movement,
+               "lr_find_steps": [cap["lr_find_steps"], other["lr_find_steps"]],
+               "suggestion": [cap["suggestion"], other["suggestion"]], "grid_index": grid,
+               "smoothed_max_rel": smooth_rel}
+    ok = (cap["step"] == other["step"] == BATCHED_STEPS
+          and cap["launches"] == other["launches"]
+          and cap["lr_find_launches"] == other["lr_find_launches"]
+          and np.isfinite(a).all() and loss_rel <= 2e-3 and param_rel <= 1e-4
+          and param_rel <= 0.1 * movement
+          and cap["lr_find_steps"] == other["lr_find_steps"]
+          and len(cap["smoothed"]) == len(other["smoothed"])
+          and np.isfinite(cap["smoothed"]).all() and smooth_rel <= 2e-3
+          and abs(grid[0] - grid[1]) <= 1)
+    return numbers, ok
+
+
 def run_eval_batched_fit(state) -> tuple:
     """(d) A fit at train_batch 2, val_batch 2 (5 training and 3 validation
     images: steps of 2, 2, 1 rows, validation batches of 2, 1) for 3
     epochs (the partial batch's third step is its first replay, after two
     warm-up steps), then lr_find at train_batch 2 for 30 steps, through the
-    step and forward programs against program=False: losses within 2e-3
-    relative, parameters within 1e-4 relative L2 and a tenth of the fit's
-    movement, lr_find's smoothed losses within 2e-3 and its suggestion
-    within one step of its grid, equal launches (K2 40, K3 6, dx 3, fold 3
-    per step; K3 3 per validation batch). Returns the captured route's fit
-    and lr_find launches."""
-    train_ds, val_ds = train_dataset(5, seed=8), train_dataset(3, seed=9)
-    epochs, steps, sweep = 3, 3 * 3, 30
+    step and forward programs against program=False (batched_run,
+    compare_batched): losses within 2e-3 relative, parameters within 1e-4
+    relative L2 and a tenth of the fit's movement, lr_find's smoothed
+    losses within 2e-3 and its suggestion within one step of its grid,
+    equal launches (K2 40, K3 6, dx 3, fold 3 per step; K3 3 per validation
+    batch). Returns the captured route's fit and lr_find launches and its
+    run (dp-nccl's mesh-less reference)."""
     out_root = os.path.join(ROOT, "_runs", "chip_smoke_eval_program")
     shutil.rmtree(out_root, ignore_errors=True)
-    runs = {}
-    for program in (False, True):
-        model = train_model(state, nr_steps=steps)
-        start = flat_params(model)
-        cfg = TrainerConfig(max_epochs=epochs, lr=1e-3, momentum=0.99, clip_norm=0.5,
-                            auto_lr_find=False, seed=0, verbose=False, train_batch=2,
-                            val_batch=2)
-        trainer = Trainer(model, POLICIES["none"], cfg, device=DEV, program=program)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        with step_programs() as made, forward_programs() as made_forward:
-            fit_state, history, _ = trainer.fit(train_ds, val_ds,
-                                                os.path.join(out_root, f"program_{program}"),
-                                                params=state)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        fit_launches = counts()
-        assert_wgmma(f"eval-program batched fit, program={program}")
-        run = {"history": history, "params": flat_params(model), "start": start,
-               "launches": fit_launches, "seconds": seconds, "step": fit_state.step,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-               "programs": len(made), "forward_programs": len(made_forward)}
-        if program:
-            prog, fwd = made[0], made_forward[0]
-
-            def eager_step(rows, prog=prog):
-                prog.index.zero_()
-                prog.step(-1, rows)
-
-            def replay_step(rows, prog=prog):
-                prog.index.zero_()
-                prog.graphs[(-1, rows)].replay()
-
-            run["graphs"] = sorted(prog.graphs)
-            run["step_ms"] = {str(rows): {"replayed_ms": time_ms(lambda: replay_step(rows), 10),
-                                          "eager_ms": time_ms(lambda: eager_step(rows), 5),
-                                          "capture_seconds": prog.capture_seconds[(-1, rows)]}
-                              for rows in (2, 1)}
-            run["val_ms"] = forward_times(fwd, "val", trainer.eval_step)
-            run["forward_graphs"] = len(fwd.graphs)
-            del prog, fwd
-        made.clear()
-        made_forward.clear()
-
-        # lr_find at train_batch 2 from the same weights, its losses read
-        # from the step program or the host's steps
-        host_losses = []
-        step_fn = trainer.train_step
-
-        def spy(*args, step_fn=step_fn, host_losses=host_losses, **kwargs):
-            loss = step_fn(*args, **kwargs)
-            host_losses.append(loss)
-            return loss
-
-        trainer.train_step = spy
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        with step_programs() as made:
-            suggestion = lr_find(trainer, state, train_ds, None, 0, num_training=sweep)
-        torch.cuda.synchronize()
-        run["lr_find_seconds"] = time.perf_counter() - t0
-        run["lr_find_launches"] = counts()
-        run["lr_find_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        assert_wgmma(f"eval-program batched lr_find, program={program}")
-        if program:
-            prog, = made
-            ran = int(prog.index)
-            raw = prog.losses[:ran].cpu().numpy()
-            run["lr_find_graphs"] = sorted(prog.graphs)
-            del prog
-        else:
-            ran = len(host_losses)
-            raw = torch.stack(host_losses).cpu().numpy()
-        made.clear()
-        run.update(suggestion=suggestion, lr_find_steps=ran, smoothed=smoothed_losses(raw))
-        runs[program] = run
-        del trainer, model, host_losses, made, made_forward
+    runs = {program: batched_run(state, program, os.path.join(out_root, f"program_{program}"))
+            for program in (False, True)}
     cap, eag = runs[True], runs[False]
-    a = np.array(cap["history"]["train_loss_epoch"] + cap["history"]["val_loss_epoch"])
-    b = np.array(eag["history"]["train_loss_epoch"] + eag["history"]["val_loss_epoch"])
-    loss_rel = float(np.max(np.abs(a - b) / np.abs(b)))
-    param_rel = rel_l2(cap["params"], eag["params"])
-    movement = rel_l2(eag["params"], eag["start"])
-    lrs = 1e-8 * (1.0 / 1e-8) ** (np.arange(sweep) / (sweep - 1))
-    grid = [int(np.argmin(np.abs(np.log(lrs) - np.log(r["suggestion"])))) for r in (cap, eag)]
-    n = min(len(cap["smoothed"]), len(eag["smoothed"]))
-    smooth_rel = float(np.max(np.abs(cap["smoothed"][:n] - eag["smoothed"][:n])
-                              / np.abs(eag["smoothed"][:n])))
+    numbers, ok = compare_batched(cap, eag)
     row = {"phase": "eval-program", "part": "batched fit + lr_find", "card": card(),
            "config": "canonical 31M, bf16, remat, dependent b=7 ramp 0->0.15 over 9 steps, "
                      "pair + kernel masks, SGD 1e-3 momentum 0.99 clip 0.5, train_batch 2, "
                      "val_batch 2",
-           "input": [584, 565], "train_images": len(train_ds), "val_images": len(val_ds),
-           "epochs": epochs, "steps": steps, "graphs": cap["graphs"],
+           "input": [584, 565], "train_images": 5, "val_images": 3,
+           "epochs": BATCHED_EPOCHS, "steps": BATCHED_STEPS, "graphs": cap["graphs"],
            "forward_graphs": cap["forward_graphs"], "step_ms": cap["step_ms"],
            "val_ms": cap["val_ms"],
            "fit_seconds": {"captured": cap["seconds"], "eager": eag["seconds"]},
            "peak_gib": {"captured": cap["peak_gib"], "eager": eag["peak_gib"]},
-           "loss_max_rel": loss_rel, "param_rel_l2": param_rel, "param_movement": movement,
+           "loss_max_rel": numbers["loss_max_rel"], "param_rel_l2": numbers["param_rel_l2"],
+           "param_movement": numbers["param_movement"],
            "history": {"captured": cap["history"], "eager": eag["history"]},
-           "lr_find": {"steps": [cap["lr_find_steps"], eag["lr_find_steps"]],
-                       "suggestion": [cap["suggestion"], eag["suggestion"]],
+           "lr_find": {"steps": numbers["lr_find_steps"], "suggestion": numbers["suggestion"],
                        "same_suggestion": cap["suggestion"] == eag["suggestion"],
-                       "grid_index": grid, "smoothed_max_rel": smooth_rel,
+                       "grid_index": numbers["grid_index"],
+                       "smoothed_max_rel": numbers["smoothed_max_rel"],
                        "graphs": cap["lr_find_graphs"],
                        "seconds": [cap["lr_find_seconds"], eag["lr_find_seconds"]],
                        "peak_gib": [cap["lr_find_peak_gib"], eag["lr_find_peak_gib"]]},
            "launches": {"fit": cap["launches"], "lr_find": cap["lr_find_launches"]}}
     emit(row)
-    if not (cap["programs"] == 1 and eag["programs"] == 0 and eag["forward_programs"] == 0
+    if not (ok and cap["programs"] == 1 and eag["programs"] == 0
+            and eag["forward_programs"] == 0
             and cap["graphs"] == [(-1, 1), (-1, 2)] and cap["forward_graphs"] == 2
-            and cap["step"] == eag["step"] == steps
-            and cap["launches"] == eag["launches"] == train_want(steps, epochs * 2)
-            and np.isfinite(a).all() and loss_rel <= 2e-3 and param_rel <= 1e-4
-            and param_rel <= 0.1 * movement
-            and cap["lr_find_steps"] == eag["lr_find_steps"]
+            and cap["launches"] == train_want(BATCHED_STEPS, BATCHED_EPOCHS * 2)
             and cap["lr_find_graphs"] == [(-1, 1), (-1, 2)]
-            and len(cap["smoothed"]) == len(eag["smoothed"])
-            and np.isfinite(cap["smoothed"]).all() and smooth_rel <= 2e-3
-            and abs(grid[0] - grid[1]) <= 1
-            and cap["lr_find_launches"] == eag["lr_find_launches"]
-            == train_want(cap["lr_find_steps"], 0)):
+            and cap["lr_find_launches"] == train_want(cap["lr_find_steps"], 0)):
         raise AssertionError(f"eval-program batched fit: {row}")
-    runs.clear()
     shutil.rmtree(out_root, ignore_errors=True)
-    return cap["launches"], cap["lr_find_launches"]
+    return cap["launches"], cap["lr_find_launches"], cap
 
 
 ONE_SHOT_SPLITS = (6, 20)   # the README's DRIVE validation and test splits
@@ -2329,14 +2379,16 @@ def check_failed_capture(state) -> None:
 def run_eval_program(state) -> dict:
     """Phase `eval-program`: the trainer's and base_model_mf's forwards and
     the batched steps through their programs against the host's. Returns
-    each part's launches."""
-    forwards = run_eval_trainer_forwards(state)
+    each part's launches, and the mesh-less references that dp-nccl holds
+    its mesh programs against."""
+    forwards, forward_ref = run_eval_trainer_forwards(state)
     predict_at = run_eval_predict_at(state)
-    fit, sweep = run_eval_batched_fit(state)
+    fit, sweep, batched_ref = run_eval_batched_fit(state)
     one_shot = run_eval_one_shot(state)
-    return {"eval_program_validate_predict": forwards, "eval_program_predict_at": predict_at,
-            "eval_program_batched_fit": fit, "eval_program_batched_lr_find": sweep,
-            "eval_program_one_shot": one_shot}
+    return ({"eval_program_validate_predict": forwards, "eval_program_predict_at": predict_at,
+             "eval_program_batched_fit": fit, "eval_program_batched_lr_find": sweep,
+             "eval_program_one_shot": one_shot},
+            {"forwards": forward_ref, "batched": batched_ref})
 
 
 # --- data parallelism -------------------------------------------------------
@@ -2421,10 +2473,14 @@ def dp_rank() -> dict:
        the ranks' parameters and momentum compared by float64 checksums;
        rank 0 also runs the one-process steps on the global batch (the same
        route in float32, the plain routes in bf16 and float32).
-    2. Trainer.fit, 1 epoch of 4 images at train_batch 2, with its launches
-       and the checkpoint rank 0 alone writes; then the step's and the
-       gradient all-reduce's wall times.
-    3. The split MC engine: 48 members, chunk 16, K1 at offsets 0/8.
+    2. Trainer.fit, 1 epoch of 4 images at train_batch 2 (4 validation
+       images, 2 a rank), with its launches and the checkpoint rank 0
+       alone writes, and the route it took: under gloo the step program
+       steps eagerly (no graph), the validation forward is captured (its
+       second batch replays); then the step's and the gradient
+       all-reduce's wall times.
+    3. The split MC engine: 48 members, chunk 16, K1 at offsets 0/8, its
+       body chunks through its program, stepped eagerly under gloo.
     Returns rank 0's records and counts."""
     torch.backends.cudnn.allow_tf32 = False  # as main() sets them for the references
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2467,7 +2523,7 @@ def dp_rank() -> dict:
     del f32, bf16
 
     # 2. fit, then the step and the all-reduce alone
-    train_ds, val_ds = train_dataset(4, seed=1), train_dataset(2, seed=2)
+    train_ds, val_ds = train_dataset(4, seed=1), train_dataset(4, seed=2)
     model = train_model(mine)
     cfg = TrainerConfig(max_epochs=1, lr=DP_LR, momentum=0.99, clip_norm=0.5,
                         auto_lr_find=False, seed=0, verbose=False, train_batch=2)
@@ -2475,18 +2531,26 @@ def dp_rank() -> dict:
     model_info = os.path.join(DP_ROOT, f"rank{rank}", "model_info")
     reset_counts()
     t0 = time.perf_counter()
-    fit_state, history, keeper = trainer.fit(train_ds, val_ds, model_info, params=mine)
+    with step_programs() as made, forward_programs() as made_forward:
+        fit_state, history, keeper = trainer.fit(train_ds, val_ds, model_info, params=mine)
     torch.cuda.synchronize()
     fit_seconds = time.perf_counter() - t0
     fit_counts, fit_steps = counts(), fit_state.step
     assert_wgmma(f"dp fit rank {rank}")
+    # gloo: the steps take the table route eagerly, the forwards capture
+    route = {"backend": mesh.backend, "captures_steps": trainer.captures_steps,
+             "captures_forwards": trainer.captures_forwards,
+             "step_programs": [(p.captures, p.at, len(p.graphs)) for p in made],
+             "forward_graphs": [sorted(role for role, _ in p.graphs) for p in made_forward]}
+    made.clear()
+    made_forward.clear()
     rows = shard_batch(batch, mesh)
     step_ms = wall_ms(lambda: trainer.train_step(fit_state, *rows, DP_LR), 3)
     flat = torch.zeros(sum(p.numel() for p in fit_state.params), device=DEV)
     allreduce_ms = wall_ms(lambda: all_reduce_grads_([flat], mesh), 3)
     times = all_gather(torch.tensor([[step_ms, allreduce_ms, fit_seconds]], dtype=torch.float64,
                                     device=DEV), mesh)
-    out["fit"] = {"launches": fit_counts, "history": history, "step": fit_steps,
+    out["fit"] = {"launches": fit_counts, "history": history, "step": fit_steps, "route": route,
                   "kept": None if keeper is None else os.listdir(model_info),
                   "step_ms_by_rank": times[:, 0].tolist(),
                   "grad_allreduce_ms_by_rank": times[:, 1].tolist(),
@@ -2506,7 +2570,9 @@ def dp_rank() -> dict:
     mean, std, saved, *_ = engine.predict(im, gt, mask, P_DROP)
     torch.cuda.synchronize()
     out["mc"] = {"launches": counts(), "seconds": time.perf_counter() - t0,
-                 "outputs": tuple(t.cpu() for t in (mean, std, saved))}
+                 "outputs": tuple(t.cpu() for t in (mean, std, saved)),
+                 "route": {"program": engine.program, "captures": engine.captures,
+                           "graphs": [p.graph is not None for p in engine.programs.values()]}}
     assert_wgmma(f"dp MC rank {rank}")
     return out
 
@@ -2529,7 +2595,7 @@ def run_dp_phase(mc_slice: dict) -> dict:
           "clip 0.5, global batch 2 (1 row per rank)", **step})
     if not ok_step:
         raise AssertionError(f"dp step: {step}")
-    steps, val_per_rank = 2, 1
+    steps, val_per_rank = 2, 2
     want = {"dropblock_fused_apply": 0, "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
             "conv3x3_pair": 6 * steps + 3 * val_per_rank, "conv3x3_pair_dx": 3 * steps,
             "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0, "rotate_fan_table": 0}
@@ -2540,7 +2606,12 @@ def run_dp_phase(mc_slice: dict) -> dict:
           "step_ms_by_rank": fit["step_ms_by_rank"],
           "grad_allreduce_ms_by_rank": fit["grad_allreduce_ms_by_rank"],
           "grad_allreduce_mb": fit["grad_allreduce_mb"],
-          "fit_seconds_by_rank": fit["fit_seconds_by_rank"]})
+          "fit_seconds_by_rank": fit["fit_seconds_by_rank"], "route_rank0": fit["route"]})
+    eager_tables = {"backend": "gloo", "captures_steps": False, "captures_forwards": True,
+                    "step_programs": [(False, steps, 0)], "forward_graphs": [["val"]]}
+    if fit["route"] != eager_tables:
+        raise AssertionError(f"dp fit under gloo: route {fit['route']}, expected the eager "
+                             f"table route and captured forwards {eager_tables}")
     if fit["launches"] != want or fit["step"] != steps:
         raise AssertionError(f"dp fit launches {fit['launches']}, expected {want}")
     if not (fit["kept"] and len(fit["kept"]) == 1) or os.path.exists(rank1_dir):
@@ -2558,7 +2629,10 @@ def run_dp_phase(mc_slice: dict) -> dict:
     gate = 2.0 * mc_slice["bf16_noise"]
     emit({"phase": "dp-mc", "members": 48, "chunk": CHUNK, "launches_rank0": mc["launches"],
           "seconds": mc["seconds"], "max_abs_vs_one_process": diffs,
-          "gate_twice_plain_bf16_vs_f32": gate})
+          "gate_twice_plain_bf16_vs_f32": gate, "route_rank0": mc["route"]})
+    if mc["route"] != {"program": True, "captures": False, "graphs": [False]}:
+        raise AssertionError(f"dp MC under gloo: route {mc['route']}, expected the program "
+                             "stepped eagerly")
     if mc["launches"] != want_mc or max(diffs.values()) > gate:
         raise AssertionError(f"dp MC: launches {mc['launches']} (want {want_mc}), "
                              f"differences {diffs} against {gate}")
@@ -2568,16 +2642,13 @@ def run_dp_phase(mc_slice: dict) -> dict:
     return {"dp_train": fit["launches"], "dp_mc": mc["launches"]}
 
 
-def run_dp_nccl(state) -> None:
+def check_nccl_step(state, mesh) -> None:
     """NCCL at world size 1: the trainer's data-parallel step bit-equal to the
     plain trainer's step (cuDNN convs in deterministic mode, the K2 masks),
     so the NCCL route of every collective in the step runs on the card."""
-    multihost_initialize(f"tcp://127.0.0.1:{launch.free_port()}", 1, 0)
     flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
-        backend = dist.get_backend()
-        mesh = make_mesh(device=DEV)
         ds = train_dataset(1, seed=3)
         batch = tuple(torch.as_tensor(a, device=DEV) for a in ds[np.arange(1)])
         site_keys = tunet.draw_site_keys(TRAIN_SITES, torch.Generator().manual_seed(4)).to(DEV)
@@ -2593,19 +2664,216 @@ def run_dp_nccl(state) -> None:
             runs[name] = (loss, flat_params(model),
                           torch.cat([v.reshape(-1) for v in st.momentum_buffers()]))
         torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
 
-        def same(a, b):
-            return all(torch.equal(x, y) for x, y in zip(runs[a], runs[b]))
-        rec = {"backend": backend, "plain_repeats_bit_equal": same("plain", "plain_again"),
-               "nccl_bit_equal_plain": same("nccl", "plain"),
-               "loss": float(runs["nccl"][0]),
-               "params_max_abs": float((runs["nccl"][1] - runs["plain"][1]).abs().max())}
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(runs[a], runs[b]))
+    rec = {"backend": mesh.backend, "plain_repeats_bit_equal": same("plain", "plain_again"),
+           "nccl_bit_equal_plain": same("nccl", "plain"),
+           "loss": float(runs["nccl"][0]),
+           "params_max_abs": float((runs["nccl"][1] - runs["plain"][1]).abs().max())}
+    emit({"phase": "dp-nccl", "world_size": 1, **rec})
+    if mesh.backend != "nccl" or not rec["nccl_bit_equal_plain"]:
+        raise AssertionError(f"dp-nccl: {rec}")
+
+
+def replayed_collectives(counts_by_key: dict) -> dict:
+    """{str(key): {collective: calls}} of a program's replay counts
+    (ops/cuda/launches.py: the collectives that one replay runs)."""
+    return {str(key): {k[11:]: v for k, v in c.items() if k.startswith("collective:")}
+            for key, c in counts_by_key.items()}
+
+
+def run_nccl_batched(state, mesh, ref: dict) -> tuple:
+    """eval-program's batched fit and lr_find (batched_run) under the NCCL
+    mesh through the captured step programs, against the same under the
+    mesh with every step from the host (program=False) and against the
+    mesh-less captured run of eval-program (`ref`), each by
+    compare_batched; every captured step holds its psums and the gradient
+    all-reduce. Returns the captured fit's and lr_find's launches."""
+    out_root = os.path.join(ROOT, "_runs", "chip_smoke_dp_nccl")
+    shutil.rmtree(out_root, ignore_errors=True)
+    runs = {program: batched_run(state, program, os.path.join(out_root, f"program_{program}"),
+                                 mesh) for program in (False, True)}
+    cap, host = runs[True], runs[False]
+    vs_host, ok_host = compare_batched(cap, host)
+    vs_meshless, ok_meshless = compare_batched(cap, ref)
+    collectives = {"fit": cap["step_collectives"], "lr_find": cap["lr_find_collectives"]}
+    held = all(c.get("psum", 0) >= 1 and c.get("all_reduce_grads", 0) == 1
+               for part in collectives.values() for c in part.values())
+    row = {"phase": "dp-nccl", "part": "batched fit + lr_find", "card": card(), "world_size": 1,
+           "backend": mesh.backend, "captures": cap["captures"],
+           "config": "canonical 31M, bf16, remat, dependent b=7 ramp 0->0.15 over 9 steps, "
+                     "pair + kernel masks, SGD 1e-3 momentum 0.99 clip 0.5, train_batch 2, "
+                     "val_batch 2, 5 + 3 images, 3 epochs (steps of 2, 2, 1 rows), "
+                     f"lr_find {BATCHED_SWEEP} steps",
+           "graphs": cap["graphs"], "lr_find_graphs": cap["lr_find_graphs"],
+           "collectives_per_replay": collectives, "step_ms": cap["step_ms"],
+           "val_ms": cap["val_ms"],
+           "fit_seconds": {"captured": cap["seconds"], "host": host["seconds"],
+                           "meshless_captured": ref["seconds"]},
+           "lr_find_seconds": {"captured": cap["lr_find_seconds"],
+                               "host": host["lr_find_seconds"],
+                               "meshless_captured": ref["lr_find_seconds"]},
+           "peak_gib": {"captured": cap["peak_gib"], "host": host["peak_gib"],
+                        "meshless_captured": ref["peak_gib"]},
+           "vs_host": vs_host, "vs_meshless": vs_meshless,
+           "launches": {"fit": cap["launches"], "lr_find": cap["lr_find_launches"]}}
+    emit(row)
+    if not (ok_host and ok_meshless and held and cap["captures"] == [True, True]
+            and host["captures"] == [False, False] and host["programs"] == 0
+            and cap["graphs"] == cap["lr_find_graphs"] == [(-1, 1), (-1, 2)]
+            and cap["launches"] == train_want(BATCHED_STEPS, BATCHED_EPOCHS * 2)):
+        raise AssertionError(f"dp-nccl batched fit: {row}")
+    shutil.rmtree(out_root, ignore_errors=True)
+    return cap["launches"], cap["lr_find_launches"]
+
+
+def run_nccl_forwards(state, mesh, ref: dict) -> dict:
+    """Trainer.validate and Trainer.predict under the NCCL mesh (eval-
+    program's `none` part: EVAL_IMAGES images, the same weights), through
+    the forward program against program=False under the mesh and against
+    eval-program's mesh-less captured run (`ref`): the loss and predict's
+    outputs within twice the plain bf16 route's distance from float32
+    there, equal launches. Returns the captured route's launches."""
+    ds = train_dataset(EVAL_IMAGES, seed=7)
+    res = {}
+    for program in (True, False):
+        model = train_model(state)
+        trainer = Trainer(model, POLICIES["none"], TrainerConfig(verbose=False), mesh=mesh,
+                          device=DEV, program=program)
+        reset_counts()
+        t0 = time.perf_counter()
+        val = trainer.validate(None, ds)
+        preds = [p[1:] for p in trainer.predict(None, ds)]
+        torch.cuda.synchronize()
+        res[program] = {"val": val, "preds": preds, "launches": counts(),
+                        "seconds": time.perf_counter() - t0,
+                        "captures": trainer.captures_forwards,
+                        "graphs": sorted(role for role, _ in trainer._forward.graphs)}
+        del trainer, model
+    cap, host = res[True], res[False]
+    names = ("seg", "im", "gt", "mask")
+    dists = {"host": (abs(cap["val"] - host["val"]), output_dists(cap["preds"], host["preds"])),
+             "meshless": (abs(cap["val"] - ref["val"]), output_dists(cap["preds"], ref["preds"]))}
+    want = {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3 * 2 * EVAL_IMAGES}
+    row = {"phase": "dp-nccl", "part": "validate + predict", "card": card(),
+           "captures": [cap["captures"], host["captures"]], "graphs": cap["graphs"],
+           "val_loss": {"captured": cap["val"], "host": host["val"], "meshless": ref["val"]},
+           "val_dist": {k: d[0] for k, d in dists.items()},
+           "pred_dist": {k: dict(zip(names, d[1])) for k, d in dists.items()},
+           "val_noise_bf16_f32": ref["val_noise"],
+           "pred_noise_bf16_f32": dict(zip(names, ref["pred_noise"])),
+           "seconds": {"captured": cap["seconds"], "host": host["seconds"]},
+           "launches": cap["launches"]}
+    emit(row)
+    if not (cap["launches"] == host["launches"] == want and cap["captures"]
+            and not host["captures"] and cap["graphs"] == ["predict", "val"]
+            and np.isfinite(cap["val"])
+            and all(d[0] <= 2.0 * ref["val_noise"]
+                    and all(x <= 2.0 * n for x, n in zip(d[1], ref["pred_noise"]))
+                    for d in dists.values())):
+        raise AssertionError(f"dp-nccl forwards: {row}")
+    return cap["launches"]
+
+
+def run_nccl_mc(state, mesh, noise: float) -> dict:
+    """The 172-member MC engine (mc-program's) under the NCCL mesh through
+    its captured program (the chunk's members and their all_gather in one
+    graph), against the same under the mesh with every chunk from the host
+    and against the mesh-less captured engine, from one seed: launches
+    equal (K1, K3 credited per replay), the statistics within twice the
+    plain bf16 route's distance from float32 (`noise`), at least one
+    collective in the graph; the replayed and eager chunk ms, the
+    capture's seconds, each route's seconds and peaks. Returns the
+    captured route's launches."""
+    model = model_for(state)
+    im, gt, mask = synthetic_image()
+    members, ret = 172, 4
+    outside, body = ensemble_chunks(members, ret, CHUNK)
+    engines = {route: MCDropBlockEngine(model, num_iterations=members, return_num=ret,
+                                        chunk=CHUNK, device=DEV, program=route != "host",
+                                        mesh=None if route == "meshless" else mesh)
+               for route in ("host", "captured", "meshless")}
+    forwards = outside + body
+    want = {"dropblock_fused_apply": 22 * forwards, "conv3x3_pair": 3 * forwards}
+    runs = {}
+    for route, engine in engines.items():
+        def call(engine=engine):
+            return engine.predict(im, gt, mask, P_DROP,
+                                  generator=torch.Generator().manual_seed(3))[:3]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        call()  # the captured routes' warm-up chunk and capture
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        outputs = call()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        expect_launches(f"dp-nccl MC {route}", counts(), want)
+        runs[route] = {"outputs": outputs, "seconds": seconds, "captures": engine.captures,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    (prog,) = engines["captured"].programs.values()
+    with torch.inference_mode():
+        zero = torch.zeros_like(prog.index)
+
+    def chunk(fn):
+        def run():
+            with torch.inference_mode():
+                prog.index.copy_(zero)
+                fn()
+        return run
+
+    replay_ms = time_ms(chunk(prog.graph.replay), 5)
+    eager_ms = time_ms(chunk(prog.step), 3)
+    collectives = replayed_collectives({"chunk": prog.replay_counts})["chunk"]
+    diffs = {other: {name: float((a - b).abs().max())
+                     for name, a, b in zip(("mean", "std", "saved"), runs["captured"]["outputs"],
+                                           runs[other]["outputs"])}
+             for other in ("host", "meshless")}
+    row = {"phase": "dp-nccl", "part": "mc", "card": card(), "members": members,
+           "chunk": CHUNK, "return_num": ret, "body_chunks": body,
+           "captures": {r: v["captures"] for r, v in runs.items()},
+           "collectives_per_replay": collectives, "replay_launches": prog.replay_counts,
+           "replayed_chunk_ms": replay_ms, "eager_chunk_ms": eager_ms,
+           "capture_seconds": prog.capture_seconds,
+           "seconds": {r: v["seconds"] for r, v in runs.items()},
+           "passes_per_s": {r: members / v["seconds"] for r, v in runs.items()},
+           "peak_gib": {r: v["peak_gib"] for r, v in runs.items()},
+           "max_abs_captured_vs": diffs, "gate": 2.0 * noise}
+    emit(row)
+    if not (runs["captured"]["captures"] and not runs["host"]["captures"]
+            and collectives.get("all_gather", 0) >= 1
+            and all(d <= 2.0 * noise for part in diffs.values() for d in part.values())):
+        raise AssertionError(f"dp-nccl MC: {row}")
+    check_outputs(*runs["captured"]["outputs"], ret)
+    return {**{name: 0 for name in COUNTERS}, **want}
+
+
+def run_dp_nccl(state, refs: dict, noise: float) -> dict:
+    """Phase `dp-nccl`: one NCCL rank on the card (world size 1; NCCL
+    refuses two ranks on one card): the eager mesh step bit-equal to the
+    plain step (check_nccl_step), then the mesh programs captured under
+    NCCL against the host's routes and the mesh-less programs
+    (run_nccl_batched, run_nccl_forwards, run_nccl_mc; `refs` are
+    eval-program's mesh-less runs, `noise` the MC gate's). Returns each
+    part's launches."""
+    multihost_initialize(f"tcp://127.0.0.1:{launch.free_port()}", 1, 0)
+    t0 = time.perf_counter()
+    try:
+        mesh = make_mesh(device=DEV)
+        check_nccl_step(state, mesh)
+        fit, sweep = run_nccl_batched(state, mesh, refs["batched"])
+        forwards = run_nccl_forwards(state, mesh, refs["forwards"])
+        mc = run_nccl_mc(state, mesh, noise)
     finally:
         dist.destroy_process_group()
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
-    emit({"phase": "dp-nccl", "world_size": 1, **rec})
-    if backend != "nccl" or not rec["nccl_bit_equal_plain"]:
-        raise AssertionError(f"dp-nccl: {rec}")
+    emit({"phase": "dp-nccl", "seconds": time.perf_counter() - t0})
+    return {"dp_nccl_fit": fit, "dp_nccl_lr_find": sweep, "dp_nccl_forwards": forwards,
+            "dp_nccl_mc": mc}
 
 
 # --- the CLIs ---------------------------------------------------------------
@@ -3550,9 +3818,10 @@ def main() -> None:
     train, steps = run_train_slice(state)
     run_train_scan(state)
     step_program = run_train_step_program(state)
-    eval_program = run_eval_program(state)
+    eval_program, eval_refs = run_eval_program(state)
     dp = run_dp_phase(launches)
-    run_dp_nccl(state)
+    dp.update(run_dp_nccl(state, eval_refs, launches["bf16_noise"]))
+    del eval_refs
     cli = run_cli_phase()
     data = run_drive_augment_phase()
     cli.update(run_mf_cli_phase(data))

@@ -120,11 +120,15 @@ def test_mc_program_is_cached_per_drop_prob_and_shape(rng):
 
 
 def test_mesh_engine_runs_every_chunk_from_the_host():
+    """Under a mesh the engine keeps its program (its chunk step is the
+    split chunk and its all_gather), but on the CPU, as under gloo, every
+    chunk is launched from the host: nothing captures."""
     from unet_research_tpu_torch.parallel import Mesh
 
     model = tunet.UNet(tunet.canonical_config(**SMALL), device="cpu")
-    mesh = Mesh(None, 2, 1, 0, torch.device("cpu"))
-    assert not MCDropBlockEngine(model, chunk=4, device="cpu", mesh=mesh).program
+    mesh = Mesh(None, 2, 1, 0, torch.device("cpu"), backend="gloo")
+    engine = MCDropBlockEngine(model, chunk=4, device="cpu", mesh=mesh)
+    assert engine.program and not engine.captures
     assert MCDropBlockEngine(model, chunk=4, device="cpu").program
 
 

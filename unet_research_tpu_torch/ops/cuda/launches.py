@@ -2,12 +2,21 @@
 capture of a CUDA graph that keeps them.
 
 Each wrapper adds one to its `launches` where it launches its kernel (and
-conv3x3_pair's launches are also counted by kernel in `path_launches`). A
-CUDA graph replays the kernels that its capture recorded without calling a
-wrapper, so whoever replays one credits the counts that the capture added
-(`since`), once per replay (`credit`), and takes them back from the capture
-itself, which launched nothing (`capture`). `KeyedGraphs` keeps one such
-graph per key, each after eager warm-up runs of its own.
+conv3x3_pair's launches are also counted by kernel in `path_launches`);
+each collective of parallel/mesh.py adds one to its count in `calls`. A
+CUDA graph replays the kernels and collectives that its capture recorded
+without calling a wrapper, so whoever replays one credits the counts that
+the capture added (`since`), once per replay (`credit`), and takes them
+back from the capture itself, which launched nothing (`capture`).
+`KeyedGraphs` keeps one such graph per key, each after eager warm-up runs
+of its own.
+
+Whether a program captures at all is decided once, when it is built
+(`captures_on_card`): on the card, unless the caller asked for the host's
+route (program=False), and, when the captured work holds collectives of a
+mesh, only under NCCL, whose collectives a graph can hold. Under gloo the
+same program runs every step eagerly on the card. Nothing decides it
+after a failed capture: a failed capture or replay raises.
 """
 
 from __future__ import annotations
@@ -20,17 +29,28 @@ from typing import Callable
 import torch
 
 from unet_research_tpu_torch.ops.cuda import dropblock_kernel, pair_conv, shear_rotate
+from unet_research_tpu_torch.parallel import mesh as _mesh
 
 WRAPPERS = (dropblock_kernel.dropblock_fused_apply, dropblock_kernel.dropblock_mask,
             pair_conv.conv3x3_pair, pair_conv.conv3x3_pair_dx, pair_conv.conv3x3_pair_fold,
             shear_rotate.rotate_fan, shear_rotate.rotate_fan_table)
 
 
+def captures_on_card(program: bool = True, mesh=None) -> bool:
+    """Whether a program captures its graphs when it runs on the card:
+    unless program is False (the host's route), and, where `mesh` is the
+    mesh whose collectives the captured work holds (None: it holds none),
+    only when a graph can hold them: NCCL's collectives are kernels on the
+    card, gloo's run on the host. On the CPU nothing captures."""
+    return bool(program) and (mesh is None or mesh.backend == "nccl")
+
+
 def snapshot() -> dict:
-    """Every count now: {wrapper name: launches} and {"path:<kernel>": K3
-    launches by kernel}."""
+    """Every count now: {wrapper name: launches}, {"path:<kernel>": K3
+    launches by kernel} and {"collective:<kind>": calls}."""
     counts = {fn.__name__: fn.launches for fn in WRAPPERS}
     counts.update({f"path:{k}": v for k, v in pair_conv.path_launches.items()})
+    counts.update({f"collective:{k}": v for k, v in _mesh.calls.items()})
     return counts
 
 
@@ -47,6 +67,8 @@ def credit(counts: dict, times: int = 1) -> None:
     for k, v in counts.items():
         if k.startswith("path:"):
             pair_conv.path_launches[k[5:]] += v * times
+        elif k.startswith("collective:"):
+            _mesh.calls[k[11:]] += v * times
         else:
             by_name[k].launches += v * times
 
@@ -85,22 +107,35 @@ class KeyedGraphs:
     each recorded after WARMUP eager runs of its own, as PyTorch's CUDA
     graph notes ask: the first run of a shape does the one-time work that
     a capture cannot hold (the kernel libraries' loading, K3's
-    shared-memory limit, cuDNN's plans). Subclasses set WARMUP."""
+    shared-memory limit, cuDNN's plans, NCCL's communicator). Subclasses
+    set WARMUP.
+
+    captures: False runs every call eagerly (captures_on_card decided it
+    when the program was built). mesh: the mesh whose collectives fn
+    holds, or None. Its ranks run the same keys in the same order, so
+    each rank warms up, captures and replays in step with the others; the
+    ranks agree on a key before its capture (parallel/mesh.py::agree) and
+    all raise when they do not."""
 
     WARMUP = 1
 
-    def __init__(self):
+    def __init__(self, captures: bool = True, mesh=None):
+        self.captures, self.mesh = captures, mesh
         self.warm = collections.Counter()  # eager runs so far, by key
-        # by key: the graph, the kernel launches of one replay and the
-        # capture's seconds
+        # by key: the graph, the kernel launches and collectives of one
+        # replay and the capture's seconds
         self.graphs, self.replay_counts, self.capture_seconds = {}, {}, {}
 
     def run(self, key, fn: Callable[[], None], device: torch.device) -> bool:
         """fn() for `key` on the card: eagerly on a side stream while the
         key has had fewer than WARMUP eager runs, else a replay of its
         graph, which is recorded from fn first (`capture`; fn does not run
-        then), crediting the capture's counts. Returns whether the graph
-        replayed. A failed capture or replay raises."""
+        then), crediting the capture's counts; without `captures`, fn()
+        eagerly. Returns whether the graph replayed. A failed capture or
+        replay raises."""
+        if not self.captures:
+            fn()
+            return False
         graph = self.graphs.get(key)
         if graph is None and self.warm[key] < self.WARMUP:
             self.warm[key] += 1
@@ -111,6 +146,8 @@ class KeyedGraphs:
             torch.cuda.current_stream(device).wait_stream(side)
             return False
         if graph is None:
+            if self.mesh is not None:
+                _mesh.agree(key, self.mesh)
             graph, self.replay_counts[key], self.capture_seconds[key] = capture(fn)
             self.graphs[key] = graph
         graph.replay()

@@ -14,11 +14,17 @@ and the initial weights (`broadcast_`).
 Every collective is an all-reduce or a broadcast of a tensor on the mesh's
 device, so it runs on NCCL (one rank per card) and on gloo (CPU tensors,
 or CUDA tensors through the host: the way two ranks share one card, which
-NCCL refuses).
+NCCL refuses). NCCL's collectives are kernels on the card, which a CUDA
+graph can hold; gloo's run on the host, which a graph cannot
+(ops/cuda/launches.py::captures_on_card). Each call of a collective adds one to its count
+in `calls`; ops/cuda/launches.py reads and credits these with the kernels'
+launch counts, so a captured program's graph says how many collectives
+one replay runs. `agree` holds the ranks to one graph before a capture.
 """
 
 from __future__ import annotations
 
+import zlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -26,19 +32,27 @@ import torch.distributed as dist
 
 from unet_research_tpu_torch.device import resolve_device
 
+# Calls so far of each collective, by kind (the two passes of a psum count
+# once each).
+calls = dict.fromkeys(("psum", "all_gather", "broadcast", "all_reduce_grads", "barrier"), 0)
+
 
 class Mesh:
     """A ('data', 'model') mesh over the ranks of the default process group.
     The 'model' axis is reserved, as in JAX, and has size 1. `device` is
-    this rank's device: every collective's tensors live there."""
+    this rank's device: every collective's tensors live there. `backend`:
+    the process group's ('nccl' or 'gloo'; None for a mesh built by hand,
+    which runs no collective)."""
 
     axis_names = ("data", "model")
 
-    def __init__(self, group, data: int, model: int, rank: int, device: torch.device):
+    def __init__(self, group, data: int, model: int, rank: int, device: torch.device,
+                 backend: Optional[str] = None):
         self.group = group
         self.shape = {"data": data, "model": model}
         self.rank = rank
         self.device = device
+        self.backend = backend
 
     @property
     def size(self) -> int:
@@ -75,7 +89,8 @@ def make_mesh(data: Optional[int] = None, model: int = 1, device=None) -> Mesh:
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return Mesh(dist.group.WORLD, data, model, dist.get_rank(), dev)
+    return Mesh(dist.group.WORLD, data, model, dist.get_rank(), dev, dist.get_backend())
+
 
 
 def shard_rows(n: int, mesh: Mesh) -> tuple[int, int]:
@@ -129,6 +144,7 @@ def rank_offset(mesh: Optional[Mesh], n: int) -> int:
 def _all_reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     y = x.detach().contiguous().clone()
     dist.all_reduce(y, group=mesh.group)
+    calls["psum"] += 1
     return y
 
 
@@ -158,6 +174,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     buf = torch.zeros((mesh.size,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     buf[mesh.rank] = x
     dist.all_reduce(buf, group=mesh.group)
+    calls["all_gather"] += 1
     return buf.reshape((mesh.size * x.shape[0],) + tuple(x.shape[1:]))
 
 
@@ -165,6 +182,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def broadcast_(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Rank 0's x into x on every rank, in place."""
     dist.broadcast(x, src=0, group=mesh.group)
+    calls["broadcast"] += 1
     return x
 
 
@@ -181,6 +199,7 @@ def all_reduce_grads_(grads: list, mesh: Mesh) -> None:
         return
     flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
     dist.all_reduce(flat, group=mesh.group)
+    calls["all_reduce_grads"] += 1
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
 
@@ -189,3 +208,18 @@ def barrier(mesh: Mesh) -> None:
     """Wait for every rank (an all-reduce of one element on the mesh's
     device, which both backends take)."""
     dist.all_reduce(torch.zeros(1, device=mesh.device), group=mesh.group)
+    calls["barrier"] += 1
+
+
+def agree(key, mesh: Mesh) -> None:
+    """Raise on every rank unless every rank passes an equal `key` (a
+    graph's key, before its capture): a rank that captured other work than
+    the others would wait in its collectives for ever. The key's repr is
+    hashed (CRC-32) and the words gathered, so every rank sees every word
+    and all raise together."""
+    word = torch.tensor([zlib.crc32(repr(key).encode())], dtype=torch.int64,
+                        device=mesh.device)
+    words = all_gather(word, mesh)
+    if not bool((words == words[0]).all()):
+        raise RuntimeError(f"the ranks would capture different graphs: rank {mesh.rank} holds "
+                           f"{key!r}, the ranks' key hashes are {words.tolist()}")

@@ -27,35 +27,50 @@ checkpoints and prints.
 
 Step programs (`_StepProgram`, the twin of JAX's jitted `train_step` and
 `train_step_indexed`, one program per static `size` and batch shape, and of
-its `train_epoch_scan`): every step without a mesh is train_step on inputs
-that it reads from tables on the device (each step's rows of the
-device-resident uint8 split, its site keys, drop probability and learning
-rate, filled on the host before a run of steps from the same shuffle,
-generator, ramp and learning rates as the per-step path) at a step index
-that it advances on the device. On the card the first steps of each
-(size, rows) run eagerly, then its step is captured once as a CUDA graph
-and replayed for every later step of that shape; on the CPU the same step
-runs eagerly. It computes the per-step path's numbers. A failed capture or
-replay raises. The runs are:
+its `train_epoch_scan`): every step is train_step on inputs that it reads
+from tables on the device (each step's rows of the device-resident uint8
+split, its site keys, drop probability and learning rate, filled on the
+host before a run of steps from the same shuffle, generator, ramp and
+learning rates as the per-step path) at a step index that it advances on
+the device. Under a mesh the tables hold this rank's rows of each global
+batch, cut as data/loading.py::shard_batch cuts them, and the keys, drop
+probabilities and learning rates that every rank draws alike from the
+broadcast seed; the step is the mesh step, its collectives included. On
+the card the first steps of each (size, rows) run eagerly, then its step is
+captured once as a CUDA graph and replayed for every later step of that
+shape; on the CPU the same step runs eagerly. It computes the per-step
+path's numbers. A failed capture or replay raises. The runs are:
 
 - scanned epochs (`TrainerConfig.scan_epochs`, on by default): under JAX's
   conditions (no size plan, batch 1, no detect_anomaly, no mesh) an epoch
   of one size, with one host synchronisation (the losses);
-- stepped epochs (a size plan, detect_anomaly, scan_epochs=False or
-  train_batch > 1, without a mesh): an epoch over the plan's sizes and
+- stepped epochs (a size plan, detect_anomaly, scan_epochs=False,
+  train_batch > 1 or a mesh): an epoch over the plan's sizes and
   batch_iterator's batches (no drop_last: a final partial batch gets a
   graph of its own, as JAX compiles one for its shape), the losses read
   once per epoch, or after every step under detect_anomaly, as JAX reads
-  them;
+  them; under a mesh JAX calls its jitted mesh step once a step and the
+  port replays the step's graph once a step;
 - lr_find's sweep: its learning rates in the table, the loss read after
   every step for the divergence stop.
 
 Forward programs (`ForwardProgram`, the twin of JAX's jitted `eval_step`
-and `predict_step`): validation (in fit and `validate`) and `predict`
-without a mesh copy each batch into static buffers of its shape; on the
-card the first forward of each (role, shape) runs eagerly, then it is
-captured once and replayed. Validation adds each batch's loss and a count
-into a float64 pair on the device, read once per validation.
+and `predict_step`): validation (in fit and `validate`) and `predict` copy
+each batch into static buffers of its shape; on the card the first forward
+of each (role, shape) runs eagerly, then it is captured once and replayed.
+Validation adds each batch's loss and a count into a float64 pair on the
+device, read once per validation (under a mesh summed over the ranks once,
+after the loop: the forwards hold no collective).
+
+Which programs capture is decided once, when the trainer is built, and
+exposed as `Trainer.captures_steps` and `Trainer.captures_forwards`
+(ops/cuda/launches.py::captures_on_card): on the card the forwards always
+capture; the steps capture without a mesh and under an NCCL mesh, whose
+collectives (the loss, BatchNorm and keep-count psums, the gradient
+all-reduce) become nodes of the step's graph, as XLA's psum is part of
+JAX's jitted step. Under a gloo mesh (two ranks sharing one card) the step
+program runs each step eagerly on the card: gloo's collectives run on the
+host, which a graph cannot hold. On the CPU every program runs eagerly.
 
 `Trainer(program=False)` and `lr_find(program=False)` (port-only) run the
 stepped epochs', the sweep's steps and the forwards from the host (the
@@ -81,7 +96,7 @@ import numpy as np
 import torch
 
 from unet_research_tpu_torch.data.dataset import ArrayDataset
-from unet_research_tpu_torch.data.loading import batch_iterator, to_device
+from unet_research_tpu_torch.data.loading import batch_iterator, shard_batch, to_device
 from unet_research_tpu_torch.device import resolve_device
 from unet_research_tpu_torch.models.unet import UNet, draw_site_keys
 from unet_research_tpu_torch.ops.cuda import launches
@@ -133,7 +148,10 @@ class Trainer:
     mesh: data-parallel over its ranks (module docstring); the mesh's size
     must divide `train_batch`. program=False (port-only): the stepped
     epochs', lr_find's steps and the forwards of validation and predict run
-    from the host (module docstring)."""
+    from the host (module docstring). `captures_steps` and
+    `captures_forwards` say whether the step and forward programs capture
+    CUDA graphs, decided here from the device, `program` and the mesh's
+    backend."""
 
     def __init__(self, model: UNet, policy: ResizePolicy, cfg: TrainerConfig, mesh=None,
                  device=None, program: bool = True):
@@ -152,6 +170,9 @@ class Trainer:
         self.has_dropblock = model.cfg.dropblock.kind is not None
         self.key_generator = torch.Generator().manual_seed(max(cfg.seed, 0))
         self.program = program
+        on_card = self.device.type == "cuda"
+        self.captures_steps = on_card and launches.captures_on_card(program, mesh)
+        self.captures_forwards = on_card and launches.captures_on_card(program)
         self._program = None  # the fit's step program (_StepProgram)
         self._forward = None  # validation's and predict's (ForwardProgram)
 
@@ -259,10 +280,9 @@ class Trainer:
 
     def _forward_program(self) -> "ForwardProgram":
         """The trainer's forward program, which runs every forward from the
-        host under program=False or a mesh."""
+        host under program=False."""
         if self._forward is None:
-            self._forward = ForwardProgram(self.device,
-                                           capture=self.program and self.mesh is None)
+            self._forward = ForwardProgram(self.device, capture=self.program)
         return self._forward
 
     @torch.no_grad()
@@ -325,7 +345,7 @@ class Trainer:
         shuffle = not self.policy.uses_size_plan  # MF plans index by batch_idx
         use_scan = self.scans(size_plan)
         # the steps index the device-resident split (else batch_iterator's)
-        indexed = cfg.train_batch == 1 or (self.program and self.mesh is None)
+        indexed = cfg.train_batch == 1 or self.program
         dev_data = None
         try:
             for epoch in range(start_epoch, cfg.max_epochs):
@@ -386,14 +406,14 @@ class Trainer:
                     epoch) -> np.ndarray:
         """One epoch a step at a time: the batches of items `order` of the
         device-resident split, as batch_iterator cuts them (through the step
-        program without a mesh, unless program=False; else at batch 1 from
-        the host), or batch_iterator's host batches (order None). Returns
-        the float32 losses that the log gate keeps."""
+        program unless program=False; else at batch 1 from the host), or
+        batch_iterator's host batches (order None). Returns the float32
+        losses that the log gate keeps."""
         cfg = self.cfg
         prog = None
         if order is not None:
             table, rows = _cut_batches(order, cfg.train_batch)
-            if self.mesh is None and self.program:
+            if self.program:
                 prog = self._program_for(state, dev_data, len(table), cfg.train_batch)
                 prog.fill(table, lr, rows)
             items = enumerate(table)
@@ -423,8 +443,8 @@ class Trainer:
     def _mean_val_loss(self, ds: ArrayDataset, batch: int) -> float:
         """The mean of the batches' losses, summed with their count in a
         float64 pair on the device and read once; the batches go through the
-        trainer's forward program (captured on the card without a mesh,
-        unless program=False). Under a mesh rank r takes
+        trainer's forward program (captured on the card unless
+        program=False). Under a mesh rank r takes
         batches r, r + R, ...; the ranks' pairs are all-reduced, so every
         rank reads the same mean."""
         forward = self._forward_program()
@@ -475,13 +495,14 @@ class ForwardProgram(launches.KeyedGraphs):
     and predict_step, compiled per input shape (module docstring).
 
     Calling it with (role, fn, im, gt, mask) runs fn on the batch under
-    torch.no_grad(). On the CPU, or with capture=False (program=False, a
-    mesh), fn runs on the batch itself, from the host. On the card the
-    batch is copied into its shape's buffers and fn runs on them through
+    torch.no_grad(). On the CPU, or with capture=False (program=False), fn
+    runs on the batch itself, from the host. On the card the batch is
+    copied into its shape's buffers and fn runs on them through
     launches.KeyedGraphs.run: one eager call per (role, shape), then its
-    capture and replays. fn must be the same function of the buffers for
-    one role, and what it returns on the card is the graph's output, valid
-    until the next call. A failed capture or replay raises.
+    capture and replays; fn holds no collective, so this holds under any
+    mesh. fn must be the same function of the buffers for one role, and
+    what it returns on the card is the graph's output, valid until the next
+    call. A failed capture or replay raises.
 
     The program keeps no reference to fn or to its owner, so a trainer that
     drops it frees its graphs at once."""
@@ -489,8 +510,8 @@ class ForwardProgram(launches.KeyedGraphs):
     WARMUP = 1  # eager calls of a (role, shape) before its capture
 
     def __init__(self, device, capture: bool = True):
-        super().__init__()
-        self.device, self.captures = torch.device(device), capture
+        super().__init__(capture)
+        self.device = torch.device(device)
         self.sums = None  # zeroed_sums' pair
         self.buffers = {}  # by input shapes: the static (im, gt, mask)
         self.outputs = {}  # by (role, shapes): the graph's output
@@ -525,7 +546,10 @@ class ForwardProgram(launches.KeyedGraphs):
 class _StepProgram(launches.KeyedGraphs):
     """The static buffers of runs of steps of one TrainState on batches of
     up to `batch` items and, on the card, one captured step per (size,
-    rows) (module docstring).
+    rows) (module docstring). Under the trainer's mesh `batch` is the
+    global batch, the tables hold this rank's rows (batch/R at most) and
+    `rows` counts them; whether the steps capture is the trainer's
+    captures_steps.
 
     The step reads every input that changes from step to step from tables
     on the device (each step's items, site keys, drop probabilities,
@@ -547,12 +571,14 @@ class _StepProgram(launches.KeyedGraphs):
 
     def __init__(self, trainer: Trainer, state: TrainState, data, num_steps: int,
                  batch: int = 1):
-        super().__init__()
+        mesh = trainer.mesh
+        super().__init__(launches.captures_on_card(True, mesh), mesh)
         self._trainer = weakref.ref(trainer)
         self.state, self.data, self.num_steps, self.batch = state, data, num_steps, batch
+        self.width = batch if mesh is None else batch // mesh.size  # this rank's rows at most
         dev = trainer.device
-        self.order = torch.zeros((num_steps, batch), dtype=torch.int64, device=dev)
-        self.rows = [batch] * num_steps  # each step's number of items, on the host
+        self.order = torch.zeros((num_steps, self.width), dtype=torch.int64, device=dev)
+        self.rows = [self.width] * num_steps  # each step's number of items, on the host
         self.at = 0  # the host's step index of the run
         self.index = torch.zeros(1, dtype=torch.int64, device=dev)
         self.losses = torch.zeros(num_steps, dtype=torch.float32, device=dev)
@@ -574,18 +600,22 @@ class _StepProgram(launches.KeyedGraphs):
         """The tables of a run of K steps from state.step (K = num_steps):
         step k on the items order[k] (a (K,) order: one item a step; a (K,
         batch) table: its first rows[k] items, all `batch` when rows is
-        None), the site keys drawn from the trainer's key_generator and the
+        None; under a mesh this rank's share of them, as shard_batch cuts
+        them), the site keys drawn from the trainer's key_generator and the
         drop probabilities of the ramp (Trainer.step_tables); `lr` one
         learning rate for every step, which also becomes the state's, or K
         of them. The step index goes to 0."""
         t, state = self.trainer, self.state
+        table = np.asarray(order, np.int64).reshape(self.num_steps, self.batch)
+        rows = np.full(self.num_steps, self.batch) if rows is None else np.asarray(rows)
+        if t.mesh is not None:
+            table, rows = _shard_table(table, rows, t.mesh)
         if t.has_dropblock:
             keys, drop_probs = t.step_tables(state.step, self.num_steps)
             self.keys.copy_(keys)
             self.drop_probs.copy_(drop_probs)
-        self.order.copy_(torch.from_numpy(
-            np.asarray(order, np.int64).reshape(self.num_steps, self.batch)))
-        self.rows = [self.batch] * self.num_steps if rows is None else np.asarray(rows).tolist()
+        self.order.copy_(torch.from_numpy(table))
+        self.rows = rows.tolist()
         if np.ndim(lr) == 0:
             state.set_lr(float(lr))  # the optimizer's, which checkpoints keep
         self.lrs.copy_(torch.tensor(np.broadcast_to(np.float32(lr), (self.num_steps,))))
@@ -594,23 +624,24 @@ class _StepProgram(launches.KeyedGraphs):
 
     def step(self, size: int = -1, rows: Optional[int] = None) -> None:
         """One train step at the step index on its first `rows` items
-        (`batch` when None), on the buffers."""
+        (`width` when None), on the buffers."""
         t, idx = self.trainer, self.index
         inputs = {}
         if t.has_dropblock:
             inputs = dict(site_keys=self.keys.index_select(0, idx)[0],
                           drop_prob=self.drop_probs.index_select(0, idx)[0])
         self.state.lr_tensor.copy_(self.lrs.index_select(0, idx)[0])
-        items = self.order.index_select(0, idx)[0, :rows or self.batch]
+        items = self.order.index_select(0, idx)[0, :rows or self.width]
         loss = t.train_step_indexed(self.state, self.data, items, None, size, **inputs)
         self.losses.index_copy_(0, idx, loss.reshape(1))
         idx.add_(1)
 
     def advance(self, size: int = -1) -> None:
         """The run's next step at `size`: on the CPU the step itself; on the
-        card its (size, rows) through launches.KeyedGraphs.run. state.step
-        counts it either way (apply_gradients' count is Python, which
-        neither a capture keeps nor a replay runs)."""
+        card its (size, rows) through launches.KeyedGraphs.run (eagerly
+        when the program does not capture). state.step counts it either
+        way (apply_gradients' count is Python, which neither a capture
+        keeps nor a replay runs)."""
         rows = self.rows[self.at]
         self.at += 1
         dev = self.trainer.device
@@ -634,8 +665,9 @@ def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,
     trainer's mesh the probe steps are data-parallel steps, whose global
     losses take the same decisions on every rank.
 
-    Without a mesh the sweep runs through a step program of its own
-    (module docstring) on batch_iterator's batches of passes over the
+    The sweep runs through a step program of its own (module docstring; a
+    mesh's step under the trainer's mesh, captured as the trainer's
+    captures_steps says) on batch_iterator's batches of passes over the
     items, discarded at its end; program (port-only): False steps from the
     host, None takes the trainer's. Either way the trainer's key_generator
     ends where the steps that ran leave it."""
@@ -663,8 +695,7 @@ def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,
     batch = trainer.cfg.train_batch
     if program is None:
         program = trainer.program
-    programmed = program and trainer.mesh is None
-    indexed = batch == 1 or programmed
+    indexed = batch == 1 or program
 
     def shuffled():
         order = np.arange(len(train_ds))
@@ -675,7 +706,7 @@ def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,
     if indexed:
         data = to_device((train_ds.images, train_ds.targets, train_ds.masks), trainer.device)
     try:
-        if programmed:
+        if program:
             # one pass after another over the items, cut into batches as
             # batch_iterator cuts them, as the host steps take them
             per_pass = -(-len(train_ds) // batch)
@@ -738,6 +769,19 @@ def _program_sweep(trainer: Trainer, state: TrainState, data, table, rows, lrs, 
     if trainer.has_dropblock:
         trainer.key_generator.set_state(keys_at)
         trainer.step_tables(0, ran)
+
+
+def _shard_table(table: np.ndarray, rows: np.ndarray, mesh) -> tuple:
+    """This rank's share of a (K, batch) table of global batches whose row
+    k holds rows[k] items: each batch's items cut by shard_batch (which
+    raises when the ranks do not divide a batch), as batch_iterator feeds
+    the rank. Returns the (K, batch/R) table, zero-padded, and each row's
+    number of items."""
+    local = np.zeros((len(table), table.shape[1] // mesh.size), np.int64)
+    for k, (items, n) in enumerate(zip(table, rows)):
+        mine = shard_batch(items[:n], mesh)
+        local[k, :len(mine)] = mine
+    return local, np.asarray(rows) // mesh.size
 
 
 def _cut_batches(order: np.ndarray, batch: int) -> tuple:

@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from unet_research_tpu_torch.ops.cuda import launches
+from unet_research_tpu_torch.parallel.mesh import agree
 
 
 def _batch_stats(outs: torch.Tensor):
@@ -150,8 +151,9 @@ class EnsembleProgram:
     WARMUP = 1
 
     def __init__(self, members: Callable[["EnsembleProgram"], torch.Tensor], image_shape,
-                 tables: dict, device: torch.device):
+                 tables: dict, device: torch.device, captures: bool = True, mesh=None):
         self.members = members
+        self.captures, self.mesh = captures, mesh
         self.image = torch.zeros(image_shape, dtype=torch.float32, device=device)
         self.mask = torch.zeros(image_shape, dtype=torch.float32, device=device)
         self.tables = tables
@@ -177,7 +179,11 @@ class EnsembleProgram:
         self.index.add_(1)
 
     def capture(self) -> None:
-        """Record one step as a CUDA graph (launches.capture)."""
+        """Record one step as a CUDA graph (launches.capture), once the
+        mesh's ranks agree on the program."""
+        if self.mesh is not None:
+            agree(("ensemble", tuple(self.image.shape), tuple(self.mean.shape),
+                   {k: tuple(t.shape) for k, t in self.tables.items()}), self.mesh)
         self.graph, self.replay_counts, self.capture_seconds = launches.capture(self.step)
 
     def run(self, stats, n: int):
@@ -191,7 +197,7 @@ class EnsembleProgram:
         self.m2.copy_(m2)
         self.index.zero_()
         dev = self.index.device
-        if dev.type != "cuda":
+        if dev.type != "cuda" or not self.captures:
             for _ in range(n):
                 self.step()
         else:

@@ -26,8 +26,16 @@ its size/R members at their global rows of the chunk and the members'
 outputs are gathered in rank order; a chunk they do not divide (the saved
 members, a remainder) runs whole on every rank, as JAX shards only those.
 Every rank then runs the one-process merge on the same member outputs and
-holds the same statistics. Under a mesh every chunk runs from the host: the
-gloo collectives cannot be captured.
+holds the same statistics, as JAX's replicated output. The body chunks
+still run as the one program: its chunk step is this rank's chunk/R
+members and the all_gather, and every rank merges the whole chunk.
+
+Whether the program captures is decided when the engine is built and
+exposed as `MCDropBlockEngine.captures` (ops/cuda/launches.py::
+captures_on_card): on the card without a mesh or under an NCCL mesh, whose
+all_gather the graph then holds; under a gloo mesh (two ranks sharing one
+card) the program runs each body chunk eagerly on the card, since gloo's
+collectives run on the host. On the CPU every chunk runs eagerly.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch
 
 from unet_research_tpu_torch.device import resolve_device
 from unet_research_tpu_torch.models.unet import UNet, draw_site_keys
+from unet_research_tpu_torch.ops.cuda import launches
 from unet_research_tpu_torch.ops.image import engine_input
 from unet_research_tpu_torch.parallel.mesh import all_gather
 from unet_research_tpu_torch.uncertainty.ensemble import (
@@ -56,7 +65,9 @@ class MCDropBlockEngine:
     rank's generator must be seeded alike. mesh: split the chunks over its
     ranks (module docstring); its size must divide `chunk`. program: run
     the body chunks as one device program (the default), or every chunk
-    from the host when False."""
+    from the host when False. `captures`: whether that program captures a
+    CUDA graph, decided here from the device, `program` and the mesh's
+    backend (module docstring)."""
 
     def __init__(self, model: UNet, num_iterations: int = 1000, return_num: int = 25,
                  resize: int = -1, chunk: int = 25, device=None,
@@ -73,7 +84,8 @@ class MCDropBlockEngine:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.generator = generator
-        self.program = program and mesh is None
+        self.program = program
+        self.captures = self.device.type == "cuda" and launches.captures_on_card(program, mesh)
         self.programs = {}  # EnsembleProgram by (drop_prob, chunk, input shape)
 
     def _members(self, im, mask, keys, drop_prob: float, size: int, mesh=None):
@@ -82,6 +94,14 @@ class MCDropBlockEngine:
         local = size if mesh is None else size // mesh.size
         xb = im.expand((local,) + tuple(im.shape[1:]))
         return self.model(xb, drop_prob=drop_prob, site_keys=keys, mesh=mesh) * mask
+
+    def _chunk(self, im, mask, keys, drop_prob: float, size: int):
+        """The masked segmentations of one chunk of `size` members: split
+        over the mesh's ranks and gathered in rank order when they divide
+        `size`, else whole on every rank."""
+        mesh = self.mesh if self.mesh is not None and size % self.mesh.size == 0 else None
+        out = self._members(im, mask, keys, drop_prob, size, mesh)
+        return out if mesh is None else all_gather(out, mesh)
 
     def _program(self, drop_prob: float, shape, chunks: int) -> EnsembleProgram:
         key = (float(drop_prob), self.chunk, tuple(shape))
@@ -95,8 +115,8 @@ class MCDropBlockEngine:
             # when the cyclic collector next runs
             engine, chunk = weakref.ref(self), self.chunk
             prog = EnsembleProgram(
-                lambda p: engine()._members(p.image, p.mask, p.row("keys"), drop_prob, chunk),
-                shape, tables, self.device)
+                lambda p: engine()._chunk(p.image, p.mask, p.row("keys"), drop_prob, chunk),
+                shape, tables, self.device, self.captures, self.mesh)
             self.programs[key] = prog
         return prog
 
@@ -114,10 +134,7 @@ class MCDropBlockEngine:
             if not self.program:
                 def batch(gen, size: int):
                     keys = draw_site_keys(num_sites, gen).to(self.device)
-                    mesh = (self.mesh if self.mesh is not None and size % self.mesh.size == 0
-                            else None)
-                    out = self._members(im, mask, keys, drop_prob, size, mesh)
-                    return out if mesh is None else all_gather(out, mesh)
+                    return self._chunk(im, mask, keys, drop_prob, size)
 
                 mean, std, saved = streaming_ensemble_batched(
                     batch, generator, self.num_iterations, self.chunk, self.return_num)
@@ -132,7 +149,7 @@ class MCDropBlockEngine:
                     prog.image.copy_(im)
                     prog.mask.copy_(mask)
                 mean, std, saved = ensemble_stats(
-                    lambda c, size: self._members(im, mask, keys[c].to(self.device), drop_prob,
-                                                  size),
+                    lambda c, size: self._chunk(im, mask, keys[c].to(self.device), drop_prob,
+                                                size),
                     layout, self.return_num, prog)
         return mean[None], std[None], saved[:, None], im, gt, mask
