@@ -615,8 +615,9 @@ def check_k4() -> dict:
     row = None
     for name, (img, angles) in fans.items():
         rise, out = peak_rise(lambda: sr.rotate_fan(img, angles))
-        kernels = kernels_per_call(lambda: sr.rotate_fan(img, angles))
         want = -(-len(angles) // 128)
+        kernels, _ = settled(lambda: kernels_per_call(lambda: sr.rotate_fan(img, angles)),
+                             lambda ks: len(ks) == want)
         if len(kernels) != want or not all("shear_fan_kernel" in k for k in kernels):
             raise AssertionError(f"K4 {name} fan: kernels {kernels}, expected {want} launch(es)")
         if rise > out.numel() * 4 + 2**20:
@@ -942,11 +943,15 @@ def run_program_phase(phase: str, row: dict, engines: dict, call, want: dict, me
             reset()
             prog.graph.replay()
 
-    eager_k = kernel_names(counted_events(eager_chunk))
-    replay_k = kernel_names(counted_events(replay_chunk))
-    replayed = {key: sum(n for name, n in replay_k.items() if part in name)
-                for part, key in REPLAYED_KERNELS.items()}
     credited = {key: prog.replay_counts.get(key, 0) for key in REPLAYED_KERNELS.values()}
+
+    def chunk_pair():
+        eager_k = kernel_names(counted_events(eager_chunk))
+        replay_k = kernel_names(counted_events(replay_chunk))
+        return eager_k, replay_k, by_credit(replay_k)
+
+    (eager_k, replay_k, replayed), _ = settled(
+        chunk_pair, lambda r: r[0] == r[1] and r[2] == credited)
     if replayed != credited:
         raise AssertionError(f"{phase}: a replay launched {replayed}, credited {credited}")
     if eager_k != replay_k or not replay_k:
@@ -1462,6 +1467,22 @@ def counted_events(fn) -> list:
     return [ev for ev in events if ev.time_range.start >= after]
 
 
+def settled(measure, agree, tries: int = 3):
+    """measure() up to `tries` times, until agree(result) holds; returns the
+    last result and the number of windows it took. The profiler loses kernel
+    records at random (seen: one conv3x3_wgmma_kernel and one
+    conv3x3_fold_kernel record of an 8-replay epoch; 4 of 320 K2 records of
+    a window), and never adds one, while the kernels measured are the same in
+    every window (a graph replay, or the same eager step), so a count that
+    disagrees is measured again and one that disagrees in every window
+    stands and fails at the caller."""
+    for n in range(1, tries + 1):
+        result = measure()
+        if agree(result):
+            break
+    return result, n
+
+
 def kernel_events(events) -> list:
     """The kernel events, copies and memsets left out: eagerly they are copy
     and memset events, in a graph replay the graph's own memcpy and memset
@@ -1495,13 +1516,21 @@ REPLAYED_KERNELS = {"dropblock_mask_kernel": "dropblock_mask",
                     "shear_fan_table_kernel": "rotate_fan_table"}
 
 
+def by_credit(names: collections.Counter) -> dict:
+    """Kernel counts by name (kernel_names) summed into the launch counts
+    that a graph replay is credited with (REPLAYED_KERNELS)."""
+    return {key: sum(n for name, n in names.items() if part in name)
+            for part, key in REPLAYED_KERNELS.items()}
+
+
 def run_train_scan(state) -> None:
     """Trainer.fit of the canonical model with scanned epochs (a CUDA graph of
     the step replayed over each epoch) and stepping, from the same weights
     and seed, over a ramp that spans the first epoch boundary: losses and
     parameters within JAX's scan-against-step tolerance, equal launches,
     one replay's kernels those of one eager step, every K3 launch on wgmma,
-    an epoch of replays launching the kernels it is credited with; then the
+    an epoch of replays launching the kernels it is credited with (each
+    count the most that up to five profiled windows recorded); then the
     replayed and the eager step's times and a scanned epoch's idle share."""
     train_ds, val_ds = train_dataset(8, seed=1), train_dataset(2, seed=2)
     steps = 3 * len(train_ds)
@@ -1574,8 +1603,9 @@ def run_train_scan(state) -> None:
         prog.index.zero_()
         prog.graphs[(-1, 1)].replay()
 
-    eager = kernel_names(counted_events(eager_step))
-    replay = kernel_names(counted_events(replay_step))
+    (eager, replay), _ = settled(lambda: (kernel_names(counted_events(eager_step)),
+                                          kernel_names(counted_events(replay_step))),
+                                 lambda r: r[0] == r[1])
     if eager != replay or not replay:
         differ = {name[:160]: (replay[name], eager[name]) for name in set(replay) | set(eager)
                   if replay[name] != eager[name]}
@@ -1601,15 +1631,34 @@ def run_train_scan(state) -> None:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
 
-    epoch_events = counted_events(timed_epoch)
-    wall_ms, epoch_busy_ms = walls[-1], busy_ms(epoch_events)
-    by_name = kernel_names(epoch_events)
-    replayed = {key: sum(n for name, n in by_name.items() if part in name)
-                for part, key in REPLAYED_KERNELS.items()}
     credited = {key: k * prog.replay_counts[(-1, 1)].get(key, 0)
                 for key in REPLAYED_KERNELS.values()}
+
+    def epoch_window():
+        events = counted_events(timed_epoch)
+        replayed = by_credit(kernel_names(events))
+        if any(replayed[key] > credited[key] for key in credited):
+            raise AssertionError(f"an epoch of {k} replays launched {replayed}, "
+                                 f"more than credited {credited}")
+        return events, replayed, walls[-1]
+
+    # each kernel's count is the most that any of up to five windows
+    # recorded: a lost record only lowers a window's count (see `settled`),
+    # and records are lost in most windows of an epoch (seen: three windows
+    # for one complete one), so one window that recorded all of a kernel
+    # proves its count; the idle share is read from the fullest window
+    seen = []
+    for _ in range(5):
+        seen.append(epoch_window())
+        replayed = {key: max(w[1][key] for w in seen) for key in credited}
+        if replayed == credited:
+            break
+    windows = len(seen)
+    epoch_events, _, wall_ms = max(seen, key=lambda w: len(kernel_events(w[0])))
+    epoch_busy_ms = busy_ms(epoch_events)
     if replayed != credited or not replayed["dropblock_mask"]:
-        raise AssertionError(f"an epoch of {k} replays launched {replayed}, credited {credited}")
+        raise AssertionError(f"an epoch of {k} replays launched {replayed} (the most of "
+                             f"{windows} profiled windows), credited {credited}")
 
     # times: K replays (an epoch) and eager steps, in this call
     replay_ms = time_ms(epoch_of_replays, 3, 1) / k
@@ -1624,7 +1673,8 @@ def run_train_scan(state) -> None:
           "kernels_per_step": sum(replay.values()),
           "epoch_of_replays": {"wall_ms": wall_ms, "busy_ms": epoch_busy_ms,
                                "idle_share": 1.0 - epoch_busy_ms / wall_ms,
-                               "kernels_counted": replayed},
+                               "kernels_counted": replayed, "windows": windows,
+                               "counted_per_window": [w[1] for w in seen]},
           "steps_per_s": {"scanned": steps / scanned["seconds"],
                           "stepped": steps / stepped["seconds"]},
           "fit_seconds": {"scanned": scanned["seconds"], "stepped": stepped["seconds"]},
@@ -1834,8 +1884,10 @@ def run_step_program_fit(state) -> dict:
             prog.index.zero_()
             prog.graphs[(size, 1)].replay()
 
-        e_names = kernel_names(counted_events(eager_step))
-        r_names = kernel_names(counted_events(replay_step))
+        (e_names, r_names), _ = settled(
+            lambda: (kernel_names(counted_events(eager_step)),
+                     kernel_names(counted_events(replay_step))),
+            lambda r: r[0] == r[1])
         differ = {name[:160]: (r_names[name], e_names[name])
                   for name in set(r_names) | set(e_names) if r_names[name] != e_names[name]}
         by_size[str(size)] = {"replayed_step_ms": time_ms(replay_step, 10, 2),
