@@ -1,0 +1,7 @@
+"""K2's launches' bounds over their device time in the profiled window."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.roofline_share(run, "k2", "epoch")

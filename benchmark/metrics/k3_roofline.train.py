@@ -1,0 +1,8 @@
+"""K3's launches (forward, remat re-run, dx and fold) bounds over their device
+time in the profiled window."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.roofline_share(run, "k3", "epoch")

@@ -1,0 +1,4 @@
+"""Seconds from process start to the window's start (host clock)."""
+
+def read(run):
+    return run.setup_s
