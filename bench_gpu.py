@@ -185,7 +185,7 @@ def measure(engine: MCDropBlockEngine, work: Workload) -> dict:
         t0 = time.perf_counter()
         mean, std = predict(seed)
         times.append(time.perf_counter() - t0)
-        counts.append(launches.since(before))
+        counts.append(launches.launched(launches.since(before)))
     programs = list(engine.programs.values())
     return {"passes_per_s": work.iters / min(times), "times": times, "warmup_s": warmup_s,
             "seeds": seeds, "launches": counts, "programs": len(programs),

@@ -582,7 +582,7 @@ def test_replays_equal_eager_forwards_and_batched_steps_on_the_card(tmp_path):
         got += [a for p in _predictions(base_model_mf.predict_at(model, val_ds, 32, 32,
                                                                  program=program))
                 for a in p[1:]]
-        counts = launches.since(before)
+        counts = launches.launched(launches.since(before))
         tt = Trainer(model, POLICIES["none"],
                      TrainerConfig(max_epochs=3, lr=1e-3, clip_norm=0.5, auto_lr_find=False,
                                    seed=5, verbose=False, train_batch=2, val_batch=2),

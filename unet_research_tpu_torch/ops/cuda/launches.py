@@ -11,6 +11,12 @@ back from the capture itself, which launched nothing (`capture`).
 `KeyedGraphs` keeps one such graph per key, each after eager warm-up runs
 of its own.
 
+Three host-side counts ride in the same snapshot (`HOST`): `graph:captures`,
+one per `capture`, and `members:host` / `members:program`, the ensemble
+members merged from the host and in an ensemble program
+(uncertainty/ensemble.py). They count what the host did, so a capture keeps
+them and no replay credits them; `launched` leaves them out.
+
 Whether a program captures at all is decided once, when it is built
 (`captures_on_card`): on the card, unless the caller asked for the host's
 route (program=False), and, when the captured work holds collectives of a
@@ -30,6 +36,7 @@ import torch
 
 from unet_research_tpu_torch.ops.cuda import dropblock_kernel, pair_conv, shear_rotate
 from unet_research_tpu_torch.parallel import mesh as _mesh
+from unet_research_tpu_torch.spans import span
 
 WRAPPERS = (dropblock_kernel.dropblock_fused_apply, dropblock_kernel.dropblock_mask,
             pair_conv.conv3x3_pair, pair_conv.conv3x3_pair_dx, pair_conv.conv3x3_pair_fold,
@@ -45,12 +52,22 @@ def captures_on_card(program: bool = True, mesh=None) -> bool:
     return bool(program) and (mesh is None or mesh.backend == "nccl")
 
 
+# the host-side counts (module docstring), by their names in a snapshot
+HOST = {"graph:captures": 0, "members:host": 0, "members:program": 0}
+
+# credit's dispatch: the count tables by the prefix of a snapshot's name
+_TABLES = {"path": pair_conv.path_launches, "collective": _mesh.calls}
+_BY_NAME = {fn.__name__: fn for fn in WRAPPERS}
+
+
 def snapshot() -> dict:
     """Every count now: {wrapper name: launches}, {"path:<kernel>": K3
-    launches by kernel} and {"collective:<kind>": calls}."""
-    counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+    launches by kernel}, {"collective:<kind>": calls} and the host-side
+    counts of HOST."""
+    counts = {name: fn.launches for name, fn in _BY_NAME.items()}
     counts.update({f"path:{k}": v for k, v in pair_conv.path_launches.items()})
     counts.update({f"collective:{k}": v for k, v in _mesh.calls.items()})
+    counts.update(HOST)
     return counts
 
 
@@ -60,17 +77,23 @@ def since(before: dict) -> dict:
     return {k: now[k] - before[k] for k in now if now[k] != before[k]}
 
 
+def launched(counts: dict) -> dict:
+    """`counts` without the host-side ones: the kernel launches and
+    collectives that a replay of a capture that added them runs."""
+    return {k: v for k, v in counts.items() if k not in HOST}
+
+
 def credit(counts: dict, times: int = 1) -> None:
     """Add `counts` (as `since` gives them) `times` times; a negative
     `times` takes them back."""
-    by_name = {fn.__name__: fn for fn in WRAPPERS}
     for k, v in counts.items():
-        if k.startswith("path:"):
-            pair_conv.path_launches[k[5:]] += v * times
-        elif k.startswith("collective:"):
-            _mesh.calls[k[11:]] += v * times
+        prefix, _, name = k.partition(":")
+        if k in HOST:
+            HOST[k] += v * times
+        elif name:
+            _TABLES[prefix][name] += v * times
         else:
-            by_name[k].launches += v * times
+            _BY_NAME[k].launches += v * times
 
 
 def capture(step: Callable[[], None]) -> tuple:
@@ -89,16 +112,18 @@ def capture(step: Callable[[], None]) -> tuple:
     enabled = gc.isenabled()
     gc.disable()
     try:
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            step()
-        seconds = time.perf_counter() - t0
+        with span("graph.capture"):
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph):
+                step()
+            seconds = time.perf_counter() - t0
     finally:
         if enabled:
             gc.enable()
-        counts = since(before)
+        counts = launched(since(before))
         credit(counts, -1)
+        HOST["graph:captures"] += 1
     return graph, counts, seconds
 
 
@@ -139,11 +164,12 @@ class KeyedGraphs:
         graph = self.graphs.get(key)
         if graph is None and self.warm[key] < self.WARMUP:
             self.warm[key] += 1
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                fn()
-            torch.cuda.current_stream(device).wait_stream(side)
+            with span("graph.warmup"):
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    fn()
+                torch.cuda.current_stream(device).wait_stream(side)
             return False
         if graph is None:
             if self.mesh is not None:

@@ -102,6 +102,7 @@ from unet_research_tpu_torch.models.unet import UNet, draw_site_keys
 from unet_research_tpu_torch.ops.cuda import launches
 from unet_research_tpu_torch.ops.losses import masked_rescaled_bce
 from unet_research_tpu_torch.parallel.mesh import barrier, broadcast_, broadcast_int, psum
+from unet_research_tpu_torch.spans import span
 from unet_research_tpu_torch.train.checkpoint import BestCheckpointKeeper, load_checkpoint
 from unet_research_tpu_torch.train.policies import ResizePolicy
 from unet_research_tpu_torch.train.schedule import EarlyStopping, ReduceLROnPlateau
@@ -262,11 +263,13 @@ class Trainer:
         at `lr`. Returns the (K,) float32 losses and advances state.step by
         K. The program (tables, captured graph) is kept for the next epoch
         of the same fit."""
-        prog = self._program_for(state, data, len(order))
-        prog.fill(order, lr)
-        for _ in range(len(order)):
-            prog.advance()
-        return prog.losses.cpu().numpy()
+        with span("trainer.epoch"):
+            prog = self._program_for(state, data, len(order))
+            prog.fill(order, lr)
+            for _ in range(len(order)):
+                prog.advance()
+            with span("trainer.losses"):
+                return prog.losses.cpu().numpy()
 
     def _program_for(self, state: TrainState, data, num_steps: int,
                      batch: int = 1) -> "_StepProgram":
@@ -309,6 +312,14 @@ class Trainer:
         np_rng = np.random.default_rng(seed)
         self.key_generator = torch.Generator().manual_seed(seed)
 
+        prof = None
+        if cfg.profiler == "trace" and self.rank0:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+
         start_epoch = 0
         if resume_from is not None:
             sd, meta, opt = load_checkpoint(resume_from)
@@ -323,7 +334,8 @@ class Trainer:
             self.model.load_state_dict(self.init_params(seed) if params is None else params)
             lr = cfg.lr
             if cfg.auto_lr_find:
-                lr = lr_find(self, None, train_ds, size_plan, seed)
+                with span("trainer.lr_find"):
+                    lr = lr_find(self, None, train_ds, size_plan, seed)
                 if cfg.verbose and self.rank0:
                     print(f"LR finder suggestion: {lr:.3e}")
             state = self.create_state(None, lr)
@@ -332,14 +344,6 @@ class Trainer:
         keeper = BestCheckpointKeeper(model_info_dir) if self.rank0 else None
         history = {"train_loss_epoch": [], "val_loss_epoch": [], "lr": []}
         verbose = cfg.verbose and self.rank0
-
-        prof = None
-        if cfg.profiler == "trace" and self.rank0:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=acts)
-            prof.start()
 
         t_fit = time.time()
         shuffle = not self.policy.uses_size_plan  # MF plans index by batch_idx
@@ -373,9 +377,11 @@ class Trainer:
                     val_loss = self._mean_val_loss(val_ds, cfg.val_batch)
                     history["val_loss_epoch"].append(val_loss)
                     if keeper is not None:
-                        keeper.update(epoch, val_loss, self.model.state_dict(),
-                                      meta={**(ckpt_meta or {}), "lr": lr, "step": state.step},
-                                      optimizer=state.optimizer.state_dict())
+                        with span("trainer.checkpoint"):
+                            keeper.update(epoch, val_loss, self.model.state_dict(),
+                                          meta={**(ckpt_meta or {}), "lr": lr,
+                                                "step": state.step},
+                                          optimizer=state.optimizer.state_dict())
                     if self.mesh is not None:
                         barrier(self.mesh)  # the other ranks wait for rank 0's checkpoint
                     lr = plateau.step(val_loss)
@@ -409,36 +415,38 @@ class Trainer:
         program unless program=False; else at batch 1 from the host), or
         batch_iterator's host batches (order None). Returns the float32
         losses that the log gate keeps."""
-        cfg = self.cfg
-        prog = None
-        if order is not None:
-            table, rows = _cut_batches(order, cfg.train_batch)
-            if self.program:
-                prog = self._program_for(state, dev_data, len(table), cfg.train_batch)
-                prog.fill(table, lr, rows)
-            items = enumerate(table)
-        else:
-            items = enumerate(batch_iterator(train_ds, cfg.train_batch, shuffle, np_rng,
-                                             device=self.device, mesh=self.mesh))
-        step_losses = []
-        for batch_idx, item in items:
-            size = int(size_plan[batch_idx]) if size_plan is not None else -1
-            if prog is not None:
-                prog.advance(size)
-                loss = prog.losses[batch_idx]
-            elif order is not None:  # batch 1
-                loss = self.train_step_indexed(state, dev_data, int(item[0]), lr, size)
+        with span("trainer.epoch"):
+            cfg = self.cfg
+            prog = None
+            if order is not None:
+                table, rows = _cut_batches(order, cfg.train_batch)
+                if self.program:
+                    prog = self._program_for(state, dev_data, len(table), cfg.train_batch)
+                    prog.fill(table, lr, rows)
+                items = enumerate(table)
             else:
-                loss = self.train_step(state, *item, lr, size)
-            if cfg.detect_anomaly and not np.isfinite(float(loss)):
-                raise FloatingPointError(
-                    f"non-finite train loss at epoch {epoch} batch {batch_idx}"
-                    " (--detect_anomaly)")
-            if batch_idx % cfg.log_gate:  # the reference's gate quirk
-                step_losses.append(loss)
-        if not step_losses:
-            return np.zeros(0, np.float32)
-        return torch.stack(step_losses).cpu().numpy()
+                items = enumerate(batch_iterator(train_ds, cfg.train_batch, shuffle, np_rng,
+                                                 device=self.device, mesh=self.mesh))
+            step_losses = []
+            for batch_idx, item in items:
+                size = int(size_plan[batch_idx]) if size_plan is not None else -1
+                if prog is not None:
+                    prog.advance(size)
+                    loss = prog.losses[batch_idx]
+                elif order is not None:  # batch 1
+                    loss = self.train_step_indexed(state, dev_data, int(item[0]), lr, size)
+                else:
+                    loss = self.train_step(state, *item, lr, size)
+                if cfg.detect_anomaly and not np.isfinite(float(loss)):
+                    raise FloatingPointError(
+                        f"non-finite train loss at epoch {epoch} batch {batch_idx}"
+                        " (--detect_anomaly)")
+                if batch_idx % cfg.log_gate:  # the reference's gate quirk
+                    step_losses.append(loss)
+            if not step_losses:
+                return np.zeros(0, np.float32)
+            with span("trainer.losses"):
+                return torch.stack(step_losses).cpu().numpy()
 
     def _mean_val_loss(self, ds: ArrayDataset, batch: int) -> float:
         """The mean of the batches' losses, summed with their count in a
@@ -447,22 +455,23 @@ class Trainer:
         program=False). Under a mesh rank r takes
         batches r, r + R, ...; the ranks' pairs are all-reduced, so every
         rank reads the same mean."""
-        forward = self._forward_program()
-        total = forward.zeroed_sums()
+        with span("trainer.validate"):
+            forward = self._forward_program()
+            total = forward.zeroed_sums()
 
-        def accumulate(im, gt, mask):
-            total[0] += self.eval_step(im, gt, mask).to(torch.float64)
-            total[1] += 1
+            def accumulate(im, gt, mask):
+                total[0] += self.eval_step(im, gt, mask).to(torch.float64)
+                total[1] += 1
 
-        starts = range(0, len(ds), batch)
-        if self.mesh is not None:
-            starts = starts[self.mesh.rank::self.mesh.size]
-        for s in starts:
-            forward("val", accumulate,
-                    *to_device(ds[np.arange(s, min(s + batch, len(ds)))], self.device))
-        if self.mesh is not None:
-            total = psum(total, self.mesh)
-        return float(total[0] / total[1])
+            starts = range(0, len(ds), batch)
+            if self.mesh is not None:
+                starts = starts[self.mesh.rank::self.mesh.size]
+            for s in starts:
+                forward("val", accumulate,
+                        *to_device(ds[np.arange(s, min(s + batch, len(ds)))], self.device))
+            if self.mesh is not None:
+                total = psum(total, self.mesh)
+            return float(total[0] / total[1])
 
     # ------------------------------------------------------------------
     def validate(self, params: Optional[dict], val_ds: ArrayDataset) -> float:
@@ -605,22 +614,23 @@ class _StepProgram(launches.KeyedGraphs):
         drop probabilities of the ramp (Trainer.step_tables); `lr` one
         learning rate for every step, which also becomes the state's, or K
         of them. The step index goes to 0."""
-        t, state = self.trainer, self.state
-        table = np.asarray(order, np.int64).reshape(self.num_steps, self.batch)
-        rows = np.full(self.num_steps, self.batch) if rows is None else np.asarray(rows)
-        if t.mesh is not None:
-            table, rows = _shard_table(table, rows, t.mesh)
-        if t.has_dropblock:
-            keys, drop_probs = t.step_tables(state.step, self.num_steps)
-            self.keys.copy_(keys)
-            self.drop_probs.copy_(drop_probs)
-        self.order.copy_(torch.from_numpy(table))
-        self.rows = rows.tolist()
-        if np.ndim(lr) == 0:
-            state.set_lr(float(lr))  # the optimizer's, which checkpoints keep
-        self.lrs.copy_(torch.tensor(np.broadcast_to(np.float32(lr), (self.num_steps,))))
-        self.index.zero_()
-        self.at = 0
+        with span("trainer.fill"):
+            t, state = self.trainer, self.state
+            table = np.asarray(order, np.int64).reshape(self.num_steps, self.batch)
+            rows = np.full(self.num_steps, self.batch) if rows is None else np.asarray(rows)
+            if t.mesh is not None:
+                table, rows = _shard_table(table, rows, t.mesh)
+            if t.has_dropblock:
+                keys, drop_probs = t.step_tables(state.step, self.num_steps)
+                self.keys.copy_(keys)
+                self.drop_probs.copy_(drop_probs)
+            self.order.copy_(torch.from_numpy(table))
+            self.rows = rows.tolist()
+            if np.ndim(lr) == 0:
+                state.set_lr(float(lr))  # the optimizer's, which checkpoints keep
+            self.lrs.copy_(torch.tensor(np.broadcast_to(np.float32(lr), (self.num_steps,))))
+            self.index.zero_()
+            self.at = 0
 
     def step(self, size: int = -1, rows: Optional[int] = None) -> None:
         """One train step at the step index on its first `rows` items
@@ -642,15 +652,16 @@ class _StepProgram(launches.KeyedGraphs):
         when the program does not capture). state.step counts it either
         way (apply_gradients' count is Python, which neither a capture
         keeps nor a replay runs)."""
-        rows = self.rows[self.at]
-        self.at += 1
-        dev = self.trainer.device
-        if dev.type != "cuda":
-            self.step(size, rows)
-            return
-        step = self.state.step
-        if self.run((size, rows), lambda: self.step(size, rows), dev):
-            self.state.step = step + 1
+        with span("trainer.step"):
+            rows = self.rows[self.at]
+            self.at += 1
+            dev = self.trainer.device
+            if dev.type != "cuda":
+                self.step(size, rows)
+                return
+            step = self.state.step
+            if self.run((size, rows), lambda: self.step(size, rows), dev):
+                self.state.step = step + 1
 
 
 def lr_find(trainer: Trainer, params: Optional[dict], train_ds: ArrayDataset,

@@ -13,6 +13,10 @@ as `saved`, the reference's tensors[0:return_num]), then full chunks of
 (ensemble.py:90-94, :150-154); here `EnsembleProgram` is that body: one
 chunk step on static device buffers, captured once as a CUDA graph on the
 card and replayed once per body chunk. The other chunks run from the host.
+
+`ensemble_stats` counts the members it merges from the host and through
+the program in ops/cuda/launches.py's host-side counts `members:host` and
+`members:program`, and marks its phases with spans (spans.py).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from unet_research_tpu_torch.ops.cuda import launches
 from unet_research_tpu_torch.parallel.mesh import agree
+from unet_research_tpu_torch.spans import span
 
 
 def _batch_stats(outs: torch.Tensor):
@@ -77,18 +82,23 @@ def ensemble_stats(outputs: Callable[[int, int], torch.Tensor], layout: Layout,
     while c < len(layout.sizes):
         if program is not None and c == layout.body_start and layout.n_body:
             stats = program.run(stats, layout.n_body)
+            launches.HOST["members:program"] += layout.n_body * layout.sizes[c]
             c += layout.n_body
             continue
-        outs = outputs(c, layout.sizes[c]).to(torch.float32)
-        bstats = _batch_stats(outs)
-        stats = bstats if stats is None else _merge(stats, bstats)
+        with span("engine.host_chunk"):
+            outs = outputs(c, layout.sizes[c]).to(torch.float32)
+            bstats = _batch_stats(outs)
+            stats = bstats if stats is None else _merge(stats, bstats)
+        launches.HOST["members:host"] += layout.sizes[c]
         if c == 0 and return_num > 0:
             saved = outs
         c += 1
-    count, mean, m2 = stats
-    std = torch.sqrt(m2 / (count - 1.0))
-    if saved is None:
-        saved = torch.zeros((0,) + tuple(mean.shape), dtype=torch.float32, device=mean.device)
+    with span("engine.finish"):
+        count, mean, m2 = stats
+        std = torch.sqrt(m2 / (count - 1.0))
+        if saved is None:
+            saved = torch.zeros((0,) + tuple(mean.shape), dtype=torch.float32,
+                                device=mean.device)
     return mean, std, saved
 
 
@@ -189,31 +199,33 @@ class EnsembleProgram:
     def run(self, stats, n: int):
         """Merge the n body chunks into stats = (count, mean, M2). Returns the
         merged statistics (new tensors)."""
-        count, mean, m2 = stats
-        if self.mean is None:
-            self.mean, self.m2 = torch.zeros_like(mean), torch.zeros_like(m2)
-        self.count.copy_(count)
-        self.mean.copy_(mean)
-        self.m2.copy_(m2)
-        self.index.zero_()
-        dev = self.index.device
-        if dev.type != "cuda" or not self.captures:
-            for _ in range(n):
-                self.step()
-        else:
-            done = 0
-            if self.graph is None:
-                done = min(self.WARMUP - self.warmed, n)
-                side = torch.cuda.Stream(dev)
-                side.wait_stream(torch.cuda.current_stream(dev))
-                with torch.cuda.stream(side):
-                    for _ in range(done):
-                        self.step()
-                torch.cuda.current_stream(dev).wait_stream(side)
-                self.warmed += done
-                if done < n:
-                    self.capture()
-            for _ in range(n - done):
-                self.graph.replay()
-            launches.credit(self.replay_counts, n - done)
-        return self.count.clone(), self.mean.clone(), self.m2.clone()
+        with span("engine.body"):
+            count, mean, m2 = stats
+            if self.mean is None:
+                self.mean, self.m2 = torch.zeros_like(mean), torch.zeros_like(m2)
+            self.count.copy_(count)
+            self.mean.copy_(mean)
+            self.m2.copy_(m2)
+            self.index.zero_()
+            dev = self.index.device
+            if dev.type != "cuda" or not self.captures:
+                for _ in range(n):
+                    self.step()
+            else:
+                done = 0
+                if self.graph is None:
+                    done = min(self.WARMUP - self.warmed, n)
+                    with span("graph.warmup"):
+                        side = torch.cuda.Stream(dev)
+                        side.wait_stream(torch.cuda.current_stream(dev))
+                        with torch.cuda.stream(side):
+                            for _ in range(done):
+                                self.step()
+                        torch.cuda.current_stream(dev).wait_stream(side)
+                    self.warmed += done
+                    if done < n:
+                        self.capture()
+                for _ in range(n - done):
+                    self.graph.replay()
+                launches.credit(self.replay_counts, n - done)
+            return self.count.clone(), self.mean.clone(), self.m2.clone()

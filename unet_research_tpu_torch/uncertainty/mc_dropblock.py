@@ -49,6 +49,7 @@ from unet_research_tpu_torch.models.unet import UNet, draw_site_keys
 from unet_research_tpu_torch.ops.cuda import launches
 from unet_research_tpu_torch.ops.image import engine_input
 from unet_research_tpu_torch.parallel.mesh import all_gather
+from unet_research_tpu_torch.spans import span
 from unet_research_tpu_torch.uncertainty.ensemble import (
     EnsembleProgram,
     chunk_layout,
@@ -126,30 +127,35 @@ class MCDropBlockEngine:
         (return_num, 1, H, W, 1), the reference's tensor layout. generator:
         this call's site-key generator (the engine's own when None), as the
         JAX engine takes a key per call."""
-        im, gt, mask = (engine_input(t, self.device, self.resize) for t in (im, gt, mask))
-        num_sites = self.model.num_mask_sites()
-        generator = self.generator if generator is None else generator
+        with span("engine.predict"):
+            with span("engine.input"):
+                im, gt, mask = (engine_input(t, self.device, self.resize) for t in (im, gt, mask))
+            num_sites = self.model.num_mask_sites()
+            generator = self.generator if generator is None else generator
 
-        with torch.inference_mode():
-            if not self.program:
-                def batch(gen, size: int):
-                    keys = draw_site_keys(num_sites, gen).to(self.device)
-                    return self._chunk(im, mask, keys, drop_prob, size)
+            with torch.inference_mode():
+                if not self.program:
+                    def batch(gen, size: int):
+                        with span("engine.keys"):
+                            keys = draw_site_keys(num_sites, gen).to(self.device)
+                        return self._chunk(im, mask, keys, drop_prob, size)
 
-                mean, std, saved = streaming_ensemble_batched(
-                    batch, generator, self.num_iterations, self.chunk, self.return_num)
-            else:
-                layout = chunk_layout(self.num_iterations, self.chunk, self.return_num)
-                keys = [draw_site_keys(num_sites, generator) for _ in layout.sizes]
-                prog = None
-                if layout.n_body:
-                    prog = self._program(drop_prob, im.shape, layout.n_body)
-                    body = keys[layout.body_start:layout.body_start + layout.n_body]
-                    prog.tables["keys"].copy_(torch.stack(body))
-                    prog.image.copy_(im)
-                    prog.mask.copy_(mask)
-                mean, std, saved = ensemble_stats(
-                    lambda c, size: self._chunk(im, mask, keys[c].to(self.device), drop_prob,
-                                                size),
-                    layout, self.return_num, prog)
-        return mean[None], std[None], saved[:, None], im, gt, mask
+                    mean, std, saved = streaming_ensemble_batched(
+                        batch, generator, self.num_iterations, self.chunk, self.return_num)
+                else:
+                    layout = chunk_layout(self.num_iterations, self.chunk, self.return_num)
+                    with span("engine.keys"):
+                        keys = [draw_site_keys(num_sites, generator) for _ in layout.sizes]
+                    prog = None
+                    if layout.n_body:
+                        prog = self._program(drop_prob, im.shape, layout.n_body)
+                        body = keys[layout.body_start:layout.body_start + layout.n_body]
+                        with span("engine.fill"):
+                            prog.tables["keys"].copy_(torch.stack(body))
+                            prog.image.copy_(im)
+                            prog.mask.copy_(mask)
+                    mean, std, saved = ensemble_stats(
+                        lambda c, size: self._chunk(im, mask, keys[c].to(self.device),
+                                                    drop_prob, size),
+                        layout, self.return_num, prog)
+            return mean[None], std[None], saved[:, None], im, gt, mask

@@ -35,6 +35,7 @@ from unet_research_tpu_torch.device import resolve_device
 from unet_research_tpu_torch.models.unet import UNet
 from unet_research_tpu_torch.ops.cuda.shear_rotate import member_table, rotate_fan, rotate_fan_table
 from unet_research_tpu_torch.ops.image import engine_input, rotate_bilinear
+from unet_research_tpu_torch.spans import span
 from unet_research_tpu_torch.uncertainty.ensemble import (
     EnsembleProgram,
     chunk_layout,
@@ -107,27 +108,30 @@ class RotationalEngine:
         """im, gt, mask: NHWC (1, H, W, 1) arrays or tensors. Returns
         (mean, std, saved, im, gt, mask): mean/std are (1, H, W, 1), saved is
         (return_num, 1, H, W, 1), the reference's tensor layout."""
-        im, gt, mask = (engine_input(t, self.device, self.resize) for t in (im, gt, mask))
-        warp = _WARPS[self.warp]
-        host_angles = torch.arange(1, self.num_iterations + 1, dtype=torch.float32)
-        # rotate_fan computes its per-member scalars on the host, so the
-        # angles move to the card only for the gather warp: in one copy, not
-        # one per chunk
-        angles = host_angles.to(self.device) if self.warp == "gather" else host_angles
-        layout = chunk_layout(self.num_iterations, self.chunk, self.return_num)
-        starts = [sum(layout.sizes[:c]) for c in range(len(layout.sizes))]
+        with span("engine.predict"):
+            with span("engine.input"):
+                im, gt, mask = (engine_input(t, self.device, self.resize) for t in (im, gt, mask))
+            warp = _WARPS[self.warp]
+            host_angles = torch.arange(1, self.num_iterations + 1, dtype=torch.float32)
+            # rotate_fan computes its per-member scalars on the host, so the
+            # angles move to the card only for the gather warp: in one copy,
+            # not one per chunk
+            angles = host_angles.to(self.device) if self.warp == "gather" else host_angles
+            layout = chunk_layout(self.num_iterations, self.chunk, self.return_num)
+            starts = [sum(layout.sizes[:c]) for c in range(len(layout.sizes))]
 
-        def outputs(c: int, size: int):
-            a = angles[starts[c]:starts[c] + size]
-            return self._members(im, mask, lambda x: warp(x, a), lambda x: warp(x, -a))
+            def outputs(c: int, size: int):
+                a = angles[starts[c]:starts[c] + size]
+                return self._members(im, mask, lambda x: warp(x, a), lambda x: warp(x, -a))
 
-        prog = None
-        with torch.inference_mode():
-            if self.program and layout.n_body:
-                first = starts[layout.body_start]
-                body = host_angles[first:first + layout.n_body * self.chunk]
-                prog = self._program(im.shape, body.reshape(layout.n_body, self.chunk))
-                prog.image.copy_(im)
-                prog.mask.copy_(mask)
-            mean, std, saved = ensemble_stats(outputs, layout, self.return_num, prog)
-        return mean[None], std[None], saved[:, None], im, gt, mask
+            prog = None
+            with torch.inference_mode():
+                if self.program and layout.n_body:
+                    first = starts[layout.body_start]
+                    body = host_angles[first:first + layout.n_body * self.chunk]
+                    prog = self._program(im.shape, body.reshape(layout.n_body, self.chunk))
+                    with span("engine.fill"):
+                        prog.image.copy_(im)
+                        prog.mask.copy_(mask)
+                mean, std, saved = ensemble_stats(outputs, layout, self.return_num, prog)
+            return mean[None], std[None], saved[:, None], im, gt, mask
