@@ -7,7 +7,10 @@ Builds the hand-written kernels from unet_research_tpu_torch/ops/cuda/csrc
 no mma.sync), holds each kernel against its plain PyTorch version at the
 shapes of the main path (K3 forward at batch 16 and 1, every main-path K3
 launch asserted to run the wgmma kernel; K4's table launch, rotate_fan_table,
-bit-equal to its parameter launch on both fans of two chunks), then runs the
+bit-equal to its parameter launch on both fans of two chunks; GroupNorm's six
+epilogue launches of ops/cuda/group_norm.py at (1, 592, 576, 64),
+(1, 37, 36, 1024) and (16, 592, 576, 64), each in its own `kernels` row), then
+runs the
 MC-DropBlock ensemble of the canonical 31M U-Net
 (bf16, dependent DropBlock b=7 p=0.15, conv_impl='pair' + mask_impl='fused')
 on a seeded synthetic 584x565 image and checks its outputs and launch
@@ -22,8 +25,9 @@ conv_impl='pair', all 359 angles) under both warps, 'shear' (kernel K4, by
 its table launch in the program) and 'gather', and `rotational-program`,
 the same comparison under both warps, then `bench`: bench_gpu.py's
 workload in-process (1000 members on bench.py's 584x565 input, pair+fused,
-chunk 16, two warm-ups and the best of three timed predicts; K1 1386 and
-K3 189 launches per timed predict, the warm-up's capture replayed, the
+chunk 16, two warm-ups and the best of three timed predicts; K1 1386, K3
+189 and GroupNorm's epilogue 504 x 3 launches per timed predict, the
+warm-up's capture replayed, the
 statistics against one eager 1000-member predict from the same seed), the
 same at BENCH_RESIZE=256 (chunk 128) and the ladder's native/default and
 native/pair+fused rungs at 300 members (scripts/ladder_torch.py), each
@@ -152,6 +156,11 @@ Ensemble programs: the captured route's mean, std and saved members within
 twice the plain bf16 route's distance from float32 of the eager route's
 (the same masks or angles; K3's float32 atomics part them), K4's table
 launch bit-equal to the parameter launch.
+Every launch count asserted counts GroupNorm's epilogue launches too
+(`epilogue`: per forward and backward of the canonical model); every plain
+route runs GroupNorm on its plain ops (`plain_epilogue`: none of the
+epilogue's kernels, and `gn:plain` sites), so the bf16 noise that gates the
+kernel routes is plain PyTorch's.
 Tolerances: masks and keep counts exact (one counter hash on both sides;
 K2 reading its threshold from a device word too, against the scalar launch
 and the plain version at the thresholds of a ramp);
@@ -168,7 +177,10 @@ same chunk (and site keys). K3 backward: dx and dK within 1e-2 (bf16) and
 magnitude, with nonzero cotangents on the sums; the fold kernel's g within
 one bf16 rounding of its plain version (bit-equal expected); the bf16
 dK within 4e-3 of the float32 correlation of the same x and folded
-cotangent (one rounding to bf16 is at most 2^-9 of the largest magnitude). One train step: the kernel
+cotangent (one rounding to bf16 is at most 2^-9 of the largest magnitude).
+GroupNorm's epilogue: its partial sums and finishing launches within 1e-5
+of their plain versions on the same inputs, relative to the largest
+magnitude; the apply and both dx passes bit-equal. One train step: the kernel
 route's loss and gradient (global relative L2 over all parameters) within
 twice the plain bf16 route's distance from the plain float32 route.
 Scanned against stepped fit: epoch losses within 2e-3 relative and the
@@ -239,6 +251,8 @@ from unet_research_tpu_torch.evaluation import metrics as ev_metrics  # noqa: E4
 from unet_research_tpu_torch.models import unet as tunet  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import build  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk  # noqa: E402
+from unet_research_tpu_torch.ops.cuda import group_norm as gnk  # noqa: E402
+from unet_research_tpu_torch.ops.cuda import launches as cuda_launches  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import pair_conv as pc  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import shear_rotate as sr  # noqa: E402
 from unet_research_tpu_torch.data import ArrayDataset, load_drive, load_split  # noqa: E402
@@ -287,7 +301,12 @@ COUNTERS = {"dropblock_fused_apply": dbk.dropblock_fused_apply,
             "conv3x3_pair_dx": pc.conv3x3_pair_dx,
             "conv3x3_pair_fold": pc.conv3x3_pair_fold,
             "rotate_fan": sr.rotate_fan,
-            "rotate_fan_table": sr.rotate_fan_table}
+            "rotate_fan_table": sr.rotate_fan_table,
+            **{fn.__name__: fn for fn in gnk.WRAPPERS}}
+# GroupNorm's epilogue in the canonical U-Net: 26 GroupNorm sites, 3 of them
+# (K3's, at level 0) given K3's sums under conv_impl='pair'; beside K1 (mask_impl='fused') only the 4 upconv and the 4
+# pool norms take the epilogue's kernels
+GN_SITES, GN_K3_SITES, GN_K1_SIDE_SITES = 26, 3, 8
 # one chunk of the rotational fan, the four ties 45 + 90k included
 FAN = torch.tensor([45.0, 135.0, 225.0, 315.0, 1.0, 17.0, 33.0, 60.0, 90.0, 101.0, 180.0,
                     200.5, 270.0, 300.0, 333.0, 359.0])
@@ -314,6 +333,49 @@ def assert_wgmma(where: str) -> None:
 
 def counts() -> dict:
     return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def epilogue(forwards: int = 0, steps: int = 0, k1_forwards: int = 0, k3: bool = True) -> dict:
+    """GroupNorm's epilogue launches (ops/cuda/group_norm.py) of the
+    canonical U-Net in bf16: `forwards` forwards through its 26 GroupNorm
+    sites, statistics at each but the 3 that take K3's sums (`k3`:
+    conv_impl='pair'); `k1_forwards` forwards beside K1 (the 8 upconv and
+    pool norms, each with its statistics); `steps` backwards through the 26
+    sites, the dx pass at each that computed its statistics. A train step
+    under remat is two forwards and one backward."""
+    own = GN_SITES - (GN_K3_SITES if k3 else 0)
+    side = GN_K1_SIDE_SITES * k1_forwards
+    return {"gn_stats": own * forwards + side, "gn_stats_finish": GN_SITES * forwards + side,
+            "gn_apply": GN_SITES * forwards + side, "gn_grad_sums": GN_SITES * steps,
+            "gn_grad_finish": GN_SITES * steps, "gn_grad_dx": own * steps}
+
+
+@contextlib.contextmanager
+def plain_epilogue(where: str):
+    """While active, every GroupNorm site runs the plain ops
+    (models/unet.py asks `group_norm_act_supported`, refused here): the
+    plain routes that the kernel routes are held against run none of
+    GroupNorm's kernels. On exit, asserts that none launched and that card
+    sites took the plain ops (`gn:plain`)."""
+    gate = tunet.group_norm_act_supported
+    before = {fn.__name__: fn.launches for fn in gnk.WRAPPERS}
+    plain = cuda_launches.HOST["gn:plain"]
+    tunet.group_norm_act_supported = lambda *args: False
+    try:
+        yield
+    finally:
+        tunet.group_norm_act_supported = gate
+    ran = {fn.__name__: fn.launches - before[fn.__name__] for fn in gnk.WRAPPERS}
+    sites = cuda_launches.HOST["gn:plain"] - plain
+    if any(ran.values()) or sites <= 0:
+        raise AssertionError(f"{where}: the plain route launched {ran} of GroupNorm's kernels, "
+                             f"{sites} sites on the plain ops")
+
+
+def route_epilogue(route: str, where: str):
+    """plain_epilogue for a plain route (its name starts with 'plain'), else
+    nothing."""
+    return plain_epilogue(where) if route.startswith("plain") else contextlib.nullcontext()
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -706,6 +768,128 @@ def check_k4_table() -> dict:
     return row
 
 
+# GroupNorm's epilogue at the cells' shapes: a train step's top and bottom
+# sites (batch 1, K2's mask and the batch's rescale) and a rotational or MC
+# chunk's top site (batch 16, no mask)
+GN_SHAPES = ((1, H, W, 64), (1, H >> 4, W >> 4, 1024), (CHUNK, H, W, 64))
+GN_GROUPS = 32
+
+
+def check_gn() -> list:
+    """GroupNorm's six epilogue launches (ops/cuda/group_norm.py) against
+    their plain versions on the same card inputs at GN_SHAPES: the partial
+    sums (x's, and the backward's gz's and gz*x's) and both finishing
+    launches within 1e-5 of the plain float32 numbers relative to their
+    largest magnitude (only the order of the sums differs; the variance
+    gate exact), K3's sums as one partial too; the apply and both dx passes
+    bit-equal (the same float32 operations in the same order, rounded once)
+    under relu with the mask and rescale (batch 1) or without (batch 16),
+    and with no activation, no mask. Each launch timed at each shape on the
+    main path's variant: event ms a call, profiler device ms, its plain
+    version's ms and its byte bound. Returns one row per launch."""
+    rows = {fn.__name__: {"name": fn.__name__, "route": "cuda",
+                          "source": "unet_research_tpu_torch/ops/cuda/csrc/group_norm.cu",
+                          "replaces": "none: XLA fuses GroupNorm's epilogue in JAX",
+                          "library_ms": None, "max_rel_err": 0.0}
+            for fn in gnk.WRAPPERS}
+    for shape in GN_SHAPES:
+        n, h, w, c = shape
+        hw = h * w
+        g = torch.Generator(device=DEV).manual_seed(c + n)
+        x = (1.3 * torch.randn(shape, device=DEV, generator=g) + 0.5).to(torch.bfloat16)
+        weight = 1.0 + 0.3 * torch.randn(c, device=DEV, generator=g)
+        bias = 0.2 * torch.randn(c, device=DEV, generator=g)
+        gy = torch.randn(shape, device=DEV, generator=g).to(torch.bfloat16)
+        if n == 1:
+            mask, keep = dbk.dropblock_mask(shape, keys(c), dropblock_gamma_dependent(
+                h, w, BLOCK, P_DROP), BLOCK)
+            scale = (x.numel() / keep.sum().float()).reshape(())
+            variants = (("relu", mask, scale), ("none", None, None))
+        else:
+            mask = scale = None
+            variants = (("relu", None, None), ("none", None, None))
+        errs = collections.defaultdict(float)
+
+        def worst(name, err):
+            if not err <= 1e-5:
+                raise AssertionError(f"{name} {shape}: {err} from its plain version")
+            errs[name] = max(errs[name], err)
+
+        part = gnk.gn_stats(x)
+        rpart = gnk.gn_stats_plain(x)
+        worst("gn_stats", max(max_rel(part[k].sum(1), rpart[k, :, 0]) for k in range(2)))
+        ab, mr = gnk.gn_stats_finish(part[0], part[1], hw, weight, bias, GN_GROUPS, 1e-5)
+        rab, rmr = gnk.gn_stats_finish_plain(part[0], part[1], hw, weight, bias, GN_GROUPS,
+                                             1e-5)
+        k3ab, _ = gnk.gn_stats_finish(rpart[0], rpart[1], hw, weight, bias, GN_GROUPS, 1e-5)
+        worst("gn_stats_finish", max(max_rel(ab, rab), max_rel(mr[:2], rmr[:2]), max_rel(k3ab, rab)))
+        if not torch.equal(mr[2], rmr[2]):
+            raise AssertionError(f"gn_stats_finish {shape}: the variance gate differs")
+        for act, m, s in variants:
+            what = f"{shape} {act}, mask {m is not None}"
+            if not torch.equal(gnk.gn_apply(x, ab, m, s, act), gnk.gn_apply_plain(x, ab, m, s, act)):
+                raise AssertionError(f"gn_apply {what}: not bit-equal to its plain version")
+            gpart, dx = gnk.gn_grad_sums(gy, x, ab, m, s, act, dx=True)
+            rgpart, rdx = gnk.gn_grad_sums_plain(gy, x, ab, m, s, act, dx=True)
+            if not torch.equal(dx, rdx):
+                raise AssertionError(f"gn_grad_sums dx {what}: not bit-equal to its plain version")
+            worst("gn_grad_sums", max(max_rel(gpart[k].sum(1), rgpart[k, :, 0]) for k in range(2)))
+            ds, dw, db = gnk.gn_grad_finish(gpart, ab, mr, weight, hw, GN_GROUPS)
+            rds, rdw, rdb = gnk.gn_grad_finish_plain(gpart, ab, mr, weight, hw, GN_GROUPS)
+            worst("gn_grad_finish", max(max_rel(ds, rds), max_rel(dw, rdw), max_rel(db, rdb)))
+            if not torch.equal(gnk.gn_grad_dx(gy, x, ab, m, s, ds, act),
+                               gnk.gn_grad_dx_plain(gy, x, ab, m, s, ds, act)):
+                raise AssertionError(f"gn_grad_dx {what}: not bit-equal to its plain version")
+        del rpart, rgpart, rdx, dx
+        torch.cuda.synchronize()
+
+        # the main path's variant of each launch, its bytes from its inputs
+        act = "relu"
+        gpart, _ = gnk.gn_grad_sums(gy, x, ab, mask, scale, act)
+        ds, _, _ = gnk.gn_grad_finish(gpart, ab, mr, weight, hw, GN_GROUPS)
+        m_bytes = 0 if mask is None else mask.numel()
+        small = ab.numel() * 4
+        calls = {
+            "gn_stats": ((lambda: gnk.gn_stats(x)), (lambda: gnk.gn_stats_plain(x)),
+                         x.numel() * 2 + part.numel() * 4),
+            "gn_stats_finish": (
+                (lambda: gnk.gn_stats_finish(part[0], part[1], hw, weight, bias, GN_GROUPS, 1e-5)),
+                (lambda: gnk.gn_stats_finish_plain(part[0], part[1], hw, weight, bias, GN_GROUPS,
+                                                   1e-5)),
+                part.numel() * 4 + 2 * c * 4 + small + mr.numel() * 4),
+            "gn_apply": ((lambda: gnk.gn_apply(x, ab, mask, scale, act)),
+                         (lambda: gnk.gn_apply_plain(x, ab, mask, scale, act)),
+                         2 * x.numel() * 2 + m_bytes + small),
+            "gn_grad_sums": ((lambda: gnk.gn_grad_sums(gy, x, ab, mask, scale, act)),
+                             (lambda: gnk.gn_grad_sums_plain(gy, x, ab, mask, scale, act)),
+                             2 * x.numel() * 2 + m_bytes + small + gpart.numel() * 4),
+            "gn_grad_finish": ((lambda: gnk.gn_grad_finish(gpart, ab, mr, weight, hw, GN_GROUPS)),
+                               (lambda: gnk.gn_grad_finish_plain(gpart, ab, mr, weight, hw,
+                                                                 GN_GROUPS)),
+                               gpart.numel() * 4 + 2 * small + mr.numel() * 4 + 3 * c * 4),
+            "gn_grad_dx": ((lambda: gnk.gn_grad_dx(gy, x, ab, mask, scale, ds, act)),
+                           (lambda: gnk.gn_grad_dx_plain(gy, x, ab, mask, scale, ds, act)),
+                           3 * x.numel() * 2 + m_bytes + 2 * small)}
+        for name, (fn, plain, nbytes) in calls.items():
+            timing = {"shape": list(shape), "mask": mask is not None, "act": act,
+                      "ms": time_ms(fn, 10 if n == 1 else 5),
+                      "device_ms": device_ms(fn, 10 if n == 1 else 5),
+                      "plain_ms": time_ms(plain, 3, 1), "max_rel_err": errs[name]}
+            timing["bound_ms"], timing["bound_by"] = bound_ms(nbytes)
+            emit({"phase": "GN-time", "name": name, **timing})
+            row = rows[name]
+            row["max_rel_err"] = max(row["max_rel_err"], errs[name])
+            if shape == GN_SHAPES[0]:
+                row.update(timing)
+            else:
+                row["x".join(map(str, shape))] = timing
+        del x, gy, part, ab, mr, gpart, ds, mask
+    emit({"phase": "GN", "shapes": [list(s) for s in GN_SHAPES], "bit_equal":
+          ["gn_apply", "gn_grad_sums dx", "gn_grad_dx"],
+          "max_rel_err": {name: row["max_rel_err"] for name, row in rows.items()}})
+    return list(rows.values())
+
+
 def synthetic_image():
     rng = np.random.default_rng(0)
     h, w = 584, 565
@@ -762,11 +946,9 @@ def run_slice(state) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     main = counts()
-    if main != {"dropblock_fused_apply": 22 * forwards, "dropblock_mask": 0,
-                "conv3x3_pair": 3 * forwards, "conv3x3_pair_dx": 0, "conv3x3_pair_fold": 0,
-                "rotate_fan": 0, "rotate_fan_table": 0}:
-        raise AssertionError(f"main path launches {main} over {forwards} forwards")
-    assert_wgmma("MC slice")
+    expect_launches(f"MC slice ({forwards} forwards)", main,
+                    {"dropblock_fused_apply": 22 * forwards, "conv3x3_pair": 3 * forwards,
+                     **epilogue(k1_forwards=forwards)})
     check_outputs(mean, std, saved, ret)
     emit({"phase": "slice", "config": "canonical 31M, bf16, dependent b=7 p=0.15, pair+fused",
           "input": [584, 565], "iterations": iters, "chunk": CHUNK, "return_num": ret,
@@ -784,22 +966,21 @@ def run_slice(state) -> dict:
         variant(x, drop_prob=P_DROP, site_keys=site_keys)
     torch.cuda.synchronize()
     kernel_variant = counts()
-    if kernel_variant != {"dropblock_fused_apply": 0, "dropblock_mask": 22, "conv3x3_pair": 3,
-                          "conv3x3_pair_dx": 0, "conv3x3_pair_fold": 0, "rotate_fan": 0,
-                          "rotate_fan_table": 0}:
-        raise AssertionError(f"mask_impl='kernel' launches {kernel_variant}")
-    assert_wgmma("MC kernel variant")
+    expect_launches("mask_impl='kernel'", kernel_variant,
+                    {"dropblock_mask": 22, "conv3x3_pair": 3, **epilogue(forwards=1)})
     emit({"phase": "kernel-variant", "launches": kernel_variant})
 
-    # one chunk, same site keys: kernel route vs the plain routes
+    # one chunk, same site keys: kernel route vs the plain routes (GroupNorm
+    # on the plain ops too)
     routes = {"kernels": model,
               "plain_bf16": model_for(state, mask_impl="elementwise", conv_impl="torch"),
               "plain_f32": model_for(state, mask_impl="elementwise", conv_impl="torch",
                                      dtype=torch.float32)}
     fov = torch.as_tensor(mask, device=DEV)
-    with torch.inference_mode():
-        outs = {name: m(x, drop_prob=P_DROP, site_keys=site_keys) * fov
-                for name, m in routes.items()}
+    outs = {}
+    for name, m in routes.items():
+        with route_epilogue(name, f"MC routes {name}"), torch.inference_mode():
+            outs[name] = m(x, drop_prob=P_DROP, site_keys=site_keys) * fov
     d_kernel = float((outs["kernels"] - outs["plain_bf16"]).abs().max())
     d_bf16 = float((outs["plain_bf16"] - outs["plain_f32"]).abs().max())
     d_kernel_f32 = float((outs["kernels"] - outs["plain_f32"]).abs().max())
@@ -841,16 +1022,18 @@ def run_rotational(state) -> dict:
               "launches": got, "mean_range": [float(mean.min()), float(mean.max())],
               "std_max": float(std.max())})
 
-    # one chunk of angles: kernel route vs the plain routes
+    # one chunk of angles: kernel route vs the plain routes (GroupNorm on
+    # the plain ops too)
     routes = {"kernels": (model, sr.rotate_fan),
               "plain_bf16": (model_for(state, kind=None, conv_impl="torch"), sr.rotate_fan_plain),
               "plain_f32": (model_for(state, kind=None, conv_impl="torch", dtype=torch.float32),
                             sr.rotate_fan_plain)}
     x = torch.as_tensor(im, device=DEV)
     fov = torch.as_tensor(mask, device=DEV)
-    with torch.inference_mode():
-        outs = {name: warp(m(warp(x, FAN)).contiguous(), -FAN) * fov
-                for name, (m, warp) in routes.items()}
+    outs = {}
+    for name, (m, warp) in routes.items():
+        with route_epilogue(name, f"rotational routes {name}"), torch.inference_mode():
+            outs[name] = warp(m(warp(x, FAN)).contiguous(), -FAN) * fov
     d_kernel = float((outs["kernels"] - outs["plain_bf16"]).abs().max())
     d_bf16 = float((outs["plain_bf16"] - outs["plain_f32"]).abs().max())
     emit({"phase": "rotational-routes", "angles": FAN.tolist(),
@@ -866,10 +1049,11 @@ def run_rotational(state) -> dict:
 
 def rotational_launches(warp: str, outside: int, body: int, captured: bool = True) -> dict:
     """The kernels of a rotational ensemble of `outside` chunks run from the
-    host and `body` chunks of its program: K3 3 per forward; under 'shear'
-    K4 twice per chunk, by its table launch in the program's chunks of the
-    captured route and by its parameter launch in every other chunk."""
-    want = {"conv3x3_pair": 3 * (outside + body)}
+    host and `body` chunks of its program: K3 3 per forward, GroupNorm's
+    epilogue at the 26 sites; under 'shear' K4 twice per chunk, by its table
+    launch in the program's chunks of the captured route and by its
+    parameter launch in every other chunk."""
+    want = {"conv3x3_pair": 3 * (outside + body), **epilogue(forwards=outside + body)}
     if warp == "shear":
         table = body if captured else 0
         want.update(rotate_fan=2 * (outside + body - table), rotate_fan_table=2 * table)
@@ -985,10 +1169,11 @@ def run_program_phase(phase: str, row: dict, engines: dict, call, want: dict, me
     windows = []
     for _ in range(3):
         events = counted_events(timed_replays)
-        windows.append((len(kernel_events(events)), walls[-1], busy_ms(events)))
+        windows.append((len(kernel_events(events)), walls[-1], busy_ms(events),
+                        epilogue_device_ms(events, body)))
         if windows[-1][0] == launched:
             break
-    recorded, wall, busy = max(windows)
+    recorded, wall, busy, gn_ms = max(windows, key=lambda w: w[0])
     replay_ms = time_ms(replays, 3, 1) / body
     eager_ms = time_ms(eager_chunk, 3)
     emit({"phase": phase, **row, "members": members, "body_chunks": body, "card": card(),
@@ -997,7 +1182,8 @@ def run_program_phase(phase: str, row: dict, engines: dict, call, want: dict, me
           "replayed_chunk_ms": replay_ms, "eager_chunk_ms": eager_ms,
           "replays": {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall,
                       "kernels_recorded": recorded, "kernels_launched": launched,
-                      "complete": recorded == launched, "windows": len(windows)},
+                      "complete": recorded == launched, "windows": len(windows),
+                      "epilogue_device_ms_per_chunk": gn_ms},
           "passes_per_s": {route: members / r["seconds"] for route, r in runs.items()},
           "seconds": {route: r["seconds"] for route, r in runs.items()},
           "peak_gib": {route: r["peak_gib"] for route, r in runs.items()},
@@ -1023,7 +1209,8 @@ def run_mc_program(state, noise: float) -> dict:
         return engine.predict(im, gt, mask, P_DROP, generator=torch.Generator().manual_seed(3))[:3]
 
     forwards = outside + body
-    want = {"dropblock_fused_apply": 22 * forwards, "conv3x3_pair": 3 * forwards}
+    want = {"dropblock_fused_apply": 22 * forwards, "conv3x3_pair": 3 * forwards,
+            **epilogue(k1_forwards=forwards)}
     row = {"config": "canonical 31M, bf16, dependent b=7 p=0.15, pair+fused",
            "input": [584, 565], "chunk": CHUNK, "return_num": ret}
     return run_program_phase("mc-program", row, engines, call,
@@ -1064,14 +1251,19 @@ EPOCH_TIME_EPOCHS = 2
 def bench_launches(conv: str, mask: str, members: int, chunk: int) -> dict:
     """The kernel launches of one bench_gpu predict (no member saved): K3 3
     per forward under pair, K1 at the 22 sites under fused, the wgmma
-    kernel for every K3 launch."""
+    kernel for every K3 launch, and GroupNorm's epilogue (bf16) at the 8
+    upconv and pool norms beside K1, else at all 26 GroupNorm sites, each
+    with its statistics unless K3 brought its sums."""
     forwards = ensemble_forwards(members, 0, chunk)
     want = {}
     if conv == "pair":
         want.update({"conv3x3_pair": 3 * forwards, "path:wgmma": 3 * forwards})
     if mask == "fused":
         want["dropblock_fused_apply"] = TRAIN_SITES * forwards
-    return want
+        want.update(epilogue(k1_forwards=forwards))
+    else:
+        want.update(epilogue(forwards=forwards, k3=conv == "pair"))
+    return {name: n for name, n in want.items() if n}  # as launches.since gives them
 
 
 def expect_bench(where: str, total: dict, out: dict, want: dict) -> None:
@@ -1084,7 +1276,7 @@ def expect_bench(where: str, total: dict, out: dict, want: dict) -> None:
             raise AssertionError(f"{where}: timed predict {i} launched {got}, expected {want}")
     calls = bench_gpu.WARMUP_CALLS + bench_gpu.TIMED_CALLS
     expect_launches(where, total, {name: calls * n for name, n in want.items()
-                                   if not name.startswith("path:")})
+                                   if name in COUNTERS})
     if not (out["programs"] == 1 and out["program_reused"]):
         raise AssertionError(f"{where}: {out['programs']} programs, reused {out['program_reused']}")
 
@@ -1093,8 +1285,9 @@ def run_bench_phase(noise: float) -> dict:
     """`bench`: bench_gpu.py's workload in-process at full size: 1000
     members of the canonical model (pair+fused) on bench.py's 584x565
     input, chunk 16, two warm-ups and three timed predicts, each timed one
-    launching K1 1386 and K3 189 times (63 forwards: the first chunk, 61
-    replayed, a remainder of 8) and replaying the warm-up's capture; the
+    launching K1 1386, K3 189 and each of the epilogue's three forward
+    kernels 504 times (63 forwards: the first chunk, 61 replayed, a
+    remainder of 8) and replaying the warm-up's capture; the
     statistics in range, and within twice the plain bf16 route's distance
     from float32 (`noise`) of one eager (program=False) 1000-member predict
     from the last timed call's seed. Then the same at BENCH_RESIZE=256
@@ -1156,7 +1349,9 @@ def run_epoch_time_phase(data: str) -> dict:
     steps = EPOCH_TIME_EPOCHS * n_train
     out = {}
     for arm in epoch_time_torch.ARMS:
-        want = {"dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps}
+        val_forwards = EPOCH_TIME_EPOCHS * n_val + n_val + n_test
+        want = {"dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
+                **epilogue(forwards=2 * steps + val_forwards, steps=steps, k3=arm == "pair")}
         if arm == "pair":
             want.update({"conv3x3_pair": 6 * steps + 3 * (EPOCH_TIME_EPOCHS * n_val + n_val
                                                           + n_test),
@@ -1340,7 +1535,7 @@ def train_model(state, nr_steps: int = 8, **overrides):
 
 def run_train_routes(state) -> None:
     """One train step from the same weights, batch and site keys through the
-    kernel route and the two plain routes."""
+    kernel route and the two plain routes (GroupNorm on the plain ops)."""
     ds = train_dataset(1, seed=3)
     im, gt, fov = (torch.as_tensor(a, device=DEV) for a in ds[np.arange(1)])
     keys = tunet.draw_site_keys(TRAIN_SITES, torch.Generator().manual_seed(4)).to(DEV)
@@ -1351,9 +1546,10 @@ def run_train_routes(state) -> None:
     out = {}
     for name, kw in routes.items():
         model = train_model(state, **kw)
-        loss = masked_rescaled_bce(model(im, drop_prob=P_DROP, site_keys=keys, train=True),
-                                   gt, fov)
-        loss.backward()
+        with route_epilogue(name, f"train routes {name}"):
+            loss = masked_rescaled_bce(model(im, drop_prob=P_DROP, site_keys=keys, train=True),
+                                       gt, fov)
+            loss.backward()
         grad = torch.cat([p.grad.reshape(-1).float() for p in model.parameters()])
         out[name] = (float(loss.detach()), grad)
         del model
@@ -1392,12 +1588,7 @@ def run_train_slice(state) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     got = counts()
-    want = {"dropblock_fused_apply": 0, "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
-            "conv3x3_pair": 6 * steps + 3 * val_forwards, "conv3x3_pair_dx": 3 * steps,
-            "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0, "rotate_fan_table": 0}
-    if got != want:
-        raise AssertionError(f"train launches {got}, expected {want}")
-    assert_wgmma("train fit")
+    expect_launches("train fit", got, train_want(steps, val_forwards))
     losses = history["train_loss_epoch"] + history["val_loss_epoch"]
     if not (len(history["val_loss_epoch"]) == 3 and all(np.isfinite(losses))):
         raise AssertionError(f"train history {history}")
@@ -1513,7 +1704,17 @@ REPLAYED_KERNELS = {"dropblock_mask_kernel": "dropblock_mask",
                     "dropblock_apply_kernel": "dropblock_fused_apply",
                     "conv3x3_wgmma_kernel": "path:wgmma", "conv3x3_kernel<": "path:cuda_cores",
                     "conv3x3_fold_kernel": "conv3x3_pair_fold", "shear_fan_kernel": "rotate_fan",
-                    "shear_fan_table_kernel": "rotate_fan_table"}
+                    "shear_fan_table_kernel": "rotate_fan_table",
+                    **{f"{fn.__name__}_kernel": fn.__name__ for fn in gnk.WRAPPERS}}
+
+
+def epilogue_device_ms(events, per: int) -> dict:
+    """Device ms of GroupNorm's epilogue kernels in `events`, by kernel and
+    in all, per one of `per` replays."""
+    ms = {fn.__name__: sum(ev.time_range.end - ev.time_range.start for ev in events
+                           if f"{fn.__name__}_kernel" in ev.name) / 1e3 / per
+          for fn in gnk.WRAPPERS}
+    return {**ms, "all": sum(ms.values())}
 
 
 def by_credit(names: collections.Counter) -> dict:
@@ -1572,9 +1773,7 @@ def run_train_scan(state) -> None:
                       "program": programs[0] if programs else None, "trainer": trainer,
                       "state": fit_state}
     scanned, stepped = fits[True], fits[False]
-    want = {"dropblock_fused_apply": 0, "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
-            "conv3x3_pair": 6 * steps + 3 * 3 * len(val_ds), "conv3x3_pair_dx": 3 * steps,
-            "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0, "rotate_fan_table": 0}
+    want = train_want(steps, 3 * len(val_ds))
     if not scanned["launches"] == stepped["launches"] == want:
         raise AssertionError(f"train-scan launches {scanned['launches']} (scanned), "
                              f"{stepped['launches']} (stepped), expected {want}")
@@ -1673,6 +1872,7 @@ def run_train_scan(state) -> None:
           "kernels_per_step": sum(replay.values()),
           "epoch_of_replays": {"wall_ms": wall_ms, "busy_ms": epoch_busy_ms,
                                "idle_share": 1.0 - epoch_busy_ms / wall_ms,
+                               "epilogue_device_ms_per_step": epilogue_device_ms(epoch_events, k),
                                "kernels_counted": replayed, "windows": windows,
                                "counted_per_window": [w[1] for w in seen]},
           "steps_per_s": {"scanned": steps / scanned["seconds"],
@@ -1730,9 +1930,11 @@ def smoothed_losses(losses, beta: float = 0.98) -> np.ndarray:
 def train_want(steps: int, val_forwards: int) -> dict:
     """Each kernel's launches in `steps` train steps of the canonical model
     (kernel masks, pair convs, remat) and `val_forwards` validation forwards."""
-    return {"dropblock_fused_apply": 0, "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
+    return {**{name: 0 for name in COUNTERS},
+            "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
             "conv3x3_pair": 6 * steps + 3 * val_forwards, "conv3x3_pair_dx": 3 * steps,
-            "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0, "rotate_fan_table": 0}
+            "conv3x3_pair_fold": 3 * steps,
+            **epilogue(forwards=2 * steps + val_forwards, steps=steps)}
 
 
 def run_step_program_lr_find(state, train_ds) -> dict:
@@ -2022,12 +2224,13 @@ def run_eval_trainer_forwards(state) -> dict:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
-            t0 = time.perf_counter()
-            val = trainer.validate(None, ds)
-            t1 = time.perf_counter()
-            preds = [p[1:] for p in trainer.predict(None, ds)]
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
+            with route_epilogue(route, f"eval-program {pname} {route}"):
+                t0 = time.perf_counter()
+                val = trainer.validate(None, ds)
+                t1 = time.perf_counter()
+                preds = [p[1:] for p in trainer.predict(None, ds)]
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
             got = counts()
             if route in ("captured", "eager"):
                 assert_wgmma(f"eval-program {pname} {route}")
@@ -2051,7 +2254,8 @@ def run_eval_trainer_forwards(state) -> dict:
         pred_noise = output_dists(bf["preds"], f32["preds"])
         pred_dist = output_dists(cap["preds"], eag["preds"])
         shapes = [tuple(x.shape) for x in cap["preds"][0]]
-        want = {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3 * 2 * EVAL_IMAGES}
+        want = {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3 * 2 * EVAL_IMAGES,
+                **epilogue(forwards=2 * EVAL_IMAGES)}
         row = {"phase": "eval-program", "part": f"validate+predict {pname}", "card": card(),
                "config": "canonical 31M, bf16, pair + kernel masks (DropBlock off in eval), "
                          "random weights seed 0",
@@ -2095,7 +2299,7 @@ def run_eval_predict_at(state) -> dict:
             torch.cuda.synchronize()
             reset_counts()
             t0 = time.perf_counter()
-            with forward_programs() as made:
+            with forward_programs() as made, route_epilogue(route, f"predict_at {route}"):
                 preds = [p[1:] for p in cli_base_model_mf.predict_at(model, ds, h, w,
                                                                      program=program)]
             seconds = time.perf_counter() - t0
@@ -2115,7 +2319,8 @@ def run_eval_predict_at(state) -> dict:
         cap, eag, bf, f32 = (res[k] for k in ("captured", "eager", "plain_bf16", "plain_f32"))
         noise = output_dists(bf["preds"], f32["preds"])
         dist = output_dists(cap["preds"], eag["preds"])
-        want = {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3 * EVAL_IMAGES}
+        want = {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3 * EVAL_IMAGES,
+                **epilogue(forwards=EVAL_IMAGES)}
         by_size[f"{h}x{w}"] = {"dist_captured_eager": dist, "noise_bf16_f32": noise,
                                "ms_per_forward": cap["times"],
                                "seconds": {k: res[k]["seconds"] for k in EVAL_ROUTES},
@@ -2327,7 +2532,8 @@ def run_eval_one_shot(state) -> dict:
     val_ds, test_ds = (train_dataset(n, seed=11 + i) for i, n in enumerate(ONE_SHOT_SPLITS))
     images = sum(ONE_SHOT_SPLITS)
     out_root = os.path.join(ROOT, "_runs", "chip_smoke_one_shot")
-    want = {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3 * images}
+    want = {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3 * images,
+            **epilogue(forwards=images)}
     paths = ("evaluate_at", "predict")
     seconds = {p: {"captured": [], "eager": []} for p in paths}
     capture_s = {p: [] for p in paths}
@@ -2415,7 +2621,8 @@ def check_failed_capture(state) -> None:
     got = counts()
     prog = trainer._forward
     if (prog.graphs or sum(prog.warm.values()) != 1
-            or got != {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3}):
+            or got != {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3,
+                       **epilogue(forwards=1)}):
         raise AssertionError(f"failed capture: graphs {list(prog.graphs)}, warm {prog.warm}, "
                              f"launches {got} (the warm-up's alone expected)")
     del prog, trainer
@@ -2553,10 +2760,12 @@ def dp_rank() -> dict:
     sums = all_gather(sums, mesh)
     if rank == 0:
         ref = dp_step(state, batch, site_keys, None, dtype=torch.float32)
-        plain_bf16 = dp_step(state, batch, site_keys, None, conv_impl="torch",
-                             mask_impl="elementwise")
-        plain_f32 = dp_step(state, batch, site_keys, None, conv_impl="torch",
-                            mask_impl="elementwise", dtype=torch.float32)
+        with plain_epilogue("dp plain bf16 step"):
+            plain_bf16 = dp_step(state, batch, site_keys, None, conv_impl="torch",
+                                 mask_impl="elementwise")
+        with plain_epilogue("dp plain float32 step"):
+            plain_f32 = dp_step(state, batch, site_keys, None, conv_impl="torch",
+                                mask_impl="elementwise", dtype=torch.float32)
         upd = {name: r[2] - r[1] for name, r in (("dp_bf16", bf16), ("plain_bf16", plain_bf16),
                                                  ("plain_f32", plain_f32))}
         params_close = torch.allclose(f32[2], ref[2], rtol=2e-4, atol=2e-6)
@@ -2648,9 +2857,7 @@ def run_dp_phase(mc_slice: dict) -> dict:
     if not ok_step:
         raise AssertionError(f"dp step: {step}")
     steps, val_per_rank = 2, 2
-    want = {"dropblock_fused_apply": 0, "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * steps,
-            "conv3x3_pair": 6 * steps + 3 * val_per_rank, "conv3x3_pair_dx": 3 * steps,
-            "conv3x3_pair_fold": 3 * steps, "rotate_fan": 0, "rotate_fan_table": 0}
+    want = train_want(steps, val_per_rank)
     rank1_dir = os.path.join(DP_ROOT, "rank1")
     emit({"phase": "dp-fit", "card": card(), "launches_rank0": fit["launches"],
           "history": fit["history"],
@@ -2673,9 +2880,8 @@ def run_dp_phase(mc_slice: dict) -> dict:
         raise AssertionError(f"dp fit history {fit['history']}")
 
     forwards = 4  # the saved 4 and chunks of 16, 16 and 12: each split over the ranks
-    want_mc = {"dropblock_fused_apply": 22 * forwards, "dropblock_mask": 0,
-               "conv3x3_pair": 3 * forwards, "conv3x3_pair_dx": 0, "conv3x3_pair_fold": 0,
-               "rotate_fan": 0, "rotate_fan_table": 0}
+    want_mc = {**{name: 0 for name in COUNTERS}, "dropblock_fused_apply": 22 * forwards,
+               "conv3x3_pair": 3 * forwards, **epilogue(k1_forwards=forwards)}
     diffs = {name: float((a - b).abs().max())
              for name, a, b in zip(("mean", "std", "saved"), mc["outputs"], mc_slice["outputs"])}
     gate = 2.0 * mc_slice["bf16_noise"]
@@ -2809,7 +3015,8 @@ def run_nccl_forwards(state, mesh, ref: dict) -> dict:
     names = ("seg", "im", "gt", "mask")
     dists = {"host": (abs(cap["val"] - host["val"]), output_dists(cap["preds"], host["preds"])),
              "meshless": (abs(cap["val"] - ref["val"]), output_dists(cap["preds"], ref["preds"]))}
-    want = {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3 * 2 * EVAL_IMAGES}
+    want = {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3 * 2 * EVAL_IMAGES,
+            **epilogue(forwards=2 * EVAL_IMAGES)}
     row = {"phase": "dp-nccl", "part": "validate + predict", "card": card(),
            "captures": [cap["captures"], host["captures"]], "graphs": cap["graphs"],
            "val_loss": {"captured": cap["val"], "host": host["val"], "meshless": ref["val"]},
@@ -2849,7 +3056,8 @@ def run_nccl_mc(state, mesh, noise: float) -> dict:
                                         mesh=None if route == "meshless" else mesh)
                for route in ("host", "captured", "meshless")}
     forwards = outside + body
-    want = {"dropblock_fused_apply": 22 * forwards, "conv3x3_pair": 3 * forwards}
+    want = {"dropblock_fused_apply": 22 * forwards, "conv3x3_pair": 3 * forwards,
+            **epilogue(k1_forwards=forwards)}
     runs = {}
     for route, engine in engines.items():
         def call(engine=engine):
@@ -3100,10 +3308,7 @@ def run_cli_phase() -> dict:
             "-num_epochs", "1", "--auto_lr_find", "False", "-lr", "1e-3",
             "--gradient_clip_val", "0.5", "-seed", "0"] + CLI_FLAGS
     forwards = n_val + n_test + n_val
-    dest, row = run_cli("training-train", cli_training.main, argv, {
-        "dropblock_mask": (TRAIN_SITES + REMAT_SITES) * n_train,
-        "conv3x3_pair": 6 * n_train + 3 * forwards,
-        "conv3x3_pair_dx": 3 * n_train, "conv3x3_pair_fold": 3 * n_train})
+    dest, row = run_cli("training-train", cli_training.main, argv, train_want(n_train, forwards))
     ckpt = find_checkpoint(os.path.join(dest, "model_info"))
     want = [os.path.join("model_info", os.path.basename(ckpt))] + [
         os.path.join("statistics", f) for f in ev_metrics.output_files(n_val, n_test)]
@@ -3124,7 +3329,8 @@ def run_cli_phase() -> dict:
     argv = ["-mode", "test", "-model_path", ckpt, "-data_path", data, "-save_path",
             os.path.join(runs, "test"), "-seed", "0"] + CLI_FLAGS
     out, row = run_cli("training-test", cli_training.main, argv,
-                       {"conv3x3_pair": 3 * (n_test + n_val)})
+                       {"conv3x3_pair": 3 * (n_test + n_val),
+                        **epilogue(forwards=n_test + n_val)})
     if cli_files(out) != ev_metrics.output_files(n_val, n_test):
         raise AssertionError(f"test tree {cli_files(out)}")
     row["metrics"] = check_metrics_csv(os.path.join(out, "val_images", "metrics.csv"), n_val)
@@ -3138,7 +3344,8 @@ def run_cli_phase() -> dict:
             "-seed", "0"] + CLI_FLAGS
     mc_forwards = ensemble_forwards(MC_ITERS, MC_SAVE, CHUNK) * n_val * 2
     out, row = run_cli("dropblock_uncertainty", cli_dropblock.main, argv, {
-        "dropblock_fused_apply": TRAIN_SITES * mc_forwards, "conv3x3_pair": 3 * mc_forwards})
+        "dropblock_fused_apply": TRAIN_SITES * mc_forwards, "conv3x3_pair": 3 * mc_forwards,
+        **epilogue(k1_forwards=mc_forwards)})
     want = ["model_ckpt_symlink.ckpt"] + [
         os.path.join("tensors", f"image_{i}", f"{m}.pt") for i in range(n_val)
         for m in ("mean", "std", "tensors")] + [
@@ -3450,7 +3657,7 @@ def check_k3_sizes() -> None:
     with torch.inference_mode():
         seg = model(torch.rand((1, 300, 200, 1), device=DEV))
     torch.cuda.synchronize()
-    expect_launches("forward at 300x200", counts(), {"conv3x3_pair": 3})
+    expect_launches("forward at 300x200", counts(), {"conv3x3_pair": 3, **epilogue(forwards=1)})
     if seg.shape != (1, 300, 200, 1) or not bool(torch.isfinite(seg).all()):
         raise AssertionError(f"forward at 300x200: {tuple(seg.shape)}")
     emit({"phase": "K3-sizes", "rows": rows, "forward_300x200_launches": counts()})
@@ -3495,9 +3702,7 @@ def run_mf_cli_phase(data: str) -> dict:
             "--gradient_clip_val", "0.5", "-seed", "0"] + CLI_FLAGS
     # one epoch of n_train steps, n_val validation forwards, then the final
     # metrics' n_test + n_val forwards: K3 3 per forward, twice per step (remat)
-    train_want = {"dropblock_mask": (TRAIN_SITES + REMAT_SITES) * n_train,
-                  "conv3x3_pair": 6 * n_train + 3 * (n_val + n_test + n_val),
-                  "conv3x3_pair_dx": 3 * n_train, "conv3x3_pair_fold": 3 * n_train}
+    trained = train_want(n_train, n_val + n_test + n_val)
     rows, launches = [], {}
 
     argv = ["-mode", "train", "-policy", "uni", "-orig_train_size", "3",
@@ -3506,7 +3711,7 @@ def run_mf_cli_phase(data: str) -> dict:
     sizes = {str(s): int((plan == s).sum()) for s in (-1, 256, 128)}
     if len(plan) != n_train or 0 in sizes.values():
         raise AssertionError(f"uni size plan {plan}")
-    mf_ckpt, row = run_trained_cli("mf_training-uni-train", cli_mf.main, argv, train_want,
+    mf_ckpt, row = run_trained_cli("mf_training-uni-train", cli_mf.main, argv, trained,
                                    n_val, n_test, (584, 565), cfg)
     row["size_plan_counts"] = sizes
     rows.append(row)
@@ -3514,7 +3719,7 @@ def run_mf_cli_phase(data: str) -> dict:
 
     argv = ["-mode", "train", "-policy", "lft", "-new_size", "256",
             "-save_path", os.path.join(runs, "lf")] + base
-    lf_ckpt, row = run_trained_cli("lf_training-lft-train", cli_lf.main, argv, train_want,
+    lf_ckpt, row = run_trained_cli("lf_training-lft-train", cli_lf.main, argv, trained,
                                    n_val, n_test, (256, 256), cfg)
     rows.append(row)
     launches["cli_lf_lft_train"] = row["launches"]
@@ -3522,7 +3727,8 @@ def run_mf_cli_phase(data: str) -> dict:
     argv = ["-mode", "test", "-policy", "lft", "-new_size", "256", "-model_path", lf_ckpt,
             "-data_path", data, "-save_path", os.path.join(runs, "lf_test"), "-seed", "0"] + CLI_FLAGS
     out, row = run_cli("lf_training-lft-test", cli_lf.main, argv,
-                       {"conv3x3_pair": 3 * (n_test + n_val)})
+                       {"conv3x3_pair": 3 * (n_test + n_val),
+                        **epilogue(forwards=n_test + n_val)})
     row["metrics"] = check_cli_tree("lf test", out, n_val, n_test, (256, 256))
     rows.append(row)
     launches["cli_lf_lft_test"] = row["launches"]
@@ -3530,8 +3736,9 @@ def run_mf_cli_phase(data: str) -> dict:
     argv = ["-model_path", mf_ckpt, "-data_path", data, "-save_path", os.path.join(runs, "bm"),
             "-height", ",".join(str(h) for h, _ in MF_SIZES),
             "-width", ",".join(str(w) for _, w in MF_SIZES)] + CLI_FLAGS
+    bm_forwards = (n_test + n_val) * len(MF_SIZES)
     out, row = run_cli("base_model_mf", cli_base_model_mf.main, argv,
-                       {"conv3x3_pair": 3 * (n_test + n_val) * len(MF_SIZES)})
+                       {"conv3x3_pair": 3 * bm_forwards, **epilogue(forwards=bm_forwards)})
     if sorted(os.listdir(out)) != sorted(f"{h}x{w}" for h, w in MF_SIZES):
         raise AssertionError(f"base_model_mf sizes {os.listdir(out)}")
     row["metrics"] = {f"{h}x{w}": check_cli_tree(f"base_model_mf {h}x{w}",
@@ -3609,12 +3816,10 @@ def matrix_want(n_train: int, n_val: int, n_test: int) -> dict:
     mc = ensemble_forwards(MATRIX_ITERS, MATRIX_SAVE, CHUNK) * n_val * 2
     rot = rotational_launches("shear", *ensemble_chunks(ROT_ITERS, MATRIX_SAVE, CHUNK))
     return {
-        "train": {"dropblock_mask": (TRAIN_SITES + REMAT_SITES) * n_train,
-                  "conv3x3_pair": 6 * n_train + 3 * (n_val + n_test + n_val),
-                  "conv3x3_pair_dx": 3 * n_train, "conv3x3_pair_fold": 3 * n_train},
-        "test": {"conv3x3_pair": 3 * (n_test + n_val)},
+        "train": train_want(n_train, n_val + n_test + n_val),
+        "test": {"conv3x3_pair": 3 * (n_test + n_val), **epilogue(forwards=n_test + n_val)},
         "dropblock_uncertainty": {"dropblock_fused_apply": TRAIN_SITES * mc,
-                                  "conv3x3_pair": 3 * mc},
+                                  "conv3x3_pair": 3 * mc, **epilogue(k1_forwards=mc)},
         "rotational_uncertainty": {name: n * n_val for name, n in rot.items()},
         "create_density": {},
     }
@@ -3858,6 +4063,7 @@ def main() -> None:
     build_kernels()
     rows = [check_k1(), check_k2(), check_k3(), check_k4(), check_k4_table(),
             *check_k3_backward()]
+    gn_rows = check_gn()
     check_k3_valid()
     check_offsets()
     state = base_state()
@@ -3900,6 +4106,10 @@ def main() -> None:
         row["launches"] = paths[main_path][name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items() if c[name]}
     rows[5]["launches_per_train_step"] = train["conv3x3_pair_dx"] / steps
+    for row in gn_rows:
+        row["launches"] = train[row["name"]]
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items() if c[row["name"]]}
+    rows += gn_rows
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,12 +31,20 @@ tiling's edge shapes: dx within 1e-2, the folded g within one bf16
 rounding of the plain fold, and with a zero dy and large ds1/ds2, where a
 padding ring of g at ds1 would be the whole error; one train step of a small model, kernel route against plain route in
 float32: gradients within 1e-3 of the plain ones relative to the largest
-magnitude of each."""
+magnitude of each. GroupNorm's epilogue (ops/cuda/group_norm.py) at the
+cells' shapes, (1, 592, 576, 64), (1, 37, 36, 1024) and (16, 592, 576, 64):
+each launch against its plain version (tolerances at the test), the
+Function against float32 autograd of GroupNorm -> mask -> scale -> relu,
+with its own statistics and with K3's sums; a captured bf16 train step
+replayed twice, bit-identical, with the epilogue's launches credited per
+replay; the canonical model's launches per train step, rotational and MC
+forward, and no GroupNorm site on the plain route (`gn:plain`)."""
 
 import dataclasses
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 pytestmark = pytest.mark.cuda
 
@@ -401,3 +409,242 @@ def test_train_step_kernel_route_matches_plain(dev):
     for n, ref in grads["plain"].items():
         err = float((grads["kernel"][n] - ref).abs().max() / ref.abs().max())
         assert err <= 1e-3, (n, err)
+
+
+# --- GroupNorm's epilogue (ops/cuda/group_norm.py) ---------------------------
+
+# the cells' shapes: batch 1 at the top and the bottom level, a chunk of 16
+GN_SHAPES = [(1, 592, 576, 64), (1, 37, 36, 1024), (16, 592, 576, 64)]
+GN_GROUPS = 32
+
+
+def _gn_inputs(dev, shape, seed):
+    """x (bf16, mean 0.5), the GroupNorm weight and bias, K2's keep mask at
+    b = 7, a per-sample scale and an output cotangent (bf16)."""
+    from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, h, w, c = shape
+    x = (1.3 * torch.randn(shape, device=dev, generator=g) + 0.5).to(torch.bfloat16)
+    weight = 1.0 + 0.3 * torch.randn(c, device=dev, generator=g)
+    bias = 0.2 * torch.randn(c, device=dev, generator=g)
+    gamma = 0.15 * h * w / (49 * (h - 6) * (w - 6))
+    mask, _ = dbk.dropblock_mask(shape, _key(dev), gamma, 7)
+    scale = 0.8 + 0.4 * torch.rand(n, device=dev, generator=g)
+    gy = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+    return x, weight, bias, mask, scale, gy
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_group_norm_kernels_match_plain(dev, shape):
+    """Each of the six launches against its plain version on the card
+    (float32 arithmetic): the partial sums and the finishing launches within
+    1e-5 of the largest magnitude (only the order of the sums differs); the
+    apply and both dx passes bit-equal (the same float32 operations in the
+    same order, rounded once), under each activation, with and without the
+    mask and the scale."""
+    from unet_research_tpu_torch.ops.cuda import group_norm as gn
+
+    x, weight, bias, mask, scale, gy = _gn_inputs(dev, shape, seed=shape[-1] + shape[0])
+    hw = shape[1] * shape[2]
+    part = gn.gn_stats(x)
+    rpart = gn.gn_stats_plain(x)
+    for k in range(2):
+        assert _rel(part[k].sum(1), rpart[k, :, 0]) <= 1e-5
+    ab, mr = gn.gn_stats_finish(part[0], part[1], hw, weight, bias, GN_GROUPS, 1e-5)
+    rab, rmr = gn.gn_stats_finish_plain(rpart[0], rpart[1], hw, weight, bias, GN_GROUPS, 1e-5)
+    assert _rel(ab, rab) <= 1e-5 and _rel(mr[:2], rmr[:2]) <= 1e-5
+    assert torch.equal(mr[2], rmr[2])
+    # K3's sums: the (N, C) sums as one partial
+    ab3, _ = gn.gn_stats_finish(rpart[0, :, 0][:, None], rpart[1, :, 0][:, None], hw, weight,
+                                bias, GN_GROUPS, 1e-5)
+    assert _rel(ab3, rab) <= 1e-5
+    for act, m, s in (("relu", mask, scale), ("leaky_relu", mask, scale[:1].reshape(())),
+                      ("none", None, None), ("relu", None, scale)):
+        before = gn.gn_apply.launches
+        y = gn.gn_apply(x, rab, m, s, act)
+        assert gn.gn_apply.launches == before + 1
+        assert torch.equal(y, gn.gn_apply_plain(x, rab, m, s, act)), act
+        gpart, dx = gn.gn_grad_sums(gy, x, rab, m, s, act, dx=True)
+        rgpart, rdx = gn.gn_grad_sums_plain(gy, x, rab, m, s, act, dx=True)
+        assert torch.equal(dx, rdx), act
+        for k in range(2):
+            assert _rel(gpart[k].sum(1), rgpart[k, :, 0]) <= 1e-5, act
+        ds, dw, db = gn.gn_grad_finish(gpart, rab, rmr, weight, hw, GN_GROUPS)
+        rds, rdw, rdb = gn.gn_grad_finish_plain(gpart, rab, rmr, weight, hw, GN_GROUPS)
+        for a, b in ((ds, rds), (dw, rdw), (db, rdb)):
+            assert _rel(a, b) <= 1e-5, act
+        dx2 = gn.gn_grad_dx(gy, x, rab, m, s, rds, act)
+        assert torch.equal(dx2, gn.gn_grad_dx_plain(gy, x, rab, m, s, rds, act)), act
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES)
+@pytest.mark.parametrize("k3", [False, True])
+def test_group_norm_act_matches_float32_autograd(dev, shape, k3):
+    """group_norm_act (mask, per-sample scale, relu) against float32
+    autograd of GroupNorm -> mask -> scale -> relu on the same bf16 inputs:
+    y within one bf16 rounding (2^-8 of |y|) plus 1e-4 of the largest |y|;
+    dx within 1e-2 of its largest magnitude (rounded to bf16), the weight's
+    and bias's gradients and K3's sums' cotangents within 1e-3."""
+    from unet_research_tpu_torch.models import unet as tunet
+    from unet_research_tpu_torch.ops.cuda import group_norm as gn
+
+    x0, w0, b0, mask, scale, gy = _gn_inputs(dev, shape, seed=7 + shape[-1])
+    hw = shape[1] * shape[2]
+    xf = x0.float()
+    sums0 = (xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2)))
+
+    def run(fn, x):
+        w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
+        x = x.clone().requires_grad_()
+        leaves = [x, w, b]
+        sums = None
+        if k3:
+            sums = tuple(s.clone().requires_grad_() for s in sums0)
+            leaves += list(sums)
+        y = fn(x, w, b, sums)
+        return [t.detach() for t in (y, *torch.autograd.grad(y, leaves, gy.to(y.dtype)))]
+
+    def reference(x, w, b, sums):
+        if sums is None:
+            z = F.group_norm(x.permute(0, 3, 1, 2), GN_GROUPS, w, b, 1e-5).permute(0, 2, 3, 1)
+        else:
+            a, bb = tunet.group_norm_coeffs_from_sums(sums[0], sums[1], hw, w, b, GN_GROUPS,
+                                                      1e-5)
+            z = x * a[:, None, None, :] + bb[:, None, None, :]
+        return torch.relu(z * mask.float() * scale[:, None, None, None])
+
+    before = {f.__name__: f.launches for f in gn.WRAPPERS}
+    got = run(lambda x, w, b, sums: gn.group_norm_act(x, w, b, GN_GROUPS, 1e-5, sums, mask,
+                                                      scale, "relu"), x0)
+    counts = {f.__name__: f.launches - before[f.__name__] for f in gn.WRAPPERS}
+    assert counts == {"gn_stats": 0 if k3 else 1, "gn_stats_finish": 1, "gn_apply": 1,
+                      "gn_grad_sums": 1, "gn_grad_finish": 1, "gn_grad_dx": 0 if k3 else 1}
+    ref = run(reference, xf)
+    y, ry = got[0].float(), ref[0]
+    assert bool(((y - ry).abs() <= 2**-8 * ry.abs() + 1e-4 * ry.abs().max()).all())
+    names = ["dx", "dweight", "dbias"] + (["ds1", "ds2"] if k3 else [])
+    for name, a, b in zip(names, got[1:], ref[1:]):
+        assert a.shape == b.shape, name
+        assert _rel(a, b) <= (1e-2 if name == "dx" else 1e-3), (name, _rel(a, b))
+
+
+def _gn_counts():
+    from unet_research_tpu_torch.ops.cuda import group_norm as gn
+
+    return {f.__name__: f.launches for f in gn.WRAPPERS}
+
+
+def _gn_added(before):
+    return {k: v - before[k] for k, v in _gn_counts().items() if v != before[k]}
+
+
+def test_captured_train_step_replays_bit_identical(dev):
+    """A bf16 train step of a 64-filter depth-1 U-Net (K2 masks at a device
+    drop probability, remat; its convs through cuDNN in its deterministic
+    mode, since K3's sums add with float atomics) captured as one CUDA graph:
+    two replays give the same loss and gradients bit for bit; one replay is
+    credited the epilogue's launches of its 8 GroupNorm sites (each forward
+    twice under remat), and no site took the plain route. Then the
+    epilogue alone from fixed K3 sums, captured forward and backward,
+    replayed twice: bit for bit."""
+    from unet_research_tpu_torch.models import unet as tunet
+    from unet_research_tpu_torch.ops.cuda import group_norm as gn
+    from unet_research_tpu_torch.ops.cuda import launches
+    from unet_research_tpu_torch.ops.losses import masked_rescaled_bce
+
+    cfg = tunet.canonical_config(filters=64, model_depth=1, group_norm_groups=8, remat=True,
+                                 dtype=torch.bfloat16, conv_impl="torch",
+                                 dropblock=tunet.DropBlockConfig(kind="dependent", block_size=3))
+    model = tunet.UNet(cfg, device=dev, generator=torch.Generator().manual_seed(5))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((1, 48, 64, 1), device=dev, generator=gen)
+    gt = (torch.rand((1, 48, 64, 1), device=dev, generator=gen) > 0.8).float()
+    keys = tunet.draw_site_keys(model.num_mask_sites(), torch.Generator().manual_seed(4)).to(dev)
+    drop = torch.tensor(0.2, device=dev)
+    params = list(model.parameters())
+    outs = [torch.zeros_like(p) for p in params] + [torch.zeros((), device=dev)]
+
+    def step():
+        loss = masked_rescaled_bce(model(x, drop_prob=drop, site_keys=keys, train=True), gt,
+                                   torch.ones_like(gt))
+        for o, g in zip(outs, (*torch.autograd.grad(loss, params), loss.detach())):
+            o.copy_(g)
+
+    xs, ws, bs, mask, scale, gy = _gn_inputs(dev, (1, 48, 64, 64), seed=9)
+    xs = xs.requires_grad_()
+    ws, bs = ws.requires_grad_(), bs.requires_grad_()
+    xf = xs.detach().float()
+    sums = tuple(t.requires_grad_() for t in (xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2))))
+    leaves = (xs, ws, bs, *sums)
+    gn_outs = [torch.zeros_like(t) for t in leaves] + [torch.zeros_like(xs)]
+
+    def epilogue():
+        y = gn.group_norm_act(xs, ws, bs, GN_GROUPS, 1e-5, sums, mask, scale, "relu")
+        for o, g in zip(gn_outs, (*torch.autograd.grad(y, leaves, gy), y.detach())):
+            o.copy_(g)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for fn, outputs, want in (
+                (step, outs, {"gn_stats": 16, "gn_stats_finish": 16, "gn_apply": 16,
+                              "gn_grad_sums": 8, "gn_grad_finish": 8, "gn_grad_dx": 8}),
+                (epilogue, gn_outs, {"gn_stats_finish": 1, "gn_apply": 1, "gn_grad_sums": 1,
+                                     "gn_grad_finish": 1})):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            plain = launches.HOST["gn:plain"]
+            graph, counts, _ = launches.capture(fn)
+            assert launches.HOST["gn:plain"] == plain
+            assert {k: v for k, v in counts.items() if k.startswith("gn_")} == want
+            runs = []
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                runs.append([o.clone() for o in outputs])
+            assert all(torch.equal(a, b) for a, b in zip(*runs)), fn.__name__
+            assert all(float(o.abs().max()) > 0 for o in runs[0]), fn.__name__
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def test_canonical_model_epilogue_launches(dev):
+    """The canonical U-Net (bf16, GroupNorm(32), remat) at 64x64: a train
+    step launches the counts PERF.md gives per replayed train step (26
+    GroupNorm sites, 23 of their own statistics and 3 K3's, each forward
+    twice under remat: 46 + 52 + 52 forward, 26 + 26 + 23 backward), a
+    forward with DropBlock off (a rotational chunk) 23 + 26 + 26, and the MC
+    engine's forward through K1 the 8 upconv and pool-norm sites, 8 + 8 + 8;
+    no site takes the plain route."""
+    from unet_research_tpu_torch.models import unet as tunet
+    from unet_research_tpu_torch.ops.cuda import launches
+    from unet_research_tpu_torch.ops.losses import masked_rescaled_bce
+
+    cfg = tunet.canonical_config(remat=True, dtype=torch.bfloat16,
+                                 dropblock=tunet.DropBlockConfig(kind="dependent", block_size=7))
+    model = tunet.UNet(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.rand((2, 64, 64, 1), device=dev, generator=gen)
+    keys = tunet.draw_site_keys(model.num_mask_sites(), torch.Generator().manual_seed(3)).to(dev)
+    plain = launches.HOST["gn:plain"]
+    before = _gn_counts()
+    out = model(x[:1], drop_prob=torch.tensor(0.15, device=dev), site_keys=keys, train=True)
+    masked_rescaled_bce(out, (x[:1] > 0.5).float(), torch.ones_like(out)).backward()
+    assert _gn_added(before) == {"gn_stats": 46, "gn_stats_finish": 52, "gn_apply": 52,
+                                 "gn_grad_sums": 26, "gn_grad_finish": 26, "gn_grad_dx": 23}
+    with torch.no_grad():
+        before = _gn_counts()
+        model(x)
+        assert _gn_added(before) == {"gn_stats": 23, "gn_stats_finish": 26, "gn_apply": 26}
+        before = _gn_counts()
+        model(x, drop_prob=0.15, site_keys=keys)
+        assert _gn_added(before) == {"gn_stats": 8, "gn_stats_finish": 8, "gn_apply": 8}
+    assert launches.HOST["gn:plain"] == plain

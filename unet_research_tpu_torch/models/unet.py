@@ -16,7 +16,11 @@ its torch state_dict keys, so a reference PL checkpoint loads as it is
 Each conv is followed by norm -> DropBlock -> activation; the skip merge
 carries one more (bare) DropBlock site. Norm modules hold parameters only:
 GroupNorm is computed by `group_norm_affine` (float32 statistics, the apply
-in the storage dtype), as in the JAX model.
+in the storage dtype), as in the JAX model. On the card a bf16 GroupNorm
+epilogue (norm, the mask and its rescale, the activation) runs instead as one
+kernel Function, ops/cuda/group_norm.py::group_norm_act, wherever its input
+lets it (`group_norm_act_supported`); a card site that cannot is counted in
+`gn:plain` (ops/cuda/launches.py) and runs the plain ops.
 
 `forward(x, drop_prob=None, site_keys=None, train=False, mesh=None)` takes and
 returns NHWC; under a mesh x is this rank's rows of a global batch.
@@ -57,18 +61,23 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from unet_research_tpu_torch.device import resolve_device
+from unet_research_tpu_torch.ops.cuda import launches
 from unet_research_tpu_torch.ops.cuda.dropblock_kernel import (
     dropblock_fused_apply,
     dropblock_kernel_supported,
     seed_threshold,
 )
+from unet_research_tpu_torch.ops.cuda.group_norm import (
+    group_norm_act,
+    group_norm_act_supported,
+)
 from unet_research_tpu_torch.ops.cuda.pair_conv import conv3x3_pair, conv3x3_pair_valid
 from unet_research_tpu_torch.ops.dropblock import (
+    apply_keep_mask,
     batch_keep,
-    dropblock_dependent,
     dropblock_gamma_dependent,
     dropblock_gamma_independent,
-    dropblock_independent,
+    dropblock_mask_scale,
     keep_scale,
 )
 from unet_research_tpu_torch.ops.image import center_crop, crop_to, pad_to_multiple
@@ -531,18 +540,16 @@ class _Pass:
         total, numel = batch_keep(keep, n * h * w * c, self.mesh)
         return out * keep_scale(db.kind, total, numel).to(out.dtype)
 
-    def dropblock(self, x, key, rescale: str = "apply"):
-        """A bare mask site (the skip merge, or after a norm). Under autograd
-        the mask is a constant: x * mask needs no backward of its own."""
+    def site_mask(self, x, key, rescale: str):
+        """(int8 keep mask, scale) of the mask site over x
+        (ops/dropblock.py::dropblock_mask_scale), or (None, None) when
+        DropBlock is off."""
         if not self.active:
-            return (x, None) if rescale == "defer" else x
-        if self.fused:
-            return self.fused_site(x, key, None, rescale, with_act=False)
+            return None, None
         db = self.db
-        fn = dropblock_dependent if db.kind == "dependent" else dropblock_independent
         if not isinstance(self.drop_prob, torch.Tensor):
-            return fn(x, key, self.drop_prob, db.block_size, mask_impl=db.mask_impl,
-                      rescale=rescale, mesh=self.mesh)
+            return dropblock_mask_scale(x, key, self.drop_prob, db.block_size, db.kind,
+                                        db.mask_impl, rescale, self.mesh)
         # the gamma and seed threshold of the device drop_prob, once per size
         h, w = x.shape[1:3]
         if (h, w) not in self.thresholds:
@@ -550,18 +557,42 @@ class _Pass:
                         else dropblock_gamma_independent)
             self.thresholds[h, w] = seed_threshold(gamma_fn(h, w, db.block_size,
                                                             self.drop_prob))
-        return fn(x, key, None, db.block_size, mask_impl=db.mask_impl, rescale=rescale,
-                  mesh=self.mesh, threshold=self.thresholds[h, w])
+        return dropblock_mask_scale(x, key, None, db.block_size, db.kind, db.mask_impl,
+                                    rescale, self.mesh, threshold=self.thresholds[h, w])
+
+    def dropblock(self, x, key, rescale: str = "apply"):
+        """A bare mask site (the skip merge). Under autograd the mask is a
+        constant: x * mask needs no backward of its own."""
+        if not self.active:
+            return (x, None) if rescale == "defer" else x
+        if self.fused:
+            return self.fused_site(x, key, None, rescale, with_act=False)
+        return apply_keep_mask(x, *self.site_mask(x, key, rescale), rescale)
+
+    def norm_act(self, x, mod, sums=None, mask=None, scale=None, act: bool = True):
+        """norm -> x * mask -> x * scale (the whole batch's) -> activation
+        (act=False: none); mask and scale None where there are none."""
+        cfg = self.cfg
+        name = cfg.activation if act else "none"
+        if cfg.norm == "group":
+            if x.dtype == self.dtype and group_norm_act_supported(x, cfg.group_norm_groups,
+                                                                  name):
+                return group_norm_act(x, mod.weight, mod.bias, cfg.group_norm_groups, 1e-5,
+                                      sums, mask, scale, name, cfg.negative_slope)
+            if x.is_cuda:
+                launches.HOST["gn:plain"] += 1
+        x = self.norm(x, mod, sums)
+        if mask is not None:
+            x = apply_keep_mask(x, mask, scale, "skip" if scale is None else "apply")
+        return self.act(x) if act else x
 
     def norm_db_act(self, x, key, norm_mod, rescale: str, sums=None):
         """The conv epilogue norm -> DropBlock -> activation."""
         if self.fused:
             return self.fused_site(x, key, norm_mod, rescale, with_act=True, sums=sums)
-        x = self.norm(x, norm_mod, sums)
-        if rescale == "defer":
-            x, scale = self.dropblock(x, key, rescale="defer")
-            return self.act(x), scale
-        return self.act(self.dropblock(x, key, rescale))
+        mask, scale = self.site_mask(x, key, rescale)
+        y = self.norm_act(x, norm_mod, sums, mask, scale if rescale == "apply" else None)
+        return (y, scale) if rescale == "defer" else y
 
     # -- blocks ----------------------------------------------------------------
 
@@ -598,8 +629,7 @@ class _Pass:
             x = _nhwc(F.avg_pool2d(_nchw(x), 2, 2))
         else:
             x = self.torch_conv(x, seq[0])
-        x = self.norm(x, seq[1])
-        return self.act(x) if mode == "conv" else x
+        return self.norm_act(x, seq[1], act=mode == "conv")
 
     def up(self, x, seq):
         return self.block(lambda x: self._up(x, seq), x)
@@ -609,10 +639,10 @@ class _Pass:
             mod = seq[0]
             bias = None if mod.bias is None else mod.bias.to(self.dtype)
             x = _nhwc(F.conv_transpose2d(_nchw(x), mod.weight.to(self.dtype), bias, stride=2))
-            return self.act(self.norm(x, seq[1]))
+            return self.norm_act(x, seq[1])
         x = _nhwc(F.interpolate(_nchw(x), scale_factor=2, mode="nearest"))
         x, sums = self.conv(x, seq[1])
-        return self.act(self.norm(x, seq[2], sums))
+        return self.norm_act(x, seq[2], sums)
 
     def merge(self, x, skip, skip_scale):
         """The skip merge and its bare mask site; not rematerialised (JAX

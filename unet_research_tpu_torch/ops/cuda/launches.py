@@ -11,10 +11,12 @@ back from the capture itself, which launched nothing (`capture`).
 `KeyedGraphs` keeps one such graph per key, each after eager warm-up runs
 of its own.
 
-Three host-side counts ride in the same snapshot (`HOST`): `graph:captures`,
-one per `capture`, and `members:host` / `members:program`, the ensemble
+Four host-side counts ride in the same snapshot (`HOST`): `graph:captures`,
+one per `capture`; `members:host` / `members:program`, the ensemble
 members merged from the host and in an ensemble program
-(uncertainty/ensemble.py). They count what the host did, so a capture keeps
+(uncertainty/ensemble.py); and `gn:plain`, the GroupNorm sites on the card
+that ran the plain ops instead of ops/cuda/group_norm.py's kernels
+(models/unet.py). They count what the host did, so a capture keeps
 them and no replay credits them; `launched` leaves them out.
 
 Whether a program captures at all is decided once, when it is built
@@ -34,13 +36,13 @@ from typing import Callable
 
 import torch
 
-from unet_research_tpu_torch.ops.cuda import dropblock_kernel, pair_conv, shear_rotate
+from unet_research_tpu_torch.ops.cuda import dropblock_kernel, group_norm, pair_conv, shear_rotate
 from unet_research_tpu_torch.parallel import mesh as _mesh
 from unet_research_tpu_torch.spans import span
 
 WRAPPERS = (dropblock_kernel.dropblock_fused_apply, dropblock_kernel.dropblock_mask,
             pair_conv.conv3x3_pair, pair_conv.conv3x3_pair_dx, pair_conv.conv3x3_pair_fold,
-            shear_rotate.rotate_fan, shear_rotate.rotate_fan_table)
+            shear_rotate.rotate_fan, shear_rotate.rotate_fan_table, *group_norm.WRAPPERS)
 
 
 def captures_on_card(program: bool = True, mesh=None) -> bool:
@@ -53,7 +55,7 @@ def captures_on_card(program: bool = True, mesh=None) -> bool:
 
 
 # the host-side counts (module docstring), by their names in a snapshot
-HOST = {"graph:captures": 0, "members:host": 0, "members:program": 0}
+HOST = {"graph:captures": 0, "members:host": 0, "members:program": 0, "gn:plain": 0}
 
 # credit's dispatch: the count tables by the prefix of a snapshot's name
 _TABLES = {"path": pair_conv.path_launches, "collective": _mesh.calls}

@@ -197,6 +197,41 @@ def _mask_and_keep(x, key_words, gamma, block_size, impl, sample_offset, thresho
     return keep_mask, keep_mask.sum(dim=(1, 2, 3)).to(torch.float32)
 
 
+def dropblock_mask_scale(x: torch.Tensor, key_words: torch.Tensor, drop_prob,
+                         block_size: int, kind: str, mask_impl: str | None = None,
+                         rescale: str = "apply", mesh=None, threshold=None):
+    """(int8 keep mask, scale) of one DropBlock site over x: what
+    dropblock_dependent / dropblock_independent multiply x by (kind names
+    which). scale: None under rescale 'skip', the per-sample (N,) scale under
+    'defer', the whole batch's 0-d scale under 'apply'. mesh, threshold: as
+    in dropblock_dependent."""
+    if kind == "independent" and block_size % 2 == 0:
+        raise ValueError("dropblock_independent requires an odd block_size")
+    impl = _resolve_impl(mask_impl)
+    n, h, w, c = x.shape
+    gamma_fn = dropblock_gamma_dependent if kind == "dependent" else dropblock_gamma_independent
+    gamma = None if threshold is not None else gamma_fn(h, w, block_size, drop_prob)
+    keep_mask, keep = _mask_and_keep(x, key_words, gamma, block_size, impl,
+                                     rank_offset(mesh, n), threshold)
+    if rescale == "skip":
+        return keep_mask, None
+    if rescale == "defer":
+        return keep_mask, keep_scale(kind, keep, float(h * w * c))
+    total, numel = batch_keep(keep, n * h * w * c, mesh)
+    return keep_mask, keep_scale(kind, total, numel)
+
+
+def apply_keep_mask(x: torch.Tensor, keep_mask: torch.Tensor, scale, rescale: str):
+    """x * keep_mask in x's dtype, then as rescale says: 'skip' returns it,
+    'defer' returns (it, scale), 'apply' multiplies in scale."""
+    out = x * keep_mask.to(x.dtype)
+    if rescale == "skip":
+        return out
+    if rescale == "defer":
+        return out, scale
+    return out * scale.to(x.dtype)
+
+
 def dropblock_dependent(x: torch.Tensor, key_words: torch.Tensor, drop_prob,
                         block_size: int, mask_impl: str | None = None,
                         rescale: str = "apply", mesh=None, threshold=None):
@@ -210,19 +245,9 @@ def dropblock_dependent(x: torch.Tensor, key_words: torch.Tensor, drop_prob,
     threshold: this site's seed threshold as a one-word integer tensor on
     x's device, in place of drop_prob (a train step's, whose drop
     probability is a device word); the same masks as its gamma."""
-    impl = _resolve_impl(mask_impl)
-    n, h, w, c = x.shape
-    gamma = (None if threshold is not None
-             else dropblock_gamma_dependent(h, w, block_size, drop_prob))
-    keep_mask, keep = _mask_and_keep(x, key_words, gamma, block_size, impl,
-                                     rank_offset(mesh, n), threshold)
-    out = x * keep_mask.to(x.dtype)
-    if rescale == "skip":
-        return out
-    if rescale == "defer":
-        return out, keep_scale("dependent", keep, float(h * w * c))
-    total, numel = batch_keep(keep, n * h * w * c, mesh)
-    return out * keep_scale("dependent", total, numel).to(x.dtype)
+    keep_mask, scale = dropblock_mask_scale(x, key_words, drop_prob, block_size, "dependent",
+                                            mask_impl, rescale, mesh, threshold)
+    return apply_keep_mask(x, keep_mask, scale, rescale)
 
 
 def dropblock_independent(x: torch.Tensor, key_words: torch.Tensor, drop_prob,
@@ -231,21 +256,9 @@ def dropblock_independent(x: torch.Tensor, key_words: torch.Tensor, drop_prob,
     """Dropblock2d_ichan-equivalent (utils_modules.py:107-139), NHWC: the
     guarded 1/mean rescale (identity when everything was dropped). Odd b
     only, as in the reference. mesh, threshold: as in dropblock_dependent."""
-    if block_size % 2 == 0:
-        raise ValueError("dropblock_independent requires an odd block_size")
-    impl = _resolve_impl(mask_impl)
-    n, h, w, c = x.shape
-    gamma = (None if threshold is not None
-             else dropblock_gamma_independent(h, w, block_size, drop_prob))
-    keep_mask, keep = _mask_and_keep(x, key_words, gamma, block_size, impl,
-                                     rank_offset(mesh, n), threshold)
-    out = x * keep_mask.to(x.dtype)
-    if rescale == "skip":
-        return out
-    if rescale == "defer":
-        return out, keep_scale("independent", keep, float(h * w * c))
-    total, numel = batch_keep(keep, n * h * w * c, mesh)
-    return out * keep_scale("independent", total, numel).to(x.dtype)
+    keep_mask, scale = dropblock_mask_scale(x, key_words, drop_prob, block_size, "independent",
+                                            mask_impl, rescale, mesh, threshold)
+    return apply_keep_mask(x, keep_mask, scale, rescale)
 
 
 def batch_keep(keep: torch.Tensor, numel: int, mesh):
