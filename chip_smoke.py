@@ -141,7 +141,21 @@ study's size, 12 models x 6 validation images x 584x565 for DB and ROT
 (seeded synthetic maps, no files read), its seconds split the same way and
 the KDE's peak extra device memory (at most 1 GiB), and the card's KDE on
 a 200k-sample subset held against the dense float64 formula on the CPU
-(1e-9 of the curve's maximum). Last, `eval-program`'s `failed-capture`
+(1e-9 of the curve's maximum). Then `transunet`: TransUNet R50-ViT-B/16
+(models/transunet.py) at its published widths in bf16 on the 584x565 frame,
+one eager forward of 16 members with DropBlock on and its CUDA graph
+replayed bit-equal, with their launches asserted (K1 at the 45 sites,
+GroupNorm's statistics and epilogue kernels, 12 flash attention calls, no
+`attn:other`, `gn:plain` or `bn:plain`), a forward with DropBlock off, the
+same forward with each site's K1 and GroupNorm launches held to their
+plain versions on its own inputs (keep counts exact) and against the plain
+routes in bf16 and float32 (within twice the bf16 route's noise), K1 and
+gn_apply timed at an odd-size stage-1 site and a 16-channel decoder site
+(`kernels` rows), the
+MC-DropBlock (48 members) and rotational (32) engines and three scanned
+train steps (remat, train-mode BatchNorm, the mask producer), with their
+ms, members/s and peaks (`python3 chip_smoke.py transunet` runs the build
+and that phase alone). Last, `eval-program`'s `failed-capture`
 part: a capture that the card refuses (a host read inside the validation
 forward) raises out of Trainer.validate; it runs last because PyTorch's
 caching allocator keeps every later free of the process after a failed
@@ -248,6 +262,8 @@ from unet_research_tpu_torch.cli import view_tensors as cli_view_tensors  # noqa
 from unet_research_tpu_torch.evaluation import artifacts as ev_artifacts  # noqa: E402
 from unet_research_tpu_torch.evaluation import density as ev_density  # noqa: E402
 from unet_research_tpu_torch.evaluation import metrics as ev_metrics  # noqa: E402
+from unet_research_tpu_torch.models import sites as tsites  # noqa: E402
+from unet_research_tpu_torch.models import transunet as ttu  # noqa: E402
 from unet_research_tpu_torch.models import unet as tunet  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import build  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk  # noqa: E402
@@ -353,18 +369,18 @@ def epilogue(forwards: int = 0, steps: int = 0, k1_forwards: int = 0, k3: bool =
 @contextlib.contextmanager
 def plain_epilogue(where: str):
     """While active, every GroupNorm site runs the plain ops
-    (models/unet.py asks `group_norm_act_supported`, refused here): the
+    (models/sites.py asks `group_norm_act_supported`, refused here): the
     plain routes that the kernel routes are held against run none of
     GroupNorm's kernels. On exit, asserts that none launched and that card
     sites took the plain ops (`gn:plain`)."""
-    gate = tunet.group_norm_act_supported
+    gate = tsites.group_norm_act_supported
     before = {fn.__name__: fn.launches for fn in gnk.WRAPPERS}
     plain = cuda_launches.HOST["gn:plain"]
-    tunet.group_norm_act_supported = lambda *args: False
+    tsites.group_norm_act_supported = lambda *args: False
     try:
         yield
     finally:
-        tunet.group_norm_act_supported = gate
+        tsites.group_norm_act_supported = gate
     ran = {fn.__name__: fn.launches - before[fn.__name__] for fn in gnk.WRAPPERS}
     sites = cuda_launches.HOST["gn:plain"] - plain
     if any(ran.values()) or sites <= 0:
@@ -4053,6 +4069,333 @@ def run_density_scale_phase() -> None:
                                                  "cpu_dense_seconds": plain_seconds}})
 
 
+# TransUNet R50-ViT-B/16 (models/transunet.py) on the canvas: 45 mask sites (33
+# GroupNorm ones: the root and gn1, gn2 of 16 units; 9 BatchNorm ones; 3 bare
+# merges), 13 of them rescaled per sample (all but the units' 32), 19 unmasked
+# GroupNorms (gn3 of 16 units, gn_proj of 3), 12 attention calls a forward
+TU_SITES, TU_GN_SITES, TU_BN_SITES, TU_GN_PLAIN_SITES, TU_LAYERS = 45, 33, 9, 19, 12
+TU_SAMPLE_SITES = 13
+
+
+def transunet_want(forwards: int, fused: bool) -> dict:
+    """TransUNet's launches in `forwards` eval forwards: K1 at every site
+    with GroupNorm's statistics kernels feeding its GroupNorm ones and
+    gn_apply's per-sample rescale after the 13 rescaled ones (fused), or
+    GroupNorm's epilogue at each GroupNorm site and gn_apply at each
+    BatchNorm one (DropBlock off); the unmasked GroupNorms' epilogue; the
+    attention on flash."""
+    gn = TU_GN_PLAIN_SITES + TU_GN_SITES
+    want = {"gn_stats": gn * forwards, "gn_stats_finish": gn * forwards,
+            "attn:flash": TU_LAYERS * forwards}
+    if fused:
+        want.update(dropblock_fused_apply=TU_SITES * forwards,
+                    gn_apply=(TU_GN_PLAIN_SITES + TU_SAMPLE_SITES) * forwards)
+    else:
+        want["gn_apply"] = (gn + TU_BN_SITES) * forwards
+    return want
+
+
+# TransUNet's sites whose kernels get a `kernels` timing: K1 at the
+# odd-size stage-1 sites (gn1, gn2: 147x143x64, GroupNorm coefficients from
+# gn_stats) and the last decoder block's 16-channel BatchNorm sites
+# (592x576x16); gn_apply at stage 1's gn3 (147x143x256, no activation) and
+# the per-sample rescale after those 16-channel sites
+TU_TIMED = {"dropblock_fused_apply": ((CHUNK, 147, 143, 64), (CHUNK, H, W, 16)),
+            "gn_apply": ((CHUNK, 147, 143, 256), (CHUNK, H, W, 16))}
+
+
+@contextlib.contextmanager
+def held_to_plain(record: dict):
+    """While active, each call of K1 and of GroupNorm's forward launches
+    (gn_stats, gn_stats_finish, gn_apply) that the models' sites make is
+    held at once against its plain version on the same card inputs: K1's
+    keep counts equal and its output within 2 bf16 ulps (check_k1's gate;
+    both round x*a and then +b to bf16); the partial sums and the
+    finishing launch within 1e-5 of the plain float32 numbers relative to
+    their largest magnitude (the order of the sums differs) and the
+    variance gate exact; gn_apply bit-equal (check_gn's gates). `record`
+    gets, per launch and input shape, the calls and the worst error, and
+    the first call's arguments at a TU_TIMED shape."""
+    def held(name, fn, plain, compare):
+        def call(*a, **k):
+            got = fn(*a, **k)
+            err = compare(got, plain, a, k)
+            shape = tuple(a[0].shape)
+            row = record.setdefault(name, {}).setdefault(shape, {"calls": 0, "worst": 0.0})
+            row["calls"] += 1
+            row["worst"] = max(row["worst"], err)
+            if shape in TU_TIMED.get(name, ()) and "args" not in row:
+                row["args"] = (a, k)
+            return got
+        call.launches = 0  # a wrapper counts on its module's name: on this one while patched
+        return call
+
+    def k1(got, plain, a, k):
+        ref, keep = plain(*a, **k)
+        ulps = bf16_ulps(got[0], ref)
+        if not torch.equal(got[1], keep) or ulps > 2:
+            raise AssertionError(f"K1 {tuple(a[0].shape)}: keep {got[1].tolist()} vs "
+                                 f"{keep.tolist()}, {ulps} ulps")
+        return ulps
+
+    def stats(got, plain, a, k):
+        ref = plain(*a, **k)
+        err = max(max_rel(got[j].sum(1), ref[j, :, 0]) for j in range(2))
+        if not err <= 1e-5:
+            raise AssertionError(f"gn_stats {tuple(a[0].shape)}: {err} from its plain version")
+        return err
+
+    def finish(got, plain, a, k):
+        rab, rmr = plain(*a, **k)
+        err = max(max_rel(got[0], rab), max_rel(got[1][:2], rmr[:2]))
+        if not err <= 1e-5 or not torch.equal(got[1][2], rmr[2]):
+            raise AssertionError(f"gn_stats_finish {tuple(a[0].shape)}: {err} from its plain "
+                                 "version, or the variance gate differs")
+        return err
+
+    def apply(got, plain, a, k):
+        if not torch.equal(got, plain(*a, **k)):
+            raise AssertionError(f"gn_apply {tuple(a[0].shape)}: not bit-equal to its plain "
+                                 "version")
+        return 0.0
+
+    patched = [(tsites, "dropblock_fused_apply", dbk.dropblock_fused_apply_plain, k1),
+               (gnk, "gn_stats", gnk.gn_stats_plain, stats),
+               (ttu, "gn_stats", gnk.gn_stats_plain, stats),
+               (gnk, "gn_stats_finish", gnk.gn_stats_finish_plain, finish),
+               (ttu, "gn_stats_finish", gnk.gn_stats_finish_plain, finish),
+               (gnk, "gn_apply", gnk.gn_apply_plain, apply),
+               (tsites, "gn_apply", gnk.gn_apply_plain, apply)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _, _ in patched]
+    for mod, name, plain, compare in patched:
+        setattr(mod, name, held(name, getattr(mod, name), plain, compare))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            fn.launches += getattr(mod, name).launches
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def plain_sites(where: str):
+    """plain_epilogue, and BatchNorm's sites and the per-sample rescale off
+    gn_apply too (models/sites.py asks `_kernel_input`, refused here); on
+    exit, asserts that BatchNorm sites took the plain ops (`bn:plain`)."""
+    gate = tsites._kernel_input
+    plain = cuda_launches.HOST["bn:plain"]
+    tsites._kernel_input = lambda x: False
+    try:
+        with plain_epilogue(where):
+            yield
+    finally:
+        tsites._kernel_input = gate
+    if cuda_launches.HOST["bn:plain"] - plain <= 0:
+        raise AssertionError(f"{where}: no BatchNorm site took the plain ops")
+
+
+def transunet_routes(make, model, xb, fov, site_keys) -> dict:
+    """TransUNet's forward of 16 members through the kernel route, and one
+    with DropBlock off, with each site's kernels held to their plain
+    versions (held_to_plain); the first against the plain routes from the
+    same site keys and weights (masks, GroupNorm and BatchNorm on the plain
+    ops) in bf16 and float32, within twice the plain bf16 route's distance
+    from float32 (run_slice's gate); each TU_TIMED launch timed at its
+    site's own inputs. Returns the timings by launch."""
+    record = {}
+    with held_to_plain(record):
+        kernels = model(xb, drop_prob=P_DROP, site_keys=site_keys) * fov
+        # DropBlock off: GroupNorm's epilogue and BatchNorm's gn_apply at every site
+        model(xb)
+    torch.cuda.synchronize()
+    checked = {name: {"x".join(map(str, shape)): {"calls": row["calls"], "worst": row["worst"]}
+                      for shape, row in rows.items()} for name, rows in record.items()}
+    for name, shapes in TU_TIMED.items():
+        missing = [s for s in shapes if "args" not in record.get(name, {}).get(s, {})]
+        if missing:
+            raise AssertionError(f"transunet: no {name} call at {missing}: {checked}")
+    emit({"phase": "transunet-sites", "checked": checked,
+          "gates": {"dropblock_fused_apply": "keep exact, <= 2 bf16 ulps",
+                    "gn_stats": "1e-5 relative", "gn_stats_finish": "1e-5 relative",
+                    "gn_apply": "bit-equal"}})
+    outs = {"kernels": kernels}
+    for name, dtype in (("plain_bf16", torch.bfloat16), ("plain_f32", torch.float32)):
+        m = make(mask_impl="elementwise", dtype=dtype).eval()
+        m.load_state_dict(model.state_dict())
+        with plain_sites(f"transunet routes {name}"):
+            outs[name] = m(xb, drop_prob=P_DROP, site_keys=site_keys) * fov
+        del m
+    d_kernel = float((outs["kernels"] - outs["plain_bf16"]).abs().max())
+    d_bf16 = float((outs["plain_bf16"] - outs["plain_f32"]).abs().max())
+    emit({"phase": "transunet-routes", "max_abs_kernel_vs_plain_bf16": d_kernel,
+          "max_abs_plain_bf16_vs_f32": d_bf16,
+          "max_abs_kernel_vs_f32": float((outs["kernels"] - outs["plain_f32"]).abs().max()),
+          "mean_abs_kernel_vs_plain_bf16":
+              float((outs["kernels"] - outs["plain_bf16"]).abs().mean())})
+    if not d_kernel <= 2.0 * d_bf16:
+        raise AssertionError(f"transunet kernel route {d_kernel} vs plain bf16 noise {d_bf16}")
+    del outs, kernels
+    fns = {"dropblock_fused_apply": (dbk.dropblock_fused_apply, dbk.dropblock_fused_apply_plain),
+           "gn_apply": (gnk.gn_apply, gnk.gn_apply_plain)}
+    timed = {}
+    for name, shapes in TU_TIMED.items():
+        fn, plain = fns[name]
+        for shape in shapes:
+            a, k = record[name][shape]["args"]
+            x, ab = a[0], a[1]
+            nbytes = 2 * x.numel() * x.element_size() + (0 if ab is None else ab.numel() * 4)
+            args = inspect.signature(fn).bind(*a, **k)
+            args.apply_defaults()
+            args = args.arguments
+            if name == "gn_apply":
+                mask, scale = args["mask"], args["scale"]
+                nbytes += (0 if mask is None else mask.numel()) + (
+                    0 if scale is None else scale.numel() * 4)
+            timing = {"shape": list(shape), "act": args["act"],
+                      "ms": time_ms(lambda: fn(*a, **k), 10),
+                      "plain_ms": time_ms(lambda: plain(*a, **k), 3, 1),
+                      "max_err": record[name][shape]["worst"],
+                      "err_unit": "bf16 ulps" if name == "dropblock_fused_apply" else "bit-equal"}
+            timing["bound_ms"], timing["bound_by"] = bound_ms(nbytes)
+            emit({"phase": "TU-time", "name": name, **timing})
+            timed.setdefault(name, {})["transunet_" + "x".join(map(str, shape))] = timing
+    return timed
+
+
+def run_transunet_phase() -> dict:
+    """TransUNet at its published widths, bf16, on the 584x565 frame (canvas
+    592x576): one eager forward of 16 members with DropBlock on (K1) and its
+    CUDA graph replayed, with their launches and attention routes asserted
+    (no attn:other, gn:plain or bn:plain) and the replay bit-equal to the
+    eager forward; one forward with DropBlock off; the forward's kernels
+    held to their plain versions and the plain routes (transunet_routes);
+    then the engines
+    (MCDropBlockEngine 48 members, RotationalEngine 32) and three trainer
+    steps (remat, the mask producer, train-mode BatchNorm through the step
+    program) at the same size. Prints each forward's ms, members/s, peaks.
+    Returns the launches and transunet_routes' timings."""
+    from unet_research_tpu_torch.models import DropBlockConfig, TransUNetConfig, build_model
+
+    def make(**kw):
+        db = DropBlockConfig(kind="dependent", block_size=BLOCK,
+                             mask_impl=kw.pop("mask_impl", "fused"),
+                             use_scheduler=kw.pop("use_scheduler", False), drop_prob=P_DROP,
+                             max_drop_prob=P_DROP, nr_steps=8)
+        cfg = TransUNetConfig(**{"dtype": torch.bfloat16, "dropblock": db, **kw})
+        return build_model(cfg, device=DEV, generator=torch.Generator().manual_seed(0))
+
+    out = {"phase": "transunet"}
+    t0 = time.perf_counter()
+    model = make().eval()
+    out["build_seconds"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in model.parameters())
+    im, gt, fov = (torch.from_numpy(a).to(DEV) for a in synthetic_image())
+    xb = im.expand(CHUNK, -1, -1, -1).contiguous()
+    site_keys = tunet.draw_site_keys(TU_SITES, torch.Generator().manual_seed(4)).to(DEV)
+    total = collections.Counter()
+
+    def forward(drop: bool):
+        return model(xb, drop_prob=P_DROP if drop else None,
+                     site_keys=site_keys if drop else None)
+
+    def since(before: dict, forwards: int, fused: bool, where: str) -> dict:
+        got = cuda_launches.since(before)
+        total.update(got)
+        want = transunet_want(forwards, fused)
+        if {k: got.get(k, 0) for k in want} != want or any(
+                got.get(k, 0) for k in ("attn:other", "gn:plain", "bn:plain", "dropblock_mask")):
+            raise AssertionError(f"{where}: launches {got}, want {want}")
+        return got
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = cuda_launches.snapshot()
+        t0 = time.perf_counter()
+        eager = forward(True)
+        torch.cuda.synchronize()
+        out["first_eager_seconds"] = time.perf_counter() - t0
+        out["eager_launches"] = since(before, 1, True, "transunet eager")
+        out["eager_ms"] = time_ms(lambda: forward(True), 3)
+        before = cuda_launches.snapshot()
+        result = torch.empty_like(eager)
+        graph, replay_counts, out["capture_seconds"] = cuda_launches.capture(
+            lambda: result.copy_(forward(True)))
+        graph.replay()
+        cuda_launches.credit(replay_counts)
+        torch.cuda.synchronize()
+        since(before, 1, True, "transunet replay")
+        if not torch.equal(result, eager):
+            raise AssertionError("transunet: the replayed forward differs from the eager one "
+                                 f"by {float((result - eager).abs().max())}")
+        ms = time_ms(graph.replay, 10)
+        out.update(replay_ms=ms, members_per_s=CHUNK / ms * 1e3,
+                   model_tflops=4.52e11 * CHUNK / ms * 1e-9,
+                   forward_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del graph
+        before = cuda_launches.snapshot()
+        plain = forward(False)
+        torch.cuda.synchronize()
+        out["drop_off_launches"] = since(before, 1, False, "transunet DropBlock off")
+        out["drop_off_ms"] = time_ms(lambda: forward(False), 3)
+        out["mean_abs_drop_effect"] = float((eager.float() - plain.float()).abs().mean())
+        del eager, plain, result
+        timed = transunet_routes(make, model, xb, fov, site_keys)
+
+        before = cuda_launches.snapshot()
+        mc = MCDropBlockEngine(model, num_iterations=48, return_num=0, chunk=CHUNK, device=DEV)
+        t0 = time.perf_counter()
+        mean, std = mc.predict(im, gt, fov, P_DROP, generator=torch.Generator().manual_seed(5))[:2]
+        torch.cuda.synchronize()
+        out["mc_48_seconds_first"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mean, std = mc.predict(im, gt, fov, P_DROP, generator=torch.Generator().manual_seed(6))[:2]
+        torch.cuda.synchronize()
+        out["mc_48_seconds"] = time.perf_counter() - t0
+        check_outputs(mean, std, torch.zeros((0, 1, 584, 565, 1)), 0)
+        rot = RotationalEngine(model, num_iterations=32, return_num=0, chunk=CHUNK, device=DEV)
+        mean, std = rot.predict(im, gt, fov)[:2]
+        torch.cuda.synchronize()
+        check_outputs(mean, std, torch.zeros((0, 1, 584, 565, 1)), 0)
+        got = cuda_launches.since(before)
+        total.update(got)
+        if got.get("attn:other", 0) or not got.get("attn:flash", 0):
+            raise AssertionError(f"transunet engines: launches {got}")
+        out["engine_launches"] = got
+        out["engine_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del mc, rot
+
+    del model
+    torch.cuda.empty_cache()
+    model = make(remat=True, use_scheduler=True)
+    trainer = Trainer(model, POLICIES["none"], TrainerConfig(lr=1e-3, auto_lr_find=False,
+                                                             verbose=False, seed=3), device=DEV)
+    state = trainer.create_state(None, 1e-3)
+    data = tuple(torch.from_numpy((np.clip(a, 0, 1) * 255).astype(np.uint8)).to(DEV)
+                 .expand(4, -1, -1, -1).contiguous() for a in synthetic_image())
+    start = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    before = cuda_launches.snapshot()
+    t0 = time.perf_counter()
+    losses = trainer.train_epoch_scan(state, data, np.arange(4), 1e-3)
+    out["train_seconds"] = time.perf_counter() - t0
+    got = cuda_launches.since(before)
+    total.update(got)
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(model.parameters(), start))
+    if not (np.isfinite(losses).all() and moved > 0 and got.get("dropblock_mask", 0)
+            and not got.get("attn:other", 0) and not got.get("gn:plain", 0)):
+        raise AssertionError(f"transunet train: losses {losses}, moved {moved}, launches {got}")
+    out.update(train_losses=[float(v) for v in losses], train_launches=got,
+               train_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               train_step_ms=time_ms(lambda: trainer.train_epoch_scan(state, data,
+                                                                      np.arange(4), 1e-3),
+                                     2, warmup=0) / 4)
+    emit(out)
+    del trainer, state, model
+    torch.cuda.empty_cache()
+    return {k: total.get(k, 0) for k in COUNTERS}, timed
+
+
 def main() -> None:
     # float32 references run in full float32, not TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -4061,6 +4404,10 @@ def main() -> None:
     header()
     emit({"phase": "env", "imports": optional_libraries()})
     build_kernels()
+    if sys.argv[1:] == ["transunet"]:  # that phase alone
+        run_transunet_phase()
+        emit({"ok": True, "phase": "transunet"})
+        return
     rows = [check_k1(), check_k2(), check_k3(), check_k4(), check_k4_table(),
             *check_k3_backward()]
     gn_rows = check_gn()
@@ -4087,6 +4434,7 @@ def main() -> None:
     epoch_time = run_epoch_time_phase(data)
     shutil.rmtree(DRIVE_ROOT)
     run_density_scale_phase()
+    transunet, transunet_timed = run_transunet_phase()
     check_failed_capture(state)
     # each path's counts, read right after it ran; `launches` is the path
     # that runs the kernel by default (K1 and K3: bench_gpu's 1000-member
@@ -4097,7 +4445,7 @@ def main() -> None:
              "rotational_program_shear": rotational_program["shear"],
              "rotational_program_gather": rotational_program["gather"], "train": train,
              **step_program, **eval_program, **dp,
-             **cli, **epoch_time}
+             **cli, **epoch_time, "transunet": transunet}
     for row, name, main_path in zip(rows, ("dropblock_fused_apply", "dropblock_mask",
                                            "conv3x3_pair", "rotate_fan", "rotate_fan_table",
                                            "conv3x3_pair_dx", "conv3x3_pair_fold"),
@@ -4110,6 +4458,8 @@ def main() -> None:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items() if c[row["name"]]}
     rows += gn_rows
+    for row in rows:  # the launches timed at TransUNet's own sites
+        row.update(transunet_timed.get(row["name"], {}))
     emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

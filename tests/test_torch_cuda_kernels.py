@@ -648,3 +648,68 @@ def test_canonical_model_epilogue_launches(dev):
         model(x, drop_prob=0.15, site_keys=keys)
         assert _gn_added(before) == {"gn_stats": 8, "gn_stats_finish": 8, "gn_apply": 8}
     assert launches.HOST["gn:plain"] == plain
+
+
+def test_batch_norm_eval_sites_take_gn_apply(dev):
+    """A U-Net with BatchNorm (bf16, depth 2, cuDNN's convs, 48x64, running
+    statistics set away from the identity): in eval every BatchNorm site
+    takes gn_apply,
+    one launch a site with DropBlock's mask and whole-batch rescale and
+    without, none the plain ops (`bn:plain`); the output within twice the
+    plain bf16 route's distance from float32 (run_slice's gate in
+    chip_smoke.py; the plain routes refused gn_apply through
+    models/sites.py's `_kernel_input`). A train-mode forward takes the plain
+    ops at every site and counts each in `bn:plain`."""
+    import torch.nn as nn
+
+    from unet_research_tpu_torch.models import sites, unet as tunet
+    from unet_research_tpu_torch.ops.cuda import group_norm as gn
+    from unet_research_tpu_torch.ops.cuda import launches
+
+    db = tunet.DropBlockConfig(kind="dependent", block_size=3, mask_impl="kernel")
+
+    def build(dtype):
+        cfg = tunet.UNetConfig(init_channels=1, filters=16, model_depth=2, norm="batch",
+                               dtype=dtype, dropblock=db, conv_impl="torch")
+        model = tunet.UNet(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        g = torch.Generator().manual_seed(2)
+        for mod in model.modules():
+            if isinstance(mod, nn.BatchNorm2d):
+                c = mod.num_features
+                mod.running_mean.copy_((torch.rand(c, generator=g) * 0.2 - 0.1).to(dev))
+                mod.running_var.copy_((torch.rand(c, generator=g) + 0.5).to(dev))
+        return model.eval()
+
+    models = {"kernels": build(torch.bfloat16), "plain_bf16": build(torch.bfloat16),
+              "plain_f32": build(torch.float32)}
+    sites_bn = sum(isinstance(m, nn.BatchNorm2d) for m in models["kernels"].modules())
+    x = torch.rand((2, 48, 64, 1), device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    keys = tunet.draw_site_keys(models["kernels"].num_mask_sites(),
+                                torch.Generator().manual_seed(4)).to(dev)
+    outs = {}
+    gate = sites._kernel_input
+    for drop in (None, 0.15):
+        for name, model in models.items():
+            plain, applied = launches.HOST["bn:plain"], gn.gn_apply.launches
+            if name != "kernels":
+                sites._kernel_input = lambda t: False
+            try:
+                with torch.no_grad():
+                    outs[name] = model(x, drop_prob=drop, site_keys=keys if drop else None)
+            finally:
+                sites._kernel_input = gate
+            if name == "kernels":
+                assert gn.gn_apply.launches - applied == sites_bn
+                assert launches.HOST["bn:plain"] == plain
+            else:
+                assert gn.gn_apply.launches == applied
+                assert launches.HOST["bn:plain"] - plain == sites_bn
+        d_kernel = float((outs["kernels"] - outs["plain_bf16"]).abs().max())
+        d_bf16 = float((outs["plain_bf16"] - outs["plain_f32"]).abs().max())
+        assert 0 < d_bf16 and d_kernel <= 2.0 * d_bf16, (drop, d_kernel, d_bf16)
+    model = models["kernels"].train()
+    plain, applied = launches.HOST["bn:plain"], gn.gn_apply.launches
+    with torch.no_grad():
+        model(x, drop_prob=0.15, site_keys=keys, train=True)
+    assert gn.gn_apply.launches == applied
+    assert launches.HOST["bn:plain"] - plain == sites_bn

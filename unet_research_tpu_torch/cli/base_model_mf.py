@@ -36,7 +36,7 @@ def predict_at(model, ds, h: int, w: int, program: bool = True, forward=None):
     square-padded and resized to h x w first, through `forward` (a
     train/loop.py::ForwardProgram, JAX's jitted predict_step), a new one
     when None; program=False (port-only) runs each forward from the host."""
-    device = model.output_conv[0].weight.device
+    device = next(model.parameters()).device
     if forward is None:
         forward = ForwardProgram(device, capture=program)
 
@@ -55,7 +55,7 @@ def evaluate_at(model, val_ds, test_ds, h: int, w: int, out_dir: str,
     forwards share one forward program (program=False: from the host),
     freed on return."""
     os.makedirs(out_dir, exist_ok=True)
-    forward = ForwardProgram(model.output_conv[0].weight.device, capture=program)
+    forward = ForwardProgram(next(model.parameters()).device, capture=program)
     return final_test_metrics(lambda ds: predict_at(model, ds, h, w, forward=forward), val_ds,
                               test_ds, out_dir)
 
@@ -87,7 +87,7 @@ def main(argv=None):
     dest = common.make_output_dir(args)
 
     _, val_ds, test_ds = common.load_datasets(args.data_path, with_train=False)
-    model = common.build_unet(args, dropblock_kind=None, use_scheduler=False)
+    model = common.build_network(args, dropblock_kind=None, use_scheduler=False)
     sd, _ = load_model_checkpoint(args.model_path, model.cfg)
     model.load_state_dict(sd)
     model.eval()

@@ -40,7 +40,13 @@ import torch.distributed as dist
 from unet_research_tpu_torch.data.dataset import load_split
 from unet_research_tpu_torch.device import resolve_device
 from unet_research_tpu_torch.evaluation.metrics import final_test_metrics
-from unet_research_tpu_torch.models.unet import DropBlockConfig, UNet, canonical_config
+from unet_research_tpu_torch.models import (
+    ARCHS,
+    DropBlockConfig,
+    TransUNetConfig,
+    build_model,
+    canonical_config,
+)
 from unet_research_tpu_torch.parallel import launch
 from unet_research_tpu_torch.parallel.mesh import make_mesh
 from unet_research_tpu_torch.train import Trainer, TrainerConfig
@@ -73,7 +79,13 @@ def add_common_train_args(parser: argparse.ArgumentParser) -> None:
 def add_arch_args(parser: argparse.ArgumentParser) -> None:
     """Architecture and route flags beyond the reference surface (defaults:
     the canonical 31M configuration, which the reference hardcodes,
-    training.py:171-192), and the device."""
+    training.py:171-192), and the device. -arch transunet_r50_b16 builds
+    TransUNet R50-ViT-B/16 at its published widths instead; -filters and
+    -group_norm_groups then set its ResNet's width and GroupNorm groups
+    (published 64 and 32), -model_depth, -norm, -activation and -conv_impl
+    are the U-Net's alone."""
+    parser.add_argument("-arch", dest="arch", choices=ARCHS, default="unet",
+                        help="the model: unet (the study's U-Net) | transunet_r50_b16")
     parser.add_argument("-filters", dest="filters", type=int, default=64)
     parser.add_argument("-model_depth", dest="model_depth", type=int, default=4)
     parser.add_argument("-group_norm_groups", dest="group_norm_groups", type=int, default=32)
@@ -173,11 +185,12 @@ def compute_dtype(args) -> torch.dtype:
     return torch.bfloat16 if prec in ("16", "bf16", "bfloat16") else torch.float32
 
 
-def build_unet(args, dropblock_kind: Optional[str], use_scheduler: bool,
-               drop_prob: Optional[float] = None, remat: bool = False) -> UNet:
-    """The canonical UNet every reference entry point builds
-    (training.py:171-192), on args.device; its weights come from a
-    checkpoint or the trainer's seeded initialisation."""
+def build_network(args, dropblock_kind: Optional[str], use_scheduler: bool,
+                  drop_prob: Optional[float] = None, remat: bool = False):
+    """The model of -arch on args.device: the canonical UNet every reference
+    entry point builds (training.py:171-192), or TransUNet R50-ViT-B/16;
+    its weights come from a checkpoint or the trainer's seeded
+    initialisation."""
     db = DropBlockConfig(
         kind=dropblock_kind,
         block_size=args.block_size,
@@ -188,6 +201,10 @@ def build_unet(args, dropblock_kind: Optional[str], use_scheduler: bool,
         nr_steps=args.dropblock_steps,
         mask_impl=args.mask_impl,
     )
+    if getattr(args, "arch", "unet") == "transunet_r50_b16":
+        cfg = TransUNetConfig(dropblock=db, remat=remat, dtype=compute_dtype(args),
+                              width=args.filters, gn_groups=args.group_norm_groups)
+        return build_model(cfg, device=args.device)
     cfg = canonical_config(
         dropblock=db,
         remat=remat,
@@ -199,7 +216,7 @@ def build_unet(args, dropblock_kind: Optional[str], use_scheduler: bool,
         activation=args.activation,
         conv_impl=CONV_IMPLS[args.conv_impl],
     )
-    return UNet(cfg, device=args.device)
+    return build_model(cfg, device=args.device)
 
 
 def load_datasets(data_path: str, with_train: bool = True):
@@ -210,10 +227,10 @@ def load_datasets(data_path: str, with_train: bool = True):
 
 
 def make_trainer(args, policy: ResizePolicy, dropblock_kind: str, remat: bool = True) -> Trainer:
-    """The trainer of the training CLIs: the model of build_unet with the
+    """The trainer of the training CLIs: the model of build_network with the
     DropBlock scheduler, under `policy`, with the honoured Trainer flags."""
     remat = remat and str(args.remat).lower() != "false"
-    model = build_unet(args, dropblock_kind=dropblock_kind, use_scheduler=True, remat=remat)
+    model = build_network(args, dropblock_kind=dropblock_kind, use_scheduler=True, remat=remat)
     tcfg = TrainerConfig(
         max_epochs=args.max_epochs or args.num_epochs,
         lr=args.lr,

@@ -62,7 +62,7 @@ def test_uncertainty(args) -> str | None:
         os.symlink(os.path.abspath(args.model_path), join(stats, "model_ckpt_symlink.ckpt"))
 
     _, val_ds, test_ds = common.load_datasets(args.data_path, with_train=False)
-    model = common.build_unet(
+    model = common.build_network(
         args, dropblock_kind="independent" if args.independent else "dependent",
         use_scheduler=False, drop_prob=args.drop_prob)
     model.load_state_dict(load_model_checkpoint(args.model_path, model.cfg)[0])

@@ -36,7 +36,7 @@ def test_uncertainty(args) -> str:
     os.symlink(os.path.abspath(args.model_path), join(stats, "model_ckpt_symlink.ckpt"))
 
     _, val_ds, _ = common.load_datasets(args.data_path, with_train=False)
-    model = common.build_unet(args, dropblock_kind=None, use_scheduler=False)
+    model = common.build_network(args, dropblock_kind=None, use_scheduler=False)
     model.load_state_dict(load_model_checkpoint(args.model_path, model.cfg)[0])
     engine = RotationalEngine(model, num_iterations=args.num_iterations,
                               return_num=args.save_num, resize=args.resize, chunk=args.chunk,

@@ -20,7 +20,9 @@ in the storage dtype), as in the JAX model. On the card a bf16 GroupNorm
 epilogue (norm, the mask and its rescale, the activation) runs instead as one
 kernel Function, ops/cuda/group_norm.py::group_norm_act, wherever its input
 lets it (`group_norm_act_supported`); a card site that cannot is counted in
-`gn:plain` (ops/cuda/launches.py) and runs the plain ops.
+`gn:plain` (ops/cuda/launches.py) and runs the plain ops. The site machinery
+(the DropBlock state, the epilogue routes, remat) is models/sites.py's,
+shared with models/transunet.py.
 
 `forward(x, drop_prob=None, site_keys=None, train=False, mesh=None)` takes and
 returns NHWC; under a mesh x is this rank's rows of a global batch.
@@ -58,30 +60,21 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from unet_research_tpu_torch.device import resolve_device
-from unet_research_tpu_torch.ops.cuda import launches
-from unet_research_tpu_torch.ops.cuda.dropblock_kernel import (
-    dropblock_fused_apply,
-    dropblock_kernel_supported,
-    seed_threshold,
-)
-from unet_research_tpu_torch.ops.cuda.group_norm import (
-    group_norm_act,
-    group_norm_act_supported,
+from unet_research_tpu_torch.models.sites import (  # noqa: F401 (the U-Net's public names)
+    Norm,
+    SitePass,
+    _nchw,
+    _nhwc,
+    draw_site_keys,
+    group_norm_affine,
+    group_norm_coeffs,
+    group_norm_coeffs_from_sums,
 )
 from unet_research_tpu_torch.ops.cuda.pair_conv import conv3x3_pair, conv3x3_pair_valid
-from unet_research_tpu_torch.ops.dropblock import (
-    apply_keep_mask,
-    batch_keep,
-    dropblock_gamma_dependent,
-    dropblock_gamma_independent,
-    dropblock_mask_scale,
-    keep_scale,
-)
 from unet_research_tpu_torch.ops.image import center_crop, crop_to, pad_to_multiple
-from unet_research_tpu_torch.parallel.mesh import psum, rank_offset
+from unet_research_tpu_torch.parallel.mesh import rank_offset
 
 _ACTIVATIONS = ("relu", "leaky_relu", "elu", "gelu", "silu", "tanh", "sigmoid", "none")
 
@@ -166,61 +159,7 @@ def canonical_config(**overrides) -> UNetConfig:
     return UNetConfig(**base)
 
 
-# --- GroupNorm as per-(sample, channel) affine coefficients -------------------
-
-def group_norm_coeffs_from_sums(s1, s2, hw: int, scale, bias, num_groups: int,
-                                eps: float):
-    """(a, b), float32 (N, C) each, with GN(x) = x*a + b, from the per-channel
-    sums s1 = sum x and s2 = sum x^2 over (H, W); hw = H*W. The variance is
-    clamped at 0 against float32 cancellation."""
-    n, c = s1.shape
-    cg = c // num_groups
-    g1 = s1.reshape(n, num_groups, cg).sum(-1)
-    g2 = s2.reshape(n, num_groups, cg).sum(-1)
-    cnt = float(hw * cg)
-    mean = g1 / cnt
-    var = torch.clamp(g2 / cnt - mean * mean, min=0.0)
-    mul = torch.rsqrt(var + eps).repeat_interleave(cg, dim=1)
-    a = mul * scale.to(torch.float32)[None, :]
-    b = bias.to(torch.float32)[None, :] - mean.repeat_interleave(cg, dim=1) * a
-    return a, b
-
-
-def group_norm_coeffs(x, scale, bias, num_groups: int, eps: float):
-    """GroupNorm affine coefficients of NHWC x (torch GroupNorm semantics:
-    biased variance over (H, W, C/G) per sample), statistics in float32.
-    Both sums accumulate in float32 straight from x's dtype (one reduction
-    kernel each on the card, no float32 copy of x); s2 is the squared
-    float32 2-norm."""
-    s1 = x.sum(dim=(1, 2), dtype=torch.float32)
-    s2 = torch.linalg.vector_norm(x, 2, dim=(1, 2), dtype=torch.float32).square()
-    return group_norm_coeffs_from_sums(s1, s2, x.shape[1] * x.shape[2], scale,
-                                       bias, num_groups, eps)
-
-
-def group_norm_affine(x, scale, bias, num_groups: int, eps: float, dtype,
-                      sums=None):
-    """GroupNorm of NHWC x as x*a + b, applied in x's dtype (a, b rounded
-    once). sums: precomputed (s1, s2), e.g. from conv3x3_pair."""
-    if sums is not None:
-        a, b = group_norm_coeffs_from_sums(sums[0], sums[1], x.shape[1] * x.shape[2],
-                                           scale, bias, num_groups, eps)
-    else:
-        a, b = group_norm_coeffs(x, scale, bias, num_groups, eps)
-    a = a.to(x.dtype)[:, None, None, :]
-    b = b.to(x.dtype)[:, None, None, :]
-    return (x * a + b).to(dtype)
-
-
 # --- the module ---------------------------------------------------------------
-
-def _nchw(x):
-    return x.permute(0, 3, 1, 2)
-
-
-def _nhwc(x):
-    return x.permute(0, 2, 3, 1)
-
 
 class UNet(nn.Module):
     """The full encoder/decoder (reference UNet.forward, utils_unet.py:408-449).
@@ -354,78 +293,24 @@ def split_variables(params):
     return {k: t for k, t in v.items() if k not in stats}, (stats or None)
 
 
-def draw_site_keys(num_sites: int, generator: torch.Generator) -> torch.Tensor:
-    """(num_sites, 2) int64 uint32 key words from an explicit CPU generator."""
-    return torch.randint(0, 2**32, (num_sites, 2), dtype=torch.int64, generator=generator)
-
-
-class _Pass:
-    """One forward pass: the DropBlock state (drop_prob, the site keys,
-    fold_rescale, the fused route), train mode and the layer helpers.
-
-    Site keys are handed out by block, in call order, before the block
-    runs (`take`), so a block that remat runs again in the backward draws
-    the same masks."""
+class _Pass(SitePass):
+    """One forward pass of the U-Net: the shared site machinery
+    (models/sites.py) with the configuration's norm at every site, and
+    fold_rescale."""
 
     def __init__(self, model: UNet, drop_prob, site_keys, train: bool, mesh):
         cfg = model.cfg
-        db = cfg.dropblock
-        self.model, self.cfg, self.db = model, cfg, db
-        self.dtype = cfg.dtype
-        self.drop_prob = drop_prob
-        self.train = train
-        self.mesh = mesh
-        self.sample_offset = 0  # the global row of x's first sample, set by run
-        # set when the forward is done: a block that runs after that is a
-        # remat re-run, which must not update BatchNorm's running statistics
-        self.recomputing = False
-        self.active = db.kind is not None and drop_prob is not None
-        self.site_keys = None
-        self.cursor = 0
-        self.thresholds = {}  # a device drop_prob's seed thresholds by site size
-        if self.active:
-            want = (model.num_mask_sites(), 2)
-            if site_keys is None or tuple(site_keys.shape) != want:
-                raise ValueError(f"DropBlock is active: site_keys must have shape {want}")
-            device = model.output_conv[0].weight.device
-            self.site_keys = site_keys.to(device=device, dtype=torch.int64)
+        super().__init__(model, cfg.dropblock, cfg.dtype, drop_prob, site_keys, train, mesh,
+                         cfg.remat, cfg.activation, cfg.negative_slope)
+        self.cfg = cfg
         # fold_rescale (JAX UNetConfig): needs GroupNorm and live DropBlock
         self.fold = cfg.fold_rescale and cfg.norm == "group" and self.active
-        # the fused kernel K1 has no backward: under train=True the mask
-        # sites take the mask producer K2 ('kernel'), as the JAX op level
-        # degrades 'fused' (ops/dropblock.py:190-194); the masks are the same
-        self.fused = (self.active and db.mask_impl == "fused" and not train
-                      and cfg.norm in (None, "group")
-                      and cfg.activation in ("relu", "leaky_relu")
-                      and dropblock_kernel_supported(db.block_size))
-        if self.fused and isinstance(drop_prob, torch.Tensor):
-            raise ValueError("mask_impl='fused': the forward-only fused kernel takes "
-                             "drop_prob as a number")
-        if self.fused and torch.is_grad_enabled() and any(
-                p.requires_grad for p in model.parameters()):
-            raise RuntimeError(
-                "mask_impl='fused' runs a forward-only kernel: call the model "
-                "with train=True to train, or under torch.no_grad()")
 
-    def take(self, count: int) -> list:
-        """The next `count` site-key rows (None each when DropBlock is off)."""
-        if not self.active:
-            return [None] * count
-        rows = list(self.site_keys[self.cursor:self.cursor + count])
-        self.cursor += count
-        return rows
+    def fuses(self) -> bool:
+        return self.model.cfg.norm in (None, "group")
 
-    def block(self, fn, x):
-        """fn(x), rematerialised in the backward under cfg.remat (JAX
-        `_maybe_remat`, models/unet.py:729-742). The forward draws nothing
-        from torch's generators (its masks come from the counter hash on
-        explicit keys), so the RNG state need not be saved and restored
-        around the re-run: preserve_rng_state=False is the same function,
-        and it leaves the CUDA generator's state unread, which a CUDA graph
-        capture refuses."""
-        if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
-        return fn(x)
+    def norm_of(self, mod) -> Norm:
+        return Norm(self.cfg.norm, mod, self.cfg.group_norm_groups, 1e-5)
 
     # -- layers ----------------------------------------------------------------
 
@@ -454,145 +339,14 @@ class _Pass:
                      stride=mod.stride, padding=mod.padding)
         return _nhwc(y)
 
-    def norm(self, x, mod, sums=None):
-        cfg = self.cfg
-        if cfg.norm == "group":
-            return group_norm_affine(x, mod.weight, mod.bias, cfg.group_norm_groups,
-                                     1e-5, self.dtype, sums=sums)
-        if cfg.norm == "batch":
-            x32 = x.to(torch.float32)
-            if self.train:
-                return self.batch_norm_train(x32, mod).to(self.dtype)
-            y = F.batch_norm(_nchw(x32), mod.running_mean, mod.running_var,
-                             mod.weight, mod.bias, False, 0.0, 1e-5)
-            return _nhwc(y).to(self.dtype)
-        return x
-
-    def batch_norm_train(self, x, mod):
-        """Train-mode BatchNorm of NHWC float32 x in flax's arithmetic: the
-        batch's per-channel mean and biased variance E[x^2] - E[x]^2
-        (clamped at 0) from the sums of x and x^2, eps 1e-5. Under a mesh
-        the sums and the count are the global batch's (a differentiable
-        psum). The running statistics update as torch's BatchNorm2d does
-        (momentum 0.1, the unbiased variance; flax's is biased), once: a
-        remat re-run leaves them alone."""
-        n, h, w, c = x.shape
-        sums = torch.stack([x.sum(dim=(0, 1, 2)), (x * x).sum(dim=(0, 1, 2))])
-        count = n * h * w
-        if self.mesh is not None:
-            sums = psum(sums, self.mesh)
-            count *= self.mesh.size
-        mean = sums[0] / count
-        var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
-        if not self.recomputing:
-            with torch.no_grad():
-                mod.running_mean.mul_(0.9).add_(0.1 * mean)
-                mod.running_var.mul_(0.9).add_(0.1 * var * (count / (count - 1)))
-                mod.num_batches_tracked.add_(1)
-        return (x - mean) * (torch.rsqrt(var + 1e-5) * mod.weight) + mod.bias
-
-    def act(self, x):
-        a = self.cfg.activation
-        if a == "relu":
-            return torch.relu(x)
-        if a == "leaky_relu":
-            return F.leaky_relu(x, self.cfg.negative_slope)
-        if a == "elu":
-            return F.elu(x)
-        if a == "gelu":
-            return F.gelu(x)
-        if a == "silu":
-            return F.silu(x)
-        if a == "tanh":
-            return torch.tanh(x)
-        if a == "sigmoid":
-            return torch.sigmoid(x)
-        return x
-
-    # -- DropBlock sites -------------------------------------------------------
-
-    def fused_site(self, x, key, norm_mod, rescale: str, with_act: bool, sums=None):
-        """One mask site through the fused kernel: act((x*a + b) * mask), the
-        GroupNorm coefficients computed outside (from `sums` if given)."""
-        cfg, db = self.cfg, self.db
-        n, h, w, c = x.shape
-        ab = None
-        if with_act and cfg.norm == "group":
-            if sums is not None:
-                a, b = group_norm_coeffs_from_sums(sums[0], sums[1], h * w, norm_mod.weight,
-                                                   norm_mod.bias, cfg.group_norm_groups, 1e-5)
-            else:
-                a, b = group_norm_coeffs(x, norm_mod.weight, norm_mod.bias,
-                                         cfg.group_norm_groups, 1e-5)
-            ab = torch.stack([a, b]).contiguous()
-        gamma_fn = (dropblock_gamma_dependent if db.kind == "dependent"
-                    else dropblock_gamma_independent)
-        out, keep = dropblock_fused_apply(
-            x.contiguous(), ab, key, gamma_fn(h, w, db.block_size, self.drop_prob),
-            db.block_size, act=cfg.activation if with_act else "none",
-            slope=cfg.negative_slope, sample_offset=self.sample_offset)
-        out = out.to(self.dtype)
-        if rescale == "skip":
-            return out
-        # the per-sample and whole-batch scales of the JAX model (:410-422)
-        if rescale == "defer":
-            return out, keep_scale(db.kind, keep, float(h * w * c))
-        total, numel = batch_keep(keep, n * h * w * c, self.mesh)
-        return out * keep_scale(db.kind, total, numel).to(out.dtype)
-
-    def site_mask(self, x, key, rescale: str):
-        """(int8 keep mask, scale) of the mask site over x
-        (ops/dropblock.py::dropblock_mask_scale), or (None, None) when
-        DropBlock is off."""
-        if not self.active:
-            return None, None
-        db = self.db
-        if not isinstance(self.drop_prob, torch.Tensor):
-            return dropblock_mask_scale(x, key, self.drop_prob, db.block_size, db.kind,
-                                        db.mask_impl, rescale, self.mesh)
-        # the gamma and seed threshold of the device drop_prob, once per size
-        h, w = x.shape[1:3]
-        if (h, w) not in self.thresholds:
-            gamma_fn = (dropblock_gamma_dependent if db.kind == "dependent"
-                        else dropblock_gamma_independent)
-            self.thresholds[h, w] = seed_threshold(gamma_fn(h, w, db.block_size,
-                                                            self.drop_prob))
-        return dropblock_mask_scale(x, key, None, db.block_size, db.kind, db.mask_impl,
-                                    rescale, self.mesh, threshold=self.thresholds[h, w])
-
-    def dropblock(self, x, key, rescale: str = "apply"):
-        """A bare mask site (the skip merge). Under autograd the mask is a
-        constant: x * mask needs no backward of its own."""
-        if not self.active:
-            return (x, None) if rescale == "defer" else x
-        if self.fused:
-            return self.fused_site(x, key, None, rescale, with_act=False)
-        return apply_keep_mask(x, *self.site_mask(x, key, rescale), rescale)
-
     def norm_act(self, x, mod, sums=None, mask=None, scale=None, act: bool = True):
         """norm -> x * mask -> x * scale (the whole batch's) -> activation
         (act=False: none); mask and scale None where there are none."""
-        cfg = self.cfg
-        name = cfg.activation if act else "none"
-        if cfg.norm == "group":
-            if x.dtype == self.dtype and group_norm_act_supported(x, cfg.group_norm_groups,
-                                                                  name):
-                return group_norm_act(x, mod.weight, mod.bias, cfg.group_norm_groups, 1e-5,
-                                      sums, mask, scale, name, cfg.negative_slope)
-            if x.is_cuda:
-                launches.HOST["gn:plain"] += 1
-        x = self.norm(x, mod, sums)
-        if mask is not None:
-            x = apply_keep_mask(x, mask, scale, "skip" if scale is None else "apply")
-        return self.act(x) if act else x
+        return self.site_norm_act(x, self.norm_of(mod), sums, mask, scale, act)
 
     def norm_db_act(self, x, key, norm_mod, rescale: str, sums=None):
         """The conv epilogue norm -> DropBlock -> activation."""
-        if self.fused:
-            return self.fused_site(x, key, norm_mod, rescale, with_act=True, sums=sums)
-        mask, scale = self.site_mask(x, key, rescale)
-        y = self.norm_act(x, norm_mod, sums, mask, scale if rescale == "apply" else None)
-        return (y, scale) if rescale == "defer" else y
+        return self.site_norm_db_act(x, key, self.norm_of(norm_mod), rescale, sums)
 
     # -- blocks ----------------------------------------------------------------
 

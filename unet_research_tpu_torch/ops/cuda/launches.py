@@ -3,7 +3,9 @@ capture of a CUDA graph that keeps them.
 
 Each wrapper adds one to its `launches` where it launches its kernel (and
 conv3x3_pair's launches are also counted by kernel in `path_launches`);
-each collective of parallel/mesh.py adds one to its count in `calls`. A
+each collective of parallel/mesh.py adds one to its count in `calls`, and
+each attention call on the card (ops/attention.py) one to `attn:flash` or
+`attn:other`. A
 CUDA graph replays the kernels and collectives that its capture recorded
 without calling a wrapper, so whoever replays one credits the counts that
 the capture added (`since`), once per replay (`credit`), and takes them
@@ -11,13 +13,15 @@ back from the capture itself, which launched nothing (`capture`).
 `KeyedGraphs` keeps one such graph per key, each after eager warm-up runs
 of its own.
 
-Four host-side counts ride in the same snapshot (`HOST`): `graph:captures`,
+Five host-side counts ride in the same snapshot (`HOST`): `graph:captures`,
 one per `capture`; `members:host` / `members:program`, the ensemble
 members merged from the host and in an ensemble program
-(uncertainty/ensemble.py); and `gn:plain`, the GroupNorm sites on the card
-that ran the plain ops instead of ops/cuda/group_norm.py's kernels
-(models/unet.py). They count what the host did, so a capture keeps
-them and no replay credits them; `launched` leaves them out.
+(uncertainty/ensemble.py); `gn:plain`, the GroupNorm sites on the card
+that ran the plain ops instead of ops/cuda/group_norm.py's kernels, and
+`bn:plain`, the BatchNorm sites on the card that ran the plain ops instead
+of `gn_apply` (models/sites.py; every train-mode one). They count what the
+host did, so a capture keeps them and no replay credits them; `launched`
+leaves them out.
 
 Whether a program captures at all is decided once, when it is built
 (`captures_on_card`): on the card, unless the caller asked for the host's
@@ -36,6 +40,7 @@ from typing import Callable
 
 import torch
 
+from unet_research_tpu_torch.ops import attention
 from unet_research_tpu_torch.ops.cuda import dropblock_kernel, group_norm, pair_conv, shear_rotate
 from unet_research_tpu_torch.parallel import mesh as _mesh
 from unet_research_tpu_torch.spans import span
@@ -55,20 +60,22 @@ def captures_on_card(program: bool = True, mesh=None) -> bool:
 
 
 # the host-side counts (module docstring), by their names in a snapshot
-HOST = {"graph:captures": 0, "members:host": 0, "members:program": 0, "gn:plain": 0}
+HOST = {"graph:captures": 0, "members:host": 0, "members:program": 0, "gn:plain": 0,
+        "bn:plain": 0}
 
 # credit's dispatch: the count tables by the prefix of a snapshot's name
-_TABLES = {"path": pair_conv.path_launches, "collective": _mesh.calls}
+_TABLES = {"path": pair_conv.path_launches, "collective": _mesh.calls, "attn": attention.calls}
 _BY_NAME = {fn.__name__: fn for fn in WRAPPERS}
 
 
 def snapshot() -> dict:
     """Every count now: {wrapper name: launches}, {"path:<kernel>": K3
-    launches by kernel}, {"collective:<kind>": calls} and the host-side
-    counts of HOST."""
+    launches by kernel}, {"collective:<kind>": calls}, {"attn:<route>":
+    attention calls} and the host-side counts of HOST."""
     counts = {name: fn.launches for name, fn in _BY_NAME.items()}
     counts.update({f"path:{k}": v for k, v in pair_conv.path_launches.items()})
     counts.update({f"collective:{k}": v for k, v in _mesh.calls.items()})
+    counts.update({f"attn:{k}": v for k, v in attention.calls.items()})
     counts.update(HOST)
     return counts
 

@@ -17,8 +17,10 @@ epoch, and the k-th `unet.trainer.step` inside an epoch is its k-th step.
 
 Spans wrap host code only. A span inside a function that a CUDA graph
 captures (a step program's step, an ensemble program's step, the members'
-forward) would record once, at the capture, and never on a replay; none is
-put there.
+forward) records once, at the capture, and never on a replay; the engines'
+and the trainer's are put outside them. The model's spans (`model.*`) mark
+the parts of an eager forward, as a warm-up or a host chunk runs it, and
+of a `--profiler trace` fit's; a replayed forward shows none.
 
 The spans (the metric of benchmark/metrics/ that reads each, where one
 does; the others are for an operator's trace):
@@ -35,6 +37,8 @@ does; the others are for an operator's trace):
   validation and checkpoint, the learning-rate sweep;
 - `graph.capture`, `graph.warmup`: a CUDA graph's capture and the eager
   warm-up runs before it.
+- `model.encoder`, `model.vit`, `model.decoder`: TransUNet's ResNet
+  encoder, its transformer and its decoder (models/transunet.py).
 """
 
 from __future__ import annotations

@@ -98,7 +98,8 @@ import torch
 from unet_research_tpu_torch.data.dataset import ArrayDataset
 from unet_research_tpu_torch.data.loading import batch_iterator, shard_batch, to_device
 from unet_research_tpu_torch.device import resolve_device
-from unet_research_tpu_torch.models.unet import UNet, draw_site_keys
+from unet_research_tpu_torch.models import build_model
+from unet_research_tpu_torch.models.sites import draw_site_keys
 from unet_research_tpu_torch.ops.cuda import launches
 from unet_research_tpu_torch.ops.losses import masked_rescaled_bce
 from unet_research_tpu_torch.parallel.mesh import barrier, broadcast_, broadcast_int, psum
@@ -154,7 +155,7 @@ class Trainer:
     CUDA graphs, decided here from the device, `program` and the mesh's
     backend."""
 
-    def __init__(self, model: UNet, policy: ResizePolicy, cfg: TrainerConfig, mesh=None,
+    def __init__(self, model: torch.nn.Module, policy: ResizePolicy, cfg: TrainerConfig, mesh=None,
                  device=None, program: bool = True):
         if mesh is not None and cfg.train_batch % mesh.size:
             raise ValueError(f"train_batch {cfg.train_batch} does not divide over the "
@@ -165,7 +166,7 @@ class Trainer:
         self.mesh = mesh
         self.rank0 = mesh is None or mesh.rank == 0
         self.device = resolve_device(device)
-        where = model.output_conv[0].weight.device
+        where = next(model.parameters()).device
         if where.type != self.device.type:
             raise ValueError(f"the model lives on {where}, the trainer runs on {self.device}")
         self.has_dropblock = model.cfg.dropblock.kind is not None
@@ -188,7 +189,8 @@ class Trainer:
     def init_params(self, seed: int = 0) -> dict:
         """A seeded torch-style initialisation of the model's configuration,
         as a CPU state_dict; the model itself is left as it is."""
-        fresh = UNet(self.model.cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+        fresh = build_model(self.model.cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(seed))
         return fresh.state_dict()
 
     def create_state(self, params: Optional[dict] = None, lr: Optional[float] = None) -> TrainState:
