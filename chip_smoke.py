@@ -271,6 +271,7 @@ from unet_research_tpu_torch.ops.cuda import group_norm as gnk  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import launches as cuda_launches  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import pair_conv as pc  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import shear_rotate as sr  # noqa: E402
+from unet_research_tpu_torch.ops.cuda import upsample as upk  # noqa: E402
 from unet_research_tpu_torch.data import ArrayDataset, load_drive, load_split  # noqa: E402
 from unet_research_tpu_torch.data.loading import shard_batch  # noqa: E402
 from unet_research_tpu_torch.parallel import launch  # noqa: E402
@@ -318,7 +319,8 @@ COUNTERS = {"dropblock_fused_apply": dbk.dropblock_fused_apply,
             "conv3x3_pair_fold": pc.conv3x3_pair_fold,
             "rotate_fan": sr.rotate_fan,
             "rotate_fan_table": sr.rotate_fan_table,
-            **{fn.__name__: fn for fn in gnk.WRAPPERS}}
+            **{fn.__name__: fn for fn in gnk.WRAPPERS},
+            "upsample_concat": upk.upsample_concat}
 # GroupNorm's epilogue in the canonical U-Net: 26 GroupNorm sites, 3 of them
 # (K3's, at level 0) given K3's sums under conv_impl='pair'; beside K1 (mask_impl='fused') only the 4 upconv and the 4
 # pool norms take the epilogue's kernels
@@ -1721,7 +1723,8 @@ REPLAYED_KERNELS = {"dropblock_mask_kernel": "dropblock_mask",
                     "conv3x3_wgmma_kernel": "path:wgmma", "conv3x3_kernel<": "path:cuda_cores",
                     "conv3x3_fold_kernel": "conv3x3_pair_fold", "shear_fan_kernel": "rotate_fan",
                     "shear_fan_table_kernel": "rotate_fan_table",
-                    **{f"{fn.__name__}_kernel": fn.__name__ for fn in gnk.WRAPPERS}}
+                    **{f"{fn.__name__}_kernel": fn.__name__ for fn in gnk.WRAPPERS},
+                    "upsample_concat_kernel": "upsample_concat"}
 
 
 def epilogue_device_ms(events, per: int) -> dict:
@@ -4072,9 +4075,15 @@ def run_density_scale_phase() -> None:
 # TransUNet R50-ViT-B/16 (models/transunet.py) on the canvas: 45 mask sites (33
 # GroupNorm ones: the root and gn1, gn2 of 16 units; 9 BatchNorm ones; 3 bare
 # merges), 13 of them rescaled per sample (all but the units' 32), 19 unmasked
-# GroupNorms (gn3 of 16 units, gn_proj of 3), 12 attention calls a forward
+# GroupNorms (gn3 of 16 units, gn_proj of 3), 12 attention calls and 4
+# upsampling merges a forward
 TU_SITES, TU_GN_SITES, TU_BN_SITES, TU_GN_PLAIN_SITES, TU_LAYERS = 45, 33, 9, 19, 12
-TU_SAMPLE_SITES = 13
+TU_SAMPLE_SITES, TU_MERGES = 13, 4
+# the merges' inputs at chunk 16: x (N, h, w, C) and its skip, or None
+TU_MERGE_SHAPES = (((CHUNK, 37, 36, 512), (CHUNK, 74, 72, 512)),
+                   ((CHUNK, 74, 72, 256), (CHUNK, 147, 143, 256)),
+                   ((CHUNK, 148, 144, 128), (CHUNK, 296, 288, 64)),
+                   ((CHUNK, 296, 288, 64), None))
 
 
 def transunet_want(forwards: int, fused: bool) -> dict:
@@ -4083,10 +4092,11 @@ def transunet_want(forwards: int, fused: bool) -> dict:
     gn_apply's per-sample rescale after the 13 rescaled ones (fused), or
     GroupNorm's epilogue at each GroupNorm site and gn_apply at each
     BatchNorm one (DropBlock off); the unmasked GroupNorms' epilogue; the
-    attention on flash."""
+    attention on flash; the decoder's merges on the upsampling kernel."""
     gn = TU_GN_PLAIN_SITES + TU_GN_SITES
     want = {"gn_stats": gn * forwards, "gn_stats_finish": gn * forwards,
-            "attn:flash": TU_LAYERS * forwards}
+            "attn:flash": TU_LAYERS * forwards, "upsample_concat": TU_MERGES * forwards,
+            "up:kernel": TU_MERGES * forwards}
     if fused:
         want.update(dropblock_fused_apply=TU_SITES * forwards,
                     gn_apply=(TU_GN_PLAIN_SITES + TU_SAMPLE_SITES) * forwards)
@@ -4101,19 +4111,23 @@ def transunet_want(forwards: int, fused: bool) -> dict:
 # (592x576x16); gn_apply at stage 1's gn3 (147x143x256, no activation) and
 # the per-sample rescale after those 16-channel sites
 TU_TIMED = {"dropblock_fused_apply": ((CHUNK, 147, 143, 64), (CHUNK, H, W, 16)),
-            "gn_apply": ((CHUNK, 147, 143, 256), (CHUNK, H, W, 16))}
+            "gn_apply": ((CHUNK, 147, 143, 256), (CHUNK, H, W, 16)),
+            "upsample_concat": tuple(x for x, _ in TU_MERGE_SHAPES)}
 
 
 @contextlib.contextmanager
 def held_to_plain(record: dict):
     """While active, each call of K1 and of GroupNorm's forward launches
-    (gn_stats, gn_stats_finish, gn_apply) that the models' sites make is
-    held at once against its plain version on the same card inputs: K1's
-    keep counts equal and its output within 2 bf16 ulps (check_k1's gate;
-    both round x*a and then +b to bf16); the partial sums and the
-    finishing launch within 1e-5 of the plain float32 numbers relative to
-    their largest magnitude (the order of the sums differs) and the
-    variance gate exact; gn_apply bit-equal (check_gn's gates). `record`
+    (gn_stats, gn_stats_finish, gn_apply) that the models' sites make, and
+    of the decoder's upsampling merge, is held at once against its plain
+    version on the same card inputs: K1's keep counts equal and its output
+    within 2 bf16 ulps (check_k1's gate; both round x*a and then +b to
+    bf16); the partial sums and the finishing launch within 1e-5 of the
+    plain float32 numbers relative to their largest magnitude (the order of
+    the sums differs) and the variance gate exact; gn_apply bit-equal
+    (check_gn's gates); the merge bit-equal to the plain route (F.interpolate,
+    F.pad, torch.cat), else its worst gap in bf16 ulps and the share of its
+    elements off are raised. `record`
     gets, per launch and input shape, the calls and the worst error, and
     the first call's arguments at a TU_TIMED shape."""
     def held(name, fn, plain, compare):
@@ -4159,13 +4173,23 @@ def held_to_plain(record: dict):
                                  "version")
         return 0.0
 
+    def merge(got, plain, a, k):
+        ref = plain(*a, **k)
+        if not torch.equal(got, ref):
+            off = float((got != ref).float().mean())
+            raise AssertionError(f"upsample_concat {tuple(a[0].shape)}: {bf16_ulps(got, ref)} "
+                                 f"bf16 ulps at worst, {off:.3e} of the elements off the plain "
+                                 "route")
+        return 0.0
+
     patched = [(tsites, "dropblock_fused_apply", dbk.dropblock_fused_apply_plain, k1),
                (gnk, "gn_stats", gnk.gn_stats_plain, stats),
                (ttu, "gn_stats", gnk.gn_stats_plain, stats),
                (gnk, "gn_stats_finish", gnk.gn_stats_finish_plain, finish),
                (ttu, "gn_stats_finish", gnk.gn_stats_finish_plain, finish),
                (gnk, "gn_apply", gnk.gn_apply_plain, apply),
-               (tsites, "gn_apply", gnk.gn_apply_plain, apply)]
+               (tsites, "gn_apply", gnk.gn_apply_plain, apply),
+               (upk, "upsample_concat", upk.upsample_concat_plain, merge)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _, _ in patched]
     for mod, name, plain, compare in patched:
         setattr(mod, name, held(name, getattr(mod, name), plain, compare))
@@ -4179,29 +4203,57 @@ def held_to_plain(record: dict):
 
 @contextlib.contextmanager
 def plain_sites(where: str):
-    """plain_epilogue, and BatchNorm's sites and the per-sample rescale off
-    gn_apply too (models/sites.py asks `_kernel_input`, refused here); on
-    exit, asserts that BatchNorm sites took the plain ops (`bn:plain`)."""
-    gate = tsites._kernel_input
-    plain = cuda_launches.HOST["bn:plain"]
+    """plain_epilogue, BatchNorm's sites and the per-sample rescale off
+    gn_apply too (models/sites.py asks `_kernel_input`, refused here), and
+    the decoder's merges off the upsampling kernel; on exit, asserts that
+    BatchNorm sites took the plain ops (`bn:plain`) and the merges the plain
+    route (`up:plain`)."""
+    gate, merge_gate = tsites._kernel_input, upk.upsample_concat_supported
+    plain, merges = cuda_launches.HOST["bn:plain"], upk.calls["plain"]
     tsites._kernel_input = lambda x: False
+    upk.upsample_concat_supported = lambda *a, **k: False
     try:
         with plain_epilogue(where):
             yield
     finally:
-        tsites._kernel_input = gate
+        tsites._kernel_input, upk.upsample_concat_supported = gate, merge_gate
     if cuda_launches.HOST["bn:plain"] - plain <= 0:
         raise AssertionError(f"{where}: no BatchNorm site took the plain ops")
+    if upk.calls["plain"] - merges != TU_MERGES:
+        raise AssertionError(f"{where}: {upk.calls['plain'] - merges} merges on the plain route")
+
+
+def merge_timing(x, skip) -> dict:
+    """The upsampling merge's kernel at a decoder block's own inputs: event ms
+    a call (back-to-back launches, so the kernel's device time; no profiler
+    here, which late in a whole run recorded no device time), its byte bound
+    (x and skip read once, the output written once) and the share of it
+    reached; the plain composition's ms (F.interpolate, F.pad, torch.cat)
+    and F.interpolate's alone (the library)."""
+    n, h, w, c = x.shape
+    cs = 0 if skip is None else skip.shape[-1]
+    nbytes = (x.numel() + n * 4 * h * w * (c + cs) + (0 if skip is None else skip.numel())
+              ) * x.element_size()
+    timing = {"shape": list(x.shape), "skip": None if skip is None else list(skip.shape),
+              "ms": time_ms(lambda: upk.upsample_concat(x, skip), 20),
+              "plain_ms": time_ms(lambda: upk.upsample_concat_plain(x, skip), 5),
+              "library_ms": time_ms(lambda: torch.nn.functional.interpolate(
+                  x.permute(0, 3, 1, 2), scale_factor=2, mode="bilinear", align_corners=True),
+                  5),
+              "max_err": 0.0, "err_unit": "bit-equal"}
+    timing["bound_ms"], timing["bound_by"] = bound_ms(nbytes)
+    timing["bound_share"] = timing["bound_ms"] / timing["ms"]
+    return timing
 
 
 def transunet_routes(make, model, xb, fov, site_keys) -> dict:
     """TransUNet's forward of 16 members through the kernel route, and one
     with DropBlock off, with each site's kernels held to their plain
     versions (held_to_plain); the first against the plain routes from the
-    same site keys and weights (masks, GroupNorm and BatchNorm on the plain
-    ops) in bf16 and float32, within twice the plain bf16 route's distance
-    from float32 (run_slice's gate); each TU_TIMED launch timed at its
-    site's own inputs. Returns the timings by launch."""
+    same site keys and weights (masks, GroupNorm and BatchNorm, the merges on
+    the plain ops) in bf16 and float32, within twice the plain bf16 route's
+    distance from float32 (run_slice's gate); each TU_TIMED launch timed at
+    its site's own inputs. Returns the timings by launch."""
     record = {}
     with held_to_plain(record):
         kernels = model(xb, drop_prob=P_DROP, site_keys=site_keys) * fov
@@ -4217,7 +4269,7 @@ def transunet_routes(make, model, xb, fov, site_keys) -> dict:
     emit({"phase": "transunet-sites", "checked": checked,
           "gates": {"dropblock_fused_apply": "keep exact, <= 2 bf16 ulps",
                     "gn_stats": "1e-5 relative", "gn_stats_finish": "1e-5 relative",
-                    "gn_apply": "bit-equal"}})
+                    "gn_apply": "bit-equal", "upsample_concat": "bit-equal"}})
     outs = {"kernels": kernels}
     for name, dtype in (("plain_bf16", torch.bfloat16), ("plain_f32", torch.float32)):
         m = make(mask_impl="elementwise", dtype=dtype).eval()
@@ -4239,6 +4291,12 @@ def transunet_routes(make, model, xb, fov, site_keys) -> dict:
            "gn_apply": (gnk.gn_apply, gnk.gn_apply_plain)}
     timed = {}
     for name, shapes in TU_TIMED.items():
+        if name == "upsample_concat":
+            for shape in shapes:
+                timing = merge_timing(*record[name][shape]["args"][0])
+                emit({"phase": "TU-time", "name": name, **timing})
+                timed.setdefault(name, {})["transunet_" + "x".join(map(str, shape))] = timing
+            continue
         fn, plain = fns[name]
         for shape in shapes:
             a, k = record[name][shape]["args"]
@@ -4303,7 +4361,8 @@ def run_transunet_phase() -> dict:
         total.update(got)
         want = transunet_want(forwards, fused)
         if {k: got.get(k, 0) for k in want} != want or any(
-                got.get(k, 0) for k in ("attn:other", "gn:plain", "bn:plain", "dropblock_mask")):
+                got.get(k, 0) for k in ("attn:other", "gn:plain", "bn:plain", "dropblock_mask",
+                                        "up:plain")):
             raise AssertionError(f"{where}: launches {got}, want {want}")
         return got
 
@@ -4359,7 +4418,7 @@ def run_transunet_phase() -> dict:
         check_outputs(mean, std, torch.zeros((0, 1, 584, 565, 1)), 0)
         got = cuda_launches.since(before)
         total.update(got)
-        if got.get("attn:other", 0) or not got.get("attn:flash", 0):
+        if got.get("attn:other", 0) or not got.get("attn:flash", 0) or got.get("up:plain", 0):
             raise AssertionError(f"transunet engines: launches {got}")
         out["engine_launches"] = got
         out["engine_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -4383,7 +4442,8 @@ def run_transunet_phase() -> dict:
     total.update(got)
     moved = max(float((p.detach() - q).abs().max()) for p, q in zip(model.parameters(), start))
     if not (np.isfinite(losses).all() and moved > 0 and got.get("dropblock_mask", 0)
-            and not got.get("attn:other", 0) and not got.get("gn:plain", 0)):
+            and not got.get("attn:other", 0) and not got.get("gn:plain", 0)
+            and not got.get("up:plain", 0) and got.get("up:kernel", 0)):
         raise AssertionError(f"transunet train: losses {losses}, moved {moved}, launches {got}")
     out.update(train_losses=[float(v) for v in losses], train_launches=got,
                train_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -4458,6 +4518,12 @@ def main() -> None:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items() if c[row["name"]]}
     rows += gn_rows
+    rows.append({"name": "upsample_concat", "route": "cuda",
+                 "source": "unet_research_tpu_torch/ops/cuda/csrc/upsample.cu",
+                 "replaces": "none: TransUNet exists only in the port",
+                 "launches": transunet["upsample_concat"],
+                 "launches_by_path": {p: c.get("upsample_concat", 0) for p, c in paths.items()
+                                      if c.get("upsample_concat", 0)}})
     for row in rows:  # the launches timed at TransUNet's own sites
         row.update(transunet_timed.get(row["name"], {}))
     emit({"phase": "total", "seconds": time.perf_counter() - t0})

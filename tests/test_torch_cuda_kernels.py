@@ -38,7 +38,12 @@ Function against float32 autograd of GroupNorm -> mask -> scale -> relu,
 with its own statistics and with K3's sums; a captured bf16 train step
 replayed twice, bit-identical, with the epilogue's launches credited per
 replay; the canonical model's launches per train step, rotational and MC
-forward, and no GroupNorm site on the plain route (`gn:plain`)."""
+forward, and no GroupNorm site on the plain route (`gn:plain`). TransUNet's
+upsampling merge (ops/cuda/upsample.py) bit-equal to its plain route in bf16
+and float32 at odd sizes, a 1x1 input, a short skip, no skip and more than
+65535 row blocks; its Function's gradients against the plain route's in
+float32 (x's within 1e-6 of the largest magnitude: aten's bilinear backward
+adds with atomics; the skip's equal)."""
 
 import dataclasses
 
@@ -713,3 +718,50 @@ def test_batch_norm_eval_sites_take_gn_apply(dev):
         model(x, drop_prob=0.15, site_keys=keys, train=True)
     assert gn.gn_apply.launches == applied
     assert launches.HOST["bn:plain"] - plain == sites_bn
+
+
+@pytest.mark.parametrize("x_shape,skip_shape", [
+    ((3, 7, 5, 16), (3, 13, 9, 8)),          # odd sizes, a skip short by one each way
+    ((2, 1, 1, 16), (2, 2, 1, 8)),           # a 1x1 input
+    ((2, 74, 72, 16), (2, 147, 143, 24)),    # TransUNet's stage-1 merge, cut
+    ((2, 9, 11, 24), None),                  # no skip
+    ((140000, 1, 1, 16), (140000, 2, 2, 8)),  # past 65535 blocks a column
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_upsample_concat_matches_plain(dev, x_shape, skip_shape, dtype):
+    """The upsampling merge (ops/cuda/upsample.py) bit-equal to the plain
+    route (F.interpolate, F.pad, torch.cat) at edge shapes."""
+    from unet_research_tpu_torch.ops.cuda import upsample as up
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = (3 * torch.randn(x_shape, device=dev, generator=g) + 0.5).to(dtype)
+    skip = None if skip_shape is None else torch.randn(skip_shape, device=dev,
+                                                       generator=g).to(dtype)
+    launched = up.upsample_concat.launches
+    got = up.upsample_concat(x, skip)
+    torch.cuda.synchronize()
+    assert up.upsample_concat.launches == launched + 1
+    assert torch.equal(got, up.upsample_concat_plain(x, skip))
+
+
+def test_upsample_merge_gradients_match_plain(dev):
+    """The kernel route's Function against autograd of the plain route in
+    float32, at a short skip: x's gradient within 1e-6 of the largest
+    magnitude (aten's bilinear backward adds with atomics, in no fixed
+    order), the skip's equal."""
+    from unet_research_tpu_torch.ops.cuda import upsample as up
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((2, 37, 36, 16), device=dev, generator=g)
+    skip = torch.randn((2, 73, 71, 8), device=dev, generator=g)
+    gy = torch.randn((2, 74, 72, 24), device=dev, generator=g)
+    grads = []
+    for merge in (up.upsample_merge, up.upsample_concat_plain):
+        xi, si = x.clone().requires_grad_(), skip.clone().requires_grad_()
+        before = dict(up.calls)
+        merge(xi, si).backward(gy)
+        grads.append((xi.grad, si.grad, {k: up.calls[k] - before[k] for k in before}))
+    (gx, gs, routes), (px, ps, _) = grads
+    assert routes == {"kernel": 1, "plain": 0}
+    assert float((gx - px).abs().max()) <= 1e-6 * float(px.abs().max())
+    assert torch.equal(gs, ps)

@@ -19,8 +19,9 @@ vit_seg_modeling_resnet_skip.py), at its published widths:
   gn1-3 are GroupNorm(32, eps 1e-6), gn_proj GroupNorm(C, C) (one channel
   a group, eps 1e-5). Stages 1 and 2 give skips 2 and 1, each zero-padded
   at its bottom and right to the canvas / 4 and / 8 where the pool's floor
-  left it short. (The official code assumes a square input and pads both
-  sides to one size; this pads each dimension to its own.)
+  left it short (by the decoder's merge). (The official code assumes a
+  square input and pads both sides to one size; this pads each dimension to
+  its own.)
 - embedding: a 1x1 conv 16 x width -> hidden with bias, plus one learned
   position per cell of the token grid (`grid`; published 14 x 14 = 196 for
   224^2, here 37 x 36 = 1332 for DRIVE's 592 x 576 canvas; another grid
@@ -65,6 +66,9 @@ routes are:
   ops, counted in `gn:plain`);
 - attention is SDPA held to the flash backend (ops/attention.py), counted
   in `attn:flash` / `attn:other`;
+- each decoder block's bilinear x2 upsampling, skip concatenation and the
+  skip's pad are one kernel (ops/cuda/upsample.py), counted in `up:kernel`
+  (or the plain ops, counted in `up:plain`);
 - the convs and projections are cuDNN's and cuBLAS's, the head's in float32
   (the logit, from the bf16 activations). A StdConv's standardisation runs
   in each forward (in float32, then cast), so a captured forward reads the
@@ -92,6 +96,7 @@ from unet_research_tpu_torch.ops.cuda.group_norm import (
     gn_stats_finish,
     group_norm_act_supported,
 )
+from unet_research_tpu_torch.ops.cuda.upsample import upsample_merge
 from unet_research_tpu_torch.ops.dropblock import hash_bits
 from unet_research_tpu_torch.ops.image import crop_to, pad_to_multiple
 from unet_research_tpu_torch.parallel.mesh import rank_offset
@@ -343,7 +348,8 @@ class _Pass(SitePass):
         return self.block(run, x)
 
     def encoder(self, x):
-        """(stage 3's output, [skip 1, skip 2, skip 3]) of the padded input."""
+        """(stage 3's output, [skip 1, skip 2, skip 3]) of the padded input,
+        each skip at its own size."""
         m = self.model
         (key,) = self.take(1)
         h0, w0 = x.shape[1:3]
@@ -359,7 +365,7 @@ class _Pass(SitePass):
                 if x.shape[1] > hh or x.shape[2] > ww:
                     raise ValueError(f"stage {s + 1} gives {tuple(x.shape[1:3])}, past "
                                      f"the skip's {(hh, ww)}")
-                feats.append(F.pad(x, (0, 0, 0, ww - x.shape[2], 0, hh - x.shape[1])))
+                feats.append(x)  # the decoder's merge pads it to (hh, ww)
         return x, feats[::-1]
 
     def positions(self, gh: int, gw: int):
@@ -407,10 +413,9 @@ class _Pass(SitePass):
             self.conv(x, m.conv_more["conv"], std=False), key, self.bn(m.conv_more["bn"]),
             "sample"), x)
         for i, blk in enumerate(m.decoder):
-            x = _nhwc(F.interpolate(_nchw(x), scale_factor=2, mode="bilinear",
-                                    align_corners=True)).contiguous()
-            if skip_channels(self.cfg)[i]:
-                x = torch.cat([x, feats[i].to(x.dtype)], dim=-1)
+            skip = feats[i] if skip_channels(self.cfg)[i] else None
+            x = upsample_merge(x, skip)
+            if skip is not None:
                 x = self.dropblock(x, self.take(1)[0], "sample")
             keys = self.take(2)
 

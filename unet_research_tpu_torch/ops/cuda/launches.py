@@ -5,7 +5,8 @@ Each wrapper adds one to its `launches` where it launches its kernel (and
 conv3x3_pair's launches are also counted by kernel in `path_launches`);
 each collective of parallel/mesh.py adds one to its count in `calls`, and
 each attention call on the card (ops/attention.py) one to `attn:flash` or
-`attn:other`. A
+`attn:other`, each upsampling merge (ops/cuda/upsample.py) one to
+`up:kernel` or `up:plain`. A
 CUDA graph replays the kernels and collectives that its capture recorded
 without calling a wrapper, so whoever replays one credits the counts that
 the capture added (`since`), once per replay (`credit`), and takes them
@@ -41,13 +42,20 @@ from typing import Callable
 import torch
 
 from unet_research_tpu_torch.ops import attention
-from unet_research_tpu_torch.ops.cuda import dropblock_kernel, group_norm, pair_conv, shear_rotate
+from unet_research_tpu_torch.ops.cuda import (
+    dropblock_kernel,
+    group_norm,
+    pair_conv,
+    shear_rotate,
+    upsample,
+)
 from unet_research_tpu_torch.parallel import mesh as _mesh
 from unet_research_tpu_torch.spans import span
 
 WRAPPERS = (dropblock_kernel.dropblock_fused_apply, dropblock_kernel.dropblock_mask,
             pair_conv.conv3x3_pair, pair_conv.conv3x3_pair_dx, pair_conv.conv3x3_pair_fold,
-            shear_rotate.rotate_fan, shear_rotate.rotate_fan_table, *group_norm.WRAPPERS)
+            shear_rotate.rotate_fan, shear_rotate.rotate_fan_table, *group_norm.WRAPPERS,
+            upsample.upsample_concat)
 
 
 def captures_on_card(program: bool = True, mesh=None) -> bool:
@@ -64,18 +72,21 @@ HOST = {"graph:captures": 0, "members:host": 0, "members:program": 0, "gn:plain"
         "bn:plain": 0}
 
 # credit's dispatch: the count tables by the prefix of a snapshot's name
-_TABLES = {"path": pair_conv.path_launches, "collective": _mesh.calls, "attn": attention.calls}
+_TABLES = {"path": pair_conv.path_launches, "collective": _mesh.calls, "attn": attention.calls,
+           "up": upsample.calls}
 _BY_NAME = {fn.__name__: fn for fn in WRAPPERS}
 
 
 def snapshot() -> dict:
     """Every count now: {wrapper name: launches}, {"path:<kernel>": K3
     launches by kernel}, {"collective:<kind>": calls}, {"attn:<route>":
-    attention calls} and the host-side counts of HOST."""
+    attention calls}, {"up:<route>": upsampling merges} and the host-side
+    counts of HOST."""
     counts = {name: fn.launches for name, fn in _BY_NAME.items()}
     counts.update({f"path:{k}": v for k, v in pair_conv.path_launches.items()})
     counts.update({f"collective:{k}": v for k, v in _mesh.calls.items()})
     counts.update({f"attn:{k}": v for k, v in attention.calls.items()})
+    counts.update({f"up:{k}": v for k, v in upsample.calls.items()})
     counts.update(HOST)
     return counts
 
