@@ -23,17 +23,18 @@ replays' idle share, the capture's seconds, both peaks), then the
 rotational TTA ensemble of the same model (bf16, DropBlock off,
 conv_impl='pair', all 359 angles) under both warps, 'shear' (kernel K4, by
 its table launch in the program) and 'gather', and `rotational-program`,
-the same comparison under both warps, then `bench`: bench_gpu.py's
-workload in-process (1000 members on bench.py's 584x565 input, pair+fused,
-chunk 16, two warm-ups and the best of three timed predicts; K1 1386, K3
-189 and GroupNorm's epilogue 504 x 3 launches per timed predict, the
-warm-up's capture replayed, the
-statistics against one eager 1000-member predict from the same seed), the
-same at BENCH_RESIZE=256 (chunk 128) and the ladder's native/default and
-native/pair+fused rungs at 300 members (scripts/ladder_torch.py), each
-printed with the card's name and power limit, then training: K3's backward against the plain route's
-autograd at the train shapes, batch 1 and 2 (bf16 and float32), one train step through the
-kernel route against the plain routes, Trainer.fit of the canonical model
+the same comparison under both warps, then `mc-full`: the MC ensemble at
+its full size (1000 members on the 584x565 frame, pair+fused, chunk 16,
+none saved, five predicts on one engine; K1 1386, K3 189 and GroupNorm's
+epilogue 504 x 3 launches in each of the last three, the first call's
+capture the one program, replayed by every later call, the statistics
+against one eager 1000-member predict from the same seed), the same at
+resize 256 (chunk 128), and at 300 members on cuDNN with plain masks and
+on pair+fused, each printed with the card's name and power limit (the
+benchmark, benchmark/run.py, measures its speed), then training: K3's
+backward against the plain route's autograd at the train shapes, batch 1
+and 2 (bf16 and float32), one train step through the kernel route against
+the plain routes, Trainer.fit of the canonical model
 (bf16, remat, dependent DropBlock b=7 ramped 0 -> 0.15 over 8 steps,
 pair + kernel masks, SGD lr 1e-3 momentum 0.99 clip 0.5) for 3 epochs of 8
 synthetic 584x565 images with its launch counts (scanned epochs: a CUDA
@@ -223,7 +224,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import csv
-import dataclasses
 import gc
 import inspect
 import io
@@ -246,9 +246,9 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
 
-import bench_gpu  # noqa: E402
 import epoch_time_torch  # noqa: E402
-import ladder_torch  # noqa: E402
+from benchmark import tracing  # noqa: E402
+from benchmark.roofline import PEAK_BYTES, PEAK_FLOPS, bound, power_limit  # noqa: E402
 from unet_research_tpu_torch.cli import base_model_mf as cli_base_model_mf  # noqa: E402
 from unet_research_tpu_torch.cli import common as cli_common  # noqa: E402
 from unet_research_tpu_torch.cli import create_augmentations as cli_augment  # noqa: E402
@@ -297,6 +297,7 @@ from unet_research_tpu_torch.ops.image import (  # noqa: E402
     rotate_bilinear,
     square_pad,
 )
+from unet_research_tpu_torch.uncertainty.ensemble import chunk_layout  # noqa: E402
 from unet_research_tpu_torch.uncertainty.mc_dropblock import MCDropBlockEngine  # noqa: E402
 from unet_research_tpu_torch.uncertainty.rotational import RotationalEngine  # noqa: E402
 from unet_research_tpu_torch.train.checkpoint import find_checkpoint  # noqa: E402
@@ -306,8 +307,6 @@ from unet_research_tpu_torch.utils import png  # noqa: E402
 
 DEV = torch.device("cuda")
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM
-BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 H, W = 592, 576                # 584x565 autopadded to a multiple of 16
 CHUNK = 16
 P_DROP, BLOCK = 0.15, 7
@@ -429,9 +428,10 @@ def device_ms(fn, iters: int = 5) -> float:
 
 
 def bound_ms(bytes_moved: float, flops: float = 0.0):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """The launch's bound in ms (benchmark/roofline.py) and the side that
+    bounds it."""
+    by = "bytes" if bytes_moved / PEAK_BYTES >= flops / PEAK_FLOPS else "operations"
+    return bound(bytes_moved, flops) * 1e3, by
 
 
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -442,15 +442,8 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ordered(a) - ordered(b)).abs().max())
 
 
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi reports them."""
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip()
-
-
 def header() -> None:
-    print(f"{card()} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"{power_limit()} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
 
 def build_kernels() -> None:
@@ -660,15 +653,9 @@ def check_k3() -> dict:
 
 
 def kernels_per_call(fn) -> list[str]:
-    """The names of the device kernels one call of fn launches, from
-    torch.profiler."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    """The names of the device operations one call of fn launches, from a
+    marked profiler window (`window`)."""
+    return [name for name, _, _ in window(fn).ops]
 
 
 def peak_rise(fn) -> tuple[int, torch.Tensor]:
@@ -758,7 +745,9 @@ def check_k4_table() -> dict:
                 raise AssertionError(f"K4 table {name} fan, chunk {c}: differs from the "
                                      f"parameter launch by {float((out - ref).abs().max())}, "
                                      f"from plain by {float((out - plain).abs().max())}")
-        kernels = kernels_per_call(lambda: sr.rotate_fan_table(img, table, index))
+        kernels, _ = settled(
+            lambda: kernels_per_call(lambda: sr.rotate_fan_table(img, table, index)),
+            lambda ks: len(ks) == 1)
         if len(kernels) != 1 or "shear_fan_table_kernel" not in kernels[0]:
             raise AssertionError(f"K4 table {name} fan: kernels {kernels}, expected one launch")
         emit({"phase": "K4-table", "fan": name, "chunks": len(chunks), "members": len(FAN),
@@ -1016,7 +1005,7 @@ def run_rotational(state) -> dict:
     model = model_for(state, kind=None)
     im, gt, mask = synthetic_image()
     iters, ret = 359, 25
-    outside, body = ensemble_chunks(iters, ret, CHUNK)
+    outside, body = split_chunks(iters, ret, CHUNK)
     forwards = outside + body
     launches = {}
     for warp in ("shear", "gather"):
@@ -1145,15 +1134,15 @@ def run_program_phase(phase: str, row: dict, engines: dict, call, want: dict, me
             reset()
             prog.graph.replay()
 
-    credited = {key: prog.replay_counts.get(key, 0) for key in REPLAYED_KERNELS.values()}
+    credited = {key: prog.replay_counts.get(key, 0) for key in cuda_launches.KERNELS.values()}
 
     def chunk_pair():
-        eager_k = kernel_names(counted_events(eager_chunk))
-        replay_k = kernel_names(counted_events(replay_chunk))
+        eager_k = kernel_names(window(eager_chunk))
+        replay_k = kernel_names(window(replay_chunk))
         return eager_k, replay_k, by_credit(replay_k)
 
     (eager_k, replay_k, replayed), _ = settled(
-        chunk_pair, lambda r: r[0] == r[1] and r[2] == credited)
+        chunk_pair, lambda r: r[1] and r[0] == r[1] and r[2] == credited)
     if replayed != credited:
         raise AssertionError(f"{phase}: a replay launched {replayed}, credited {credited}")
     if eager_k != replay_k or not replay_k:
@@ -1163,44 +1152,37 @@ def run_program_phase(phase: str, row: dict, engines: dict, call, want: dict, me
                              f"one eager chunk {sum(eager_k.values())}; (replay, eager) where "
                              f"they differ: {differ}")
 
-    walls = []
-
     def replays():
         with torch.inference_mode():
             reset()
             for _ in range(body):
                 prog.graph.replay()
 
-    def timed_replays():
-        t0 = time.perf_counter()
-        replays()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-
-    # the epoch resets the index once, then replays `body` times
-    with torch.inference_mode():
-        reset_k = kernel_names(counted_events(reset))
-    launched = body * (sum(replay_k.values()) - sum(reset_k.values())) + sum(reset_k.values())
+    # the epoch resets the index once, then replays `body` times; the reset
+    # is one device-to-device copy, which kernel_events leaves out
+    launched = body * sum(replay_k.values())
     # the profiler can drop kernel records over a long window (seen: 4,844
     # of 13,440 once): up to three windows, the first that recorded every
     # kernel counts, else the fullest, flagged
-    windows = []
-    for _ in range(3):
-        events = counted_events(timed_replays)
-        windows.append((len(kernel_events(events)), walls[-1], busy_ms(events),
-                        epilogue_device_ms(events, body)))
-        if windows[-1][0] == launched:
-            break
-    recorded, wall, busy, gn_ms = max(windows, key=lambda w: w[0])
+    traces = []
+
+    def replays_window():
+        traces.append(window(replays))
+        return len(kernel_events(traces[-1]))
+
+    settled(replays_window, lambda n: n == launched)
+    trace = max(traces, key=lambda t: len(kernel_events(t)))
+    recorded, wall, busy = len(kernel_events(trace)), trace.wall_s * 1e3, trace.busy_s * 1e3
+    gn_ms = epilogue_device_ms(trace, body)
     replay_ms = time_ms(replays, 3, 1) / body
     eager_ms = time_ms(eager_chunk, 3)
-    emit({"phase": phase, **row, "members": members, "body_chunks": body, "card": card(),
+    emit({"phase": phase, **row, "members": members, "body_chunks": body, "card": power_limit(),
           "warmup_chunks": prog.WARMUP, "capture_seconds": prog.capture_seconds,
           "replay_launches": prog.replay_counts, "kernels_per_chunk": sum(replay_k.values()),
           "replayed_chunk_ms": replay_ms, "eager_chunk_ms": eager_ms,
           "replays": {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall,
                       "kernels_recorded": recorded, "kernels_launched": launched,
-                      "complete": recorded == launched, "windows": len(windows),
+                      "complete": recorded == launched, "windows": len(traces),
                       "epilogue_device_ms_per_chunk": gn_ms},
           "passes_per_s": {route: members / r["seconds"] for route, r in runs.items()},
           "seconds": {route: r["seconds"] for route, r in runs.items()},
@@ -1218,7 +1200,7 @@ def run_mc_program(state, noise: float) -> dict:
     model = model_for(state)
     im, gt, mask = synthetic_image()
     members, ret = 172, 4
-    outside, body = ensemble_chunks(members, ret, CHUNK)
+    outside, body = split_chunks(members, ret, CHUNK)
     engines = {route: MCDropBlockEngine(model, num_iterations=members, return_num=ret,
                                         chunk=CHUNK, device=DEV, program=route == "captured")
                for route in ("captured", "eager")}
@@ -1243,7 +1225,7 @@ def run_rotational_program(state, noise: float) -> dict:
     model = model_for(state, kind=None)
     im, gt, mask = synthetic_image()
     members, ret = 359, 25
-    outside, body = ensemble_chunks(members, ret, CHUNK)
+    outside, body = split_chunks(members, ret, CHUNK)
     out = {}
     for warp in ("shear", "gather"):
         engines = {route: RotationalEngine(model, num_iterations=members, return_num=ret,
@@ -1259,20 +1241,21 @@ def run_rotational_program(state, noise: float) -> dict:
                                       members, body, noise)
     return out
 
-# --- bench_gpu.py, the ladder and the epoch arms -----------------------------
+# --- the full MC ensemble and the epoch arms ---------------------------------
 
-BENCH_RUNGS = ("native/default", "native/pair+fused")
-LADDER_ITERS = 300
+FULL_MEMBERS = 1000
+FULL_CALLS, FULL_CHECKED = 5, 3   # predicts on one engine; the last three each checked
+ROUTE_MEMBERS = 300
 EPOCH_TIME_EPOCHS = 2
 
 
-def bench_launches(conv: str, mask: str, members: int, chunk: int) -> dict:
-    """The kernel launches of one bench_gpu predict (no member saved): K3 3
-    per forward under pair, K1 at the 22 sites under fused, the wgmma
-    kernel for every K3 launch, and GroupNorm's epilogue (bf16) at the 8
-    upconv and pool norms beside K1, else at all 26 GroupNorm sites, each
-    with its statistics unless K3 brought its sums."""
-    forwards = ensemble_forwards(members, 0, chunk)
+def full_launches(conv: str, mask: str, members: int, chunk: int) -> dict:
+    """The kernel launches of one predict with no member saved: K3 3 per
+    forward under pair, K1 at the 22 sites under fused, the wgmma kernel for
+    every K3 launch, and GroupNorm's epilogue (bf16) at the 8 upconv and
+    pool norms beside K1, else at all 26 GroupNorm sites, each with its
+    statistics unless K3 brought its sums."""
+    forwards = sum(split_chunks(members, 0, chunk))
     want = {}
     if conv == "pair":
         want.update({"conv3x3_pair": 3 * forwards, "path:wgmma": 3 * forwards})
@@ -1284,77 +1267,83 @@ def bench_launches(conv: str, mask: str, members: int, chunk: int) -> dict:
     return {name: n for name, n in want.items() if n}  # as launches.since gives them
 
 
-def expect_bench(where: str, total: dict, out: dict, want: dict) -> None:
-    """A bench_gpu measurement's launches, counted from 0 before it: each
-    timed predict's (`out["launches"]`) are `want`, the whole run's are the
-    warm-ups' and timed calls' `want`; the timed calls replayed the program
-    the first warm-up captured."""
-    for i, got in enumerate(out["launches"]):
-        if got != want:
-            raise AssertionError(f"{where}: timed predict {i} launched {got}, expected {want}")
-    calls = bench_gpu.WARMUP_CALLS + bench_gpu.TIMED_CALLS
-    expect_launches(where, total, {name: calls * n for name, n in want.items()
-                                   if name in COUNTERS})
-    if not (out["programs"] == 1 and out["program_reused"]):
-        raise AssertionError(f"{where}: {out['programs']} programs, reused {out['program_reused']}")
-
-
-def run_bench_phase(noise: float) -> dict:
-    """`bench`: bench_gpu.py's workload in-process at full size: 1000
-    members of the canonical model (pair+fused) on bench.py's 584x565
-    input, chunk 16, two warm-ups and three timed predicts, each timed one
-    launching K1 1386, K3 189 and each of the epilogue's three forward
-    kernels 504 times (63 forwards: the first chunk, 61 replayed, a
-    remainder of 8) and replaying the warm-up's capture; the
-    statistics in range, and within twice the plain bf16 route's distance
-    from float32 (`noise`) of one eager (program=False) 1000-member predict
-    from the last timed call's seed. Then the same at BENCH_RESIZE=256
-    (chunk 128, 8 forwards) and the ladder's native/default (cuDNN and
-    plain masks: no kernel) and native/pair+fused rungs at 300 members.
-    Returns the launches of the 1000-member measurement."""
-    work = bench_gpu.Workload()
-    model = bench_gpu.build_model("pair", "fused", {}, DEV)
-    engine = bench_gpu.make_engine(model, work, DEV)
+def full_predicts(where: str, model, conv: str, mask: str, members: int, chunk: int,
+                  resize: int = -1) -> dict:
+    """FULL_CALLS predicts of one engine (no member saved, generators seeded
+    0, 1, ...) on synthetic_image, counted from 0 before them: each of the
+    last FULL_CHECKED launches full_launches's counts, all of them together
+    FULL_CALLS times those, and the program that the first call captured is
+    the one program, replayed by every later call; the statistics in range.
+    Returns the launches, the last call's seed, mean and std, the capture's
+    seconds."""
+    engine = MCDropBlockEngine(model, num_iterations=members, return_num=0, chunk=chunk,
+                               resize=resize, device=DEV)
+    im, gt, mask_im = synthetic_image()
+    want = full_launches(conv, mask, members, chunk)
     reset_counts()
-    out = bench_gpu.measure(engine, work)
+    graph, captures = None, cuda_launches.HOST["graph:captures"]
+    for seed in range(FULL_CALLS):
+        before = cuda_launches.snapshot()
+        mean, std, *_ = engine.predict(im, gt, mask_im, P_DROP,
+                                       generator=torch.Generator().manual_seed(seed))
+        got = cuda_launches.launched(cuda_launches.since(before))
+        if seed >= FULL_CALLS - FULL_CHECKED and got != want:
+            raise AssertionError(f"{where}: predict {seed} launched {got}, expected {want}")
+        (prog,) = engine.programs.values()
+        graph = graph or prog.graph
+        if prog.graph is None or prog.graph is not graph:
+            raise AssertionError(f"{where}: predict {seed} did not replay the first capture")
+    captures = cuda_launches.HOST["graph:captures"] - captures
+    if captures != 1:
+        raise AssertionError(f"{where}: {captures} captures in {FULL_CALLS} predicts")
     total = counts()
-    expect_bench("bench", total, out, bench_launches("pair", "fused", work.iters, work.chunk))
-    check_outputs(out["mean"], out["std"], torch.zeros((0, 1, *work.hw, 1)), 0)
+    expect_launches(where, total, {name: FULL_CALLS * n for name, n in want.items()
+                                   if name in COUNTERS})
+    hw = (resize, resize) if resize > 0 else (584, 565)
+    check_outputs(mean, std, torch.zeros((0, 1, *hw, 1)), 0, hw)
+    return {"launches": total, "launches_per_predict": want, "seed": seed, "mean": mean,
+            "std": std, "capture_s": prog.capture_seconds}
 
-    im, gt, mask = bench_gpu.bench_input(work.hw)
-    eager = bench_gpu.make_engine(model, work, DEV, program=False)
-    t0 = time.perf_counter()
-    mean, std, *_ = eager.predict(im, gt, mask, bench_gpu.DROP_PROB,
-                                  generator=torch.Generator().manual_seed(out["seeds"][-1]))
-    torch.cuda.synchronize()
-    eager_s = time.perf_counter() - t0
+
+def run_mc_full_phase(state, noise: float) -> dict:
+    """`mc-full`: the MC ensemble of the canonical model (pair+fused) at its
+    full size, 1000 members in chunks of 16 with none saved on the 584x565
+    frame (full_predicts: each checked predict launching K1 1386, K3 189
+    and each of the epilogue's three forward kernels 504 times, 63
+    forwards: the first chunk, 61 replayed, a remainder of 8), its
+    statistics within twice the plain bf16 route's distance from float32
+    (`noise`) of one eager (program=False) 1000-member predict from the last
+    call's seed; then the same at resize 256 (chunk 128, 8 forwards), and at
+    300 members the canonical model on cuDNN with plain masks (no K1-K3
+    launch) and on pair+fused. Returns the launches of the 1000-member
+    predicts."""
+    model = model_for(state)
+    out = full_predicts("mc-full", model, "pair", "fused", FULL_MEMBERS, CHUNK)
+    eager = MCDropBlockEngine(model, num_iterations=FULL_MEMBERS, return_num=0, chunk=CHUNK,
+                              device=DEV, program=False)
+    im, gt, mask = synthetic_image()
+    mean, std, *_ = eager.predict(im, gt, mask, P_DROP,
+                                  generator=torch.Generator().manual_seed(out["seed"]))
     diffs = {"mean": float((out["mean"] - mean).abs().max()),
              "std": float((out["std"] - std).abs().max())}
     if not max(diffs.values()) <= 2.0 * noise:
-        raise AssertionError(f"bench: captured against eager {diffs}, gate {2.0 * noise}")
-    emit({"phase": "bench", **bench_gpu.result_line(work, "pair", "fused", out),
-          "capture_s": out["capture_s"], "eager_seconds": eager_s,
-          "eager_passes_per_s": work.iters / eager_s, "max_abs_captured_vs_eager": diffs,
-          "gate": 2.0 * noise, "launches": total})
+        raise AssertionError(f"mc-full: captured against eager {diffs}, gate {2.0 * noise}")
+    row = {"phase": "mc-full", "card": power_limit(), "members": FULL_MEMBERS, "chunk": CHUNK,
+           "predicts": FULL_CALLS}
+    emit({**row, "part": "native", "launches_per_predict": out["launches_per_predict"],
+          "capture_s": out["capture_s"], "max_abs_captured_vs_eager": diffs,
+          "gate": 2.0 * noise, "launches": out["launches"]})
 
-    r256 = dataclasses.replace(work, resize=256, chunk=bench_gpu.R256_CHUNK)
-    reset_counts()
-    out256 = bench_gpu.measure(bench_gpu.make_engine(model, r256, DEV), r256)
-    expect_bench("bench resize256", counts(), out256,
-                 bench_launches("pair", "fused", r256.iters, r256.chunk))
-    check_outputs(out256["mean"], out256["std"], torch.zeros((0, 1, 256, 256, 1)), 0, (256, 256))
-    emit({"phase": "bench-resize256", **bench_gpu.result_line(r256, "pair", "fused", out256),
-          "capture_s": out256["capture_s"]})
-
-    base = dataclasses.replace(work, iters=LADDER_ITERS)
-    for tag in BENCH_RUNGS:
-        (rung,) = ladder_torch.select(tag)
-        reset_counts()
-        row = ladder_torch.run_rung(rung, base)
-        expect_bench(f"ladder {tag}", counts(), row,
-                     bench_launches(rung[1], rung[2], LADDER_ITERS, rung[4]))
-        emit({"phase": "ladder", "card": card(), "iterations": LADDER_ITERS, **row})
-    return total
+    r256 = full_predicts("mc-full resize256", model, "pair", "fused", FULL_MEMBERS, 128, 256)
+    emit({**row, "part": "resize256", "chunk": 128,
+          "launches_per_predict": r256["launches_per_predict"], "capture_s": r256["capture_s"],
+          "launches": r256["launches"]})
+    for conv, mask in (("xla", "elementwise"), ("pair", "fused")):
+        routed = model_for(state, conv_impl=cli_common.CONV_IMPLS[conv], mask_impl=mask)
+        run = full_predicts(f"mc-full {conv}+{mask}", routed, conv, mask, ROUTE_MEMBERS, CHUNK)
+        emit({**row, "part": f"{conv}+{mask}", "members": ROUTE_MEMBERS,
+              "launches_per_predict": run["launches_per_predict"], "launches": run["launches"]})
+    return out["launches"]
 
 
 def run_epoch_time_phase(data: str) -> dict:
@@ -1380,7 +1369,7 @@ def run_epoch_time_phase(data: str) -> dict:
         expect_launches(f"epoch_time {arm}", got, want)
         if not (len(row["epoch_s"]) == EPOCH_TIME_EPOCHS and np.isfinite(row["final_train_loss"])):
             raise AssertionError(f"epoch_time {arm}: {row}")
-        emit({"phase": "epoch-time", "card": card(), "train_images": n_train, **row})
+        emit({"phase": "epoch-time", "card": power_limit(), "train_images": n_train, **row})
         out[f"epoch_time_{arm}"] = got
     return out
 
@@ -1634,46 +1623,22 @@ def run_train_slice(state) -> dict:
     return got, steps
 
 
-def profiled(fn) -> list:
-    """torch.profiler's device events of one call of fn, after one call
-    under the profiler's warm-up: the first kernels of a traced window can
-    go unrecorded while the tracer starts (seen on the first two kernels of
-    a graph replay)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts,
-                                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
-                                                                 repeat=1)) as prof:
-        for _ in range(2):
-            fn()
+def window(fn) -> tracing.Trace:
+    """One marked profiler window of one call of fn (benchmark/tracing.py):
+    the device operations that start after a marker kernel, none where the
+    window lost its marker. fn runs once more before the marker, inside the
+    window (from the snapshot the window reads first): a window can lose its
+    first records while the tracer starts (seen: the marker of every window
+    of a phase), and those are then that call's, which do not count."""
+    warm = [fn]
+
+    def snapshot():
+        if warm:
+            warm.pop()()
             torch.cuda.synchronize()
-            prof.step()
-    return [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+        return cuda_launches.snapshot()
 
-
-def counted_events(fn) -> list:
-    """The device events of one call of fn, from a profiled window (see
-    `profiled`) that first runs fn once more, waits for the card and
-    launches a marker kernel (torch.cuda._sleep's spin_kernel): only the
-    events that start after the marker count, since a window can lose the
-    first kernels it records (seen on the first replay of 20). A window
-    that recorded no marker is profiled again, up to three windows: the
-    profiler has lost every record of a short window (seen once on a
-    one-copy window)."""
-    def marked():
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(1000)
-        fn()
-
-    for _ in range(3):
-        events = profiled(marked)
-        marks = [ev for ev in events if "spin_kernel" in ev.name]
-        if marks:
-            break
-    if len(marks) != 1:
-        raise AssertionError(f"{len(marks)} marker kernels in the profiled window")
-    after = marks[0].time_range.end
-    return [ev for ev in events if ev.time_range.start >= after]
+    return tracing.profile(fn, snapshot, tries=1)[0]
 
 
 def settled(measure, agree, tries: int = 3):
@@ -1681,10 +1646,11 @@ def settled(measure, agree, tries: int = 3):
     last result and the number of windows it took. The profiler loses kernel
     records at random (seen: one conv3x3_wgmma_kernel and one
     conv3x3_fold_kernel record of an 8-replay epoch; 4 of 320 K2 records of
-    a window), and never adds one, while the kernels measured are the same in
-    every window (a graph replay, or the same eager step), so a count that
-    disagrees is measured again and one that disagrees in every window
-    stands and fails at the caller."""
+    a window; every record of a short window, its marker included), and
+    never adds one, while the kernels measured are the same in every window
+    (a graph replay, or the same eager step), so a count that disagrees is
+    measured again and one that disagrees in every window stands and fails
+    at the caller."""
     for n in range(1, tries + 1):
         result = measure()
         if agree(result):
@@ -1692,55 +1658,31 @@ def settled(measure, agree, tries: int = 3):
     return result, n
 
 
-def kernel_events(events) -> list:
-    """The kernel events, copies and memsets left out: eagerly they are copy
-    and memset events, in a graph replay the graph's own memcpy and memset
-    kernels."""
-    return [ev for ev in events if not ev.name.lower().startswith(("memcpy", "memset"))]
+def kernel_events(trace: tracing.Trace) -> list:
+    """A window's kernels, copies and memsets left out: eagerly they are copy
+    and memset operations, in a graph replay the graph's own memcpy and
+    memset kernels."""
+    return [op for op in trace.ops if not op[0].lower().startswith(("memcpy", "memset"))]
 
 
-def kernel_names(events) -> collections.Counter:
-    """Kernel events (kernel_events) by name and number."""
-    return collections.Counter(ev.name for ev in kernel_events(events))
+def kernel_names(trace: tracing.Trace) -> collections.Counter:
+    """A window's kernels (kernel_events) by name and number."""
+    return collections.Counter(name for name, _, _ in kernel_events(trace))
 
 
-def busy_ms(events) -> float:
-    """The union of the kernel events' intervals (kernel_events), in ms: the
-    time the card ran a kernel, however the recorded intervals overlap."""
-    total, end = 0.0, float("-inf")
-    for start, stop in sorted((ev.time_range.start, ev.time_range.end)
-                              for ev in kernel_events(events)):
-        if stop > end:
-            total += stop - max(start, end)
-            end = stop
-    return total / 1e3
-
-
-# the kernel behind each launch count that a graph replay is credited with
-# (ops/cuda/launches.py), by a part of its name in the profiler's events
-REPLAYED_KERNELS = {"dropblock_mask_kernel": "dropblock_mask",
-                    "dropblock_apply_kernel": "dropblock_fused_apply",
-                    "conv3x3_wgmma_kernel": "path:wgmma", "conv3x3_kernel<": "path:cuda_cores",
-                    "conv3x3_fold_kernel": "conv3x3_pair_fold", "shear_fan_kernel": "rotate_fan",
-                    "shear_fan_table_kernel": "rotate_fan_table",
-                    **{f"{fn.__name__}_kernel": fn.__name__ for fn in gnk.WRAPPERS},
-                    "upsample_concat_kernel": "upsample_concat"}
-
-
-def epilogue_device_ms(events, per: int) -> dict:
-    """Device ms of GroupNorm's epilogue kernels in `events`, by kernel and
+def epilogue_device_ms(trace: tracing.Trace, per: int) -> dict:
+    """Device ms of GroupNorm's epilogue kernels in a window, by kernel and
     in all, per one of `per` replays."""
-    ms = {fn.__name__: sum(ev.time_range.end - ev.time_range.start for ev in events
-                           if f"{fn.__name__}_kernel" in ev.name) / 1e3 / per
+    ms = {fn.__name__: trace.recorded(f"{fn.__name__}_kernel")[1] * 1e3 / per
           for fn in gnk.WRAPPERS}
     return {**ms, "all": sum(ms.values())}
 
 
 def by_credit(names: collections.Counter) -> dict:
     """Kernel counts by name (kernel_names) summed into the launch counts
-    that a graph replay is credited with (REPLAYED_KERNELS)."""
+    that name them (ops/cuda/launches.py::KERNELS)."""
     return {key: sum(n for name, n in names.items() if part in name)
-            for part, key in REPLAYED_KERNELS.items()}
+            for part, key in cuda_launches.KERNELS.items()}
 
 
 def run_train_scan(state) -> None:
@@ -1821,9 +1763,9 @@ def run_train_scan(state) -> None:
         prog.index.zero_()
         prog.graphs[(-1, 1)].replay()
 
-    (eager, replay), _ = settled(lambda: (kernel_names(counted_events(eager_step)),
-                                          kernel_names(counted_events(replay_step))),
-                                 lambda r: r[0] == r[1])
+    (eager, replay), _ = settled(lambda: (kernel_names(window(eager_step)),
+                                          kernel_names(window(replay_step))),
+                                 lambda r: r[1] and r[0] == r[1])
     if eager != replay or not replay:
         differ = {name[:160]: (replay[name], eager[name]) for name in set(replay) | set(eager)
                   if replay[name] != eager[name]}
@@ -1833,32 +1775,17 @@ def run_train_scan(state) -> None:
 
     # an epoch of replays under the profiler: the kernels it ran against K
     # times the counts a replay is credited with, and its idle share, from
-    # the union of the kernels' intervals (the summed event times can exceed
-    # the wall time) over the wall time of the traced call
+    # the union of the operations' intervals (the summed event times can
+    # exceed the wall time) over the wall time of the traced call
     k = len(train_ds)
-    walls = []
 
     def epoch_of_replays():
         prog.index.zero_()
         for _ in range(k):
             prog.graphs[(-1, 1)].replay()
 
-    def timed_epoch():
-        t0 = time.perf_counter()
-        epoch_of_replays()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-
     credited = {key: k * prog.replay_counts[(-1, 1)].get(key, 0)
-                for key in REPLAYED_KERNELS.values()}
-
-    def epoch_window():
-        events = counted_events(timed_epoch)
-        replayed = by_credit(kernel_names(events))
-        if any(replayed[key] > credited[key] for key in credited):
-            raise AssertionError(f"an epoch of {k} replays launched {replayed}, "
-                                 f"more than credited {credited}")
-        return events, replayed, walls[-1]
+                for key in cuda_launches.KERNELS.values()}
 
     # each kernel's count is the most that any of up to five windows
     # recorded: a lost record only lowers a window's count (see `settled`),
@@ -1866,14 +1793,19 @@ def run_train_scan(state) -> None:
     # for one complete one), so one window that recorded all of a kernel
     # proves its count; the idle share is read from the fullest window
     seen = []
-    for _ in range(5):
-        seen.append(epoch_window())
-        replayed = {key: max(w[1][key] for w in seen) for key in credited}
-        if replayed == credited:
-            break
-    windows = len(seen)
-    epoch_events, _, wall_ms = max(seen, key=lambda w: len(kernel_events(w[0])))
-    epoch_busy_ms = busy_ms(epoch_events)
+
+    def epoch_window():
+        trace = window(epoch_of_replays)
+        replayed = by_credit(kernel_names(trace))
+        if any(replayed[key] > credited[key] for key in credited):
+            raise AssertionError(f"an epoch of {k} replays launched {replayed}, "
+                                 f"more than credited {credited}")
+        seen.append((trace, replayed))
+        return {key: max(w[1][key] for w in seen) for key in credited}
+
+    replayed, windows = settled(epoch_window, lambda r: r == credited, tries=5)
+    epoch_trace = max((w[0] for w in seen), key=lambda t: len(kernel_events(t)))
+    wall_ms, epoch_busy_ms = epoch_trace.wall_s * 1e3, epoch_trace.busy_s * 1e3
     if replayed != credited or not replayed["dropblock_mask"]:
         raise AssertionError(f"an epoch of {k} replays launched {replayed} (the most of "
                              f"{windows} profiled windows), credited {credited}")
@@ -1884,14 +1816,14 @@ def run_train_scan(state) -> None:
     emit({"phase": "train-scan", "config": "canonical 31M, bf16, remat, dependent b=7 ramp "
           "0->0.15 over 12 steps, pair + kernel masks, SGD 1e-3 momentum 0.99 clip 0.5",
           "input": [584, 565], "train_images": len(train_ds), "epochs": 3, "steps": steps,
-          "card": card(),
+          "card": power_limit(),
           "warmup_steps": prog.WARMUP, "capture_seconds": prog.capture_seconds[(-1, 1)],
           "replay_launches": prog.replay_counts[(-1, 1)],
           "replayed_step_ms": replay_ms, "eager_step_ms": eager_ms,
           "kernels_per_step": sum(replay.values()),
           "epoch_of_replays": {"wall_ms": wall_ms, "busy_ms": epoch_busy_ms,
                                "idle_share": 1.0 - epoch_busy_ms / wall_ms,
-                               "epilogue_device_ms_per_step": epilogue_device_ms(epoch_events, k),
+                               "epilogue_device_ms_per_step": epilogue_device_ms(epoch_trace, k),
                                "kernels_counted": replayed, "windows": windows,
                                "counted_per_window": [w[1] for w in seen]},
           "steps_per_s": {"scanned": steps / scanned["seconds"],
@@ -2013,7 +1945,7 @@ def run_step_program_lr_find(state, train_ds) -> dict:
     n = min(len(captured["smoothed"]), len(eager["smoothed"]))
     smooth_rel = float(np.max(np.abs(captured["smoothed"][:n] - eager["smoothed"][:n])
                               / np.abs(eager["smoothed"][:n])))
-    out = {"phase": "train-step-program", "part": "lr_find", "card": card(),
+    out = {"phase": "train-step-program", "part": "lr_find", "card": power_limit(),
            "config": "canonical 31M, bf16, remat, dependent b=7 ramp 0->0.15 over 50 steps, "
                      "pair + kernel masks, momentum 0.99 clip 0.5, lr 1e-8 -> 1 over 100 steps",
            "input": [584, 565], "train_images": len(train_ds),
@@ -2106,9 +2038,8 @@ def run_step_program_fit(state) -> dict:
             prog.graphs[(size, 1)].replay()
 
         (e_names, r_names), _ = settled(
-            lambda: (kernel_names(counted_events(eager_step)),
-                     kernel_names(counted_events(replay_step))),
-            lambda r: r[0] == r[1])
+            lambda: (kernel_names(window(eager_step)), kernel_names(window(replay_step))),
+            lambda r: r[1] and r[0] == r[1])
         differ = {name[:160]: (r_names[name], e_names[name])
                   for name in set(r_names) | set(e_names) if r_names[name] != e_names[name]}
         by_size[str(size)] = {"replayed_step_ms": time_ms(replay_step, 10, 2),
@@ -2117,7 +2048,7 @@ def run_step_program_fit(state) -> dict:
                               "kernels_per_step": sum(r_names.values()),
                               "replay_launches": prog.replay_counts[(size, 1)],
                               "kernels_differ": differ}
-    out = {"phase": "train-step-program", "part": "uni-fit", "card": card(),
+    out = {"phase": "train-step-program", "part": "uni-fit", "card": power_limit(),
            "config": "canonical 31M, bf16, remat, dependent b=7 ramp 0->0.15 over 24 steps, "
                      "pair + kernel masks, SGD 1e-3 momentum 0.99 clip 0.5, uni size plan",
            "input": [584, 565], "train_images": n_train, "val_images": len(val_ds),
@@ -2275,7 +2206,7 @@ def run_eval_trainer_forwards(state) -> dict:
         shapes = [tuple(x.shape) for x in cap["preds"][0]]
         want = {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3 * 2 * EVAL_IMAGES,
                 **epilogue(forwards=2 * EVAL_IMAGES)}
-        row = {"phase": "eval-program", "part": f"validate+predict {pname}", "card": card(),
+        row = {"phase": "eval-program", "part": f"validate+predict {pname}", "card": power_limit(),
                "config": "canonical 31M, bf16, pair + kernel masks (DropBlock off in eval), "
                          "random weights seed 0",
                "input": [584, 565], "images": EVAL_IMAGES, "output_shapes": shapes,
@@ -2352,7 +2283,7 @@ def run_eval_predict_at(state) -> dict:
                                  f"launches {cap['launches']} / {eag['launches']}")
         assert_wgmma(f"eval-program predict_at {h}x{w}")
         captured_launches.append(cap["launches"])
-    emit({"phase": "eval-program", "part": "predict_at", "card": card(),
+    emit({"phase": "eval-program", "part": "predict_at", "card": power_limit(),
           "config": "canonical 31M, bf16, pair, DropBlock off, random weights seed 0",
           "input": [584, 565], "images": EVAL_IMAGES, "by_size": by_size})
     return added(*captured_launches)
@@ -2501,7 +2432,7 @@ def run_eval_batched_fit(state) -> tuple:
             for program in (False, True)}
     cap, eag = runs[True], runs[False]
     numbers, ok = compare_batched(cap, eag)
-    row = {"phase": "eval-program", "part": "batched fit + lr_find", "card": card(),
+    row = {"phase": "eval-program", "part": "batched fit + lr_find", "card": power_limit(),
            "config": "canonical 31M, bf16, remat, dependent b=7 ramp 0->0.15 over 9 steps, "
                      "pair + kernel masks, SGD 1e-3 momentum 0.99 clip 0.5, train_batch 2, "
                      "val_batch 2",
@@ -2600,7 +2531,7 @@ def run_eval_one_shot(state) -> dict:
                 raise AssertionError(f"one-shot {path} {route}: {done} images, launches {got}")
     shutil.rmtree(out_root, ignore_errors=True)
     mean = {p: {r: float(np.mean(v)) for r, v in seconds[p].items()} for p in paths}
-    emit({"phase": "eval-program", "part": "one-shot", "card": card(),
+    emit({"phase": "eval-program", "part": "one-shot", "card": power_limit(),
           "config": "canonical 31M, bf16, pair, DropBlock off, random weights seed 0",
           "input": [584, 565], "splits": list(ONE_SHOT_SPLITS), "order": "eager, captured, "
           "captured, eager", "seconds": seconds, "mean_seconds": mean,
@@ -2878,7 +2809,7 @@ def run_dp_phase(mc_slice: dict) -> dict:
     steps, val_per_rank = 2, 2
     want = train_want(steps, val_per_rank)
     rank1_dir = os.path.join(DP_ROOT, "rank1")
-    emit({"phase": "dp-fit", "card": card(), "launches_rank0": fit["launches"],
+    emit({"phase": "dp-fit", "card": power_limit(), "launches_rank0": fit["launches"],
           "history": fit["history"],
           "kept_rank0": fit["kept"], "rank1_wrote": os.path.exists(rank1_dir),
           "step_ms_by_rank": fit["step_ms_by_rank"],
@@ -2979,8 +2910,8 @@ def run_nccl_batched(state, mesh, ref: dict) -> tuple:
     collectives = {"fit": cap["step_collectives"], "lr_find": cap["lr_find_collectives"]}
     held = all(c.get("psum", 0) >= 1 and c.get("all_reduce_grads", 0) == 1
                for part in collectives.values() for c in part.values())
-    row = {"phase": "dp-nccl", "part": "batched fit + lr_find", "card": card(), "world_size": 1,
-           "backend": mesh.backend, "captures": cap["captures"],
+    row = {"phase": "dp-nccl", "part": "batched fit + lr_find", "card": power_limit(),
+           "world_size": 1, "backend": mesh.backend, "captures": cap["captures"],
            "config": "canonical 31M, bf16, remat, dependent b=7 ramp 0->0.15 over 9 steps, "
                      "pair + kernel masks, SGD 1e-3 momentum 0.99 clip 0.5, train_batch 2, "
                      "val_batch 2, 5 + 3 images, 3 epochs (steps of 2, 2, 1 rows), "
@@ -3036,7 +2967,7 @@ def run_nccl_forwards(state, mesh, ref: dict) -> dict:
              "meshless": (abs(cap["val"] - ref["val"]), output_dists(cap["preds"], ref["preds"]))}
     want = {**{name: 0 for name in COUNTERS}, "conv3x3_pair": 3 * 2 * EVAL_IMAGES,
             **epilogue(forwards=2 * EVAL_IMAGES)}
-    row = {"phase": "dp-nccl", "part": "validate + predict", "card": card(),
+    row = {"phase": "dp-nccl", "part": "validate + predict", "card": power_limit(),
            "captures": [cap["captures"], host["captures"]], "graphs": cap["graphs"],
            "val_loss": {"captured": cap["val"], "host": host["val"], "meshless": ref["val"]},
            "val_dist": {k: d[0] for k, d in dists.items()},
@@ -3069,7 +3000,7 @@ def run_nccl_mc(state, mesh, noise: float) -> dict:
     model = model_for(state)
     im, gt, mask = synthetic_image()
     members, ret = 172, 4
-    outside, body = ensemble_chunks(members, ret, CHUNK)
+    outside, body = split_chunks(members, ret, CHUNK)
     engines = {route: MCDropBlockEngine(model, num_iterations=members, return_num=ret,
                                         chunk=CHUNK, device=DEV, program=route != "host",
                                         mesh=None if route == "meshless" else mesh)
@@ -3113,7 +3044,7 @@ def run_nccl_mc(state, mesh, noise: float) -> dict:
                      for name, a, b in zip(("mean", "std", "saved"), runs["captured"]["outputs"],
                                            runs[other]["outputs"])}
              for other in ("host", "meshless")}
-    row = {"phase": "dp-nccl", "part": "mc", "card": card(), "members": members,
+    row = {"phase": "dp-nccl", "part": "mc", "card": power_limit(), "members": members,
            "chunk": CHUNK, "return_num": ret, "body_chunks": body,
            "captures": {r: v["captures"] for r, v in runs.items()},
            "collectives_per_replay": collectives, "replay_launches": prog.replay_counts,
@@ -3193,20 +3124,12 @@ def write_cli_tree(root: str) -> None:
                 png.write_png(os.path.join(root, split, "targets", f"{i}_target.png"), to_u8(gt))
 
 
-def ensemble_forwards(members: int, saved: int, chunk: int) -> int:
-    """Batched forwards of one ensemble: the saved members, the full chunks,
-    the remainder (uncertainty/ensemble.py)."""
-    rest = members - saved
-    return (1 if saved else 0) + rest // chunk + (1 if rest % chunk else 0)
-
-
-def ensemble_chunks(members: int, saved: int, chunk: int) -> tuple[int, int]:
+def split_chunks(members: int, saved: int, chunk: int) -> tuple[int, int]:
     """(chunks run from the host, chunks of the device program) of one
-    ensemble: the program runs the full chunks after the saved members,
-    less the first when none are saved (JAX's scanned body)."""
-    full = (members - saved) // chunk
-    body = full - (1 if full and not saved else 0)
-    return ensemble_forwards(members, saved, chunk) - body, body
+    ensemble, in uncertainty/ensemble.py's layout; their sum is its
+    batched forwards."""
+    layout = chunk_layout(members, chunk, saved)
+    return len(layout.sizes) - layout.n_body, layout.n_body
 
 
 class Stopwatch:
@@ -3361,7 +3284,7 @@ def run_cli_phase() -> dict:
     argv = ["-model_path", ckpt, "-data_path", data, "-save_path", os.path.join(runs, "mc"),
             "-iter_num", str(MC_ITERS), "-chunk", str(CHUNK), "-save_num", str(MC_SAVE),
             "-seed", "0"] + CLI_FLAGS
-    mc_forwards = ensemble_forwards(MC_ITERS, MC_SAVE, CHUNK) * n_val * 2
+    mc_forwards = sum(split_chunks(MC_ITERS, MC_SAVE, CHUNK)) * n_val * 2
     out, row = run_cli("dropblock_uncertainty", cli_dropblock.main, argv, {
         "dropblock_fused_apply": TRAIN_SITES * mc_forwards, "conv3x3_pair": 3 * mc_forwards,
         **epilogue(k1_forwards=mc_forwards)})
@@ -3388,8 +3311,8 @@ def run_cli_phase() -> dict:
     argv = ["-model_path", ckpt, "-data_path", data, "-save_path", os.path.join(runs, "rot"),
             "-warp", "shear", "-num_iterations", str(ROT_ITERS), "-save_num", str(ROT_SAVE),
             "-chunk", str(CHUNK)] + CLI_FLAGS
-    rot_forwards = ensemble_forwards(ROT_ITERS, ROT_SAVE, CHUNK) * n_val
-    rot_want = rotational_launches("shear", *ensemble_chunks(ROT_ITERS, ROT_SAVE, CHUNK))
+    rot_forwards = sum(split_chunks(ROT_ITERS, ROT_SAVE, CHUNK)) * n_val
+    rot_want = rotational_launches("shear", *split_chunks(ROT_ITERS, ROT_SAVE, CHUNK))
     out, row = run_cli("rotational_uncertainty-shear", cli_rotational.main, argv,
                        {name: n * n_val for name, n in rot_want.items()})
     want = ["model_ckpt_symlink.ckpt"] + [os.path.join(f"image_{i}", f"{m}.pt")
@@ -3832,8 +3755,8 @@ def matrix_want(n_train: int, n_val: int, n_test: int) -> dict:
     arithmetic: a train command's steps, validation and final forwards; a
     test's final forwards; an MC run's ensembles (save, then evaluate) and a
     rotational run's, per validation image."""
-    mc = ensemble_forwards(MATRIX_ITERS, MATRIX_SAVE, CHUNK) * n_val * 2
-    rot = rotational_launches("shear", *ensemble_chunks(ROT_ITERS, MATRIX_SAVE, CHUNK))
+    mc = sum(split_chunks(MATRIX_ITERS, MATRIX_SAVE, CHUNK)) * n_val * 2
+    rot = rotational_launches("shear", *split_chunks(ROT_ITERS, MATRIX_SAVE, CHUNK))
     return {
         "train": train_want(n_train, n_val + n_test + n_val),
         "test": {"conv3x3_pair": 3 * (n_test + n_val), **epilogue(forwards=n_test + n_val)},
@@ -4478,7 +4401,7 @@ def main() -> None:
     mc_program = run_mc_program(state, launches["bf16_noise"])
     rotational = run_rotational(state)
     rotational_program = run_rotational_program(state, rotational["bf16_noise"])
-    bench = run_bench_phase(launches["bf16_noise"])
+    mc_full = run_mc_full_phase(state, launches["bf16_noise"])
     run_train_routes(state)
     train, steps = run_train_slice(state)
     run_train_scan(state)
@@ -4497,9 +4420,9 @@ def main() -> None:
     transunet, transunet_timed = run_transunet_phase()
     check_failed_capture(state)
     # each path's counts, read right after it ran; `launches` is the path
-    # that runs the kernel by default (K1 and K3: bench_gpu's 1000-member
-    # measurement, K2: training)
-    paths = {"bench": bench, "mc": launches["main"],
+    # that runs the kernel by default (K1 and K3: mc-full's 1000-member
+    # predicts, K2: training)
+    paths = {"mc_full": mc_full, "mc": launches["main"],
              "mc_kernel_variant": launches["kernel_variant"], "mc_program": mc_program,
              "rotational_shear": rotational["shear"],
              "rotational_program_shear": rotational_program["shear"],
@@ -4509,7 +4432,7 @@ def main() -> None:
     for row, name, main_path in zip(rows, ("dropblock_fused_apply", "dropblock_mask",
                                            "conv3x3_pair", "rotate_fan", "rotate_fan_table",
                                            "conv3x3_pair_dx", "conv3x3_pair_fold"),
-                                    ("bench", "train", "bench", "rotational_shear",
+                                    ("mc_full", "train", "mc_full", "rotational_shear",
                                      "rotational_shear", "train", "train")):
         row["launches"] = paths[main_path][name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items() if c[name]}

@@ -22,7 +22,8 @@ then one JSON line: the seconds of the whole command and of each epoch
 (an epoch from the start of its training steps to the start of the next
 epoch's, validation and the checkpoint included), the mean seconds per
 epoch after the first (which holds the capture), the final epoch's train
-loss, the kernel launches and the card.
+loss, the kernel launches and the card (its name and power limit; null on
+the CPU).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import bench_gpu  # noqa: E402
+from benchmark.roofline import power_limit  # noqa: E402
 from unet_research_tpu_torch.cli import training  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import launches  # noqa: E402
 from unet_research_tpu_torch.train import Trainer  # noqa: E402
@@ -109,10 +110,10 @@ def main(argv=None) -> None:
     extra = list(argv[1:])
     data = epoch_data()
     on_cpu = "-device" in extra and extra[extra.index("-device") + 1] == "cpu"
-    where = bench_gpu.Workload(device="cpu" if on_cpu else "cuda")
+    card = None if on_cpu else power_limit()
     for conv_impl in ARMS:
         row = run_arm(conv_impl, data, epochs, extra)
-        print(json.dumps({**row, "card": bench_gpu.card(where)}), flush=True)
+        print(json.dumps({**row, "card": card}), flush=True)
 
 
 if __name__ == "__main__":

@@ -11,21 +11,18 @@ call from torch.profiler (device_ms):
 
 - K1 `dropblock_fused_apply` and K2 `dropblock_mask` at (16, 592, 576, 64),
   bf16, b = 7 at the canonical drop probability, and in device time at
-  batch 1 (the training shape); in a tree whose K2 takes `threshold`, K2
-  again with the threshold read from a device word (`K2_thr_*`);
+  batch 1 (the training shape); K2 again with the threshold read from a
+  device word (`K2_thr_*`);
 - K3 forward with the sums at (16|1, 592, 576, 64|128) -> 64, bf16;
 - K3's backward route at (1, 592, 576, 64|128) -> 64 (autograd of
-  conv3x3_pair with cotangents on y and both sums), and its dx call alone:
-  in a tree whose `conv3x3_pair_dx(dy, K, y, ds1, ds2)` folds, that call;
-  in an older one, `conv3x3_pair_dx(g, K)` on the folded g (the fold ran as
-  plain ops there), named `dx_ms` in both;
+  conv3x3_pair with cotangents on y and both sums), and its dx call alone,
+  `conv3x3_pair_dx(dy, K, y, ds1, ds2)` with the fold (`dx_ms`);
 - `conv3x3_pair_valid` at (1, 592, 576, 64) -> 64;
 - K4 `rotate_fan` on the rotational chunk's two fans at 584x565 (K = 16,
   the ties 45 + 90k included): one image to 16 angles (`K4_fwd`) and 16
   images back by their -angles (`K4_inv`), the device time per call from
-  torch.profiler (all of a call's kernels: three in a tree with the
-  three-pass kernel) and the event time per call; in a tree with K4's table
-  launch, `rotate_fan_table` on the same fans, their rows read on the card
+  torch.profiler and the event time per call; then its table launch,
+  `rotate_fan_table` on the same fans, their rows read on the card
   (`K4_table_fwd_*`, `K4_table_inv_*`).
 Needs one CUDA card.
 """
@@ -33,13 +30,15 @@ Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import os
-import subprocess
 import sys
 
 import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from benchmark.roofline import power_limit  # noqa: E402
 
 H, W, CHUNK, BLOCK, P_DROP = 592, 576, 16, 7, 0.15
 # chip_smoke.py's rotational chunk
@@ -98,9 +97,7 @@ def main(argv=None) -> None:
     def weights(cin):
         return (0.05 * randn(3, 3, cin, 64, dtype=torch.float32)).to(torch.bfloat16)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    out = {"tag": a.tag, "root": a.root, "card": smi}
+    out = {"tag": a.tag, "root": a.root, "card": power_limit()}
     gamma = dropblock_gamma_dependent(H, W, BLOCK, P_DROP)
     key = tunet.draw_site_keys(1, torch.Generator().manual_seed(3))[0].to(dev)
     x = randn(CHUNK, H, W, 64)
@@ -114,16 +111,14 @@ def main(argv=None) -> None:
         lambda: dbk.dropblock_fused_apply(x1, ab1, key, gamma, BLOCK))
     out["K2_b1_device_ms"] = device_ms(
         lambda: dbk.dropblock_mask(tuple(x1.shape), key, gamma, BLOCK))
-    if "threshold" in inspect.signature(dbk.dropblock_mask).parameters:
-        # K2 reading its threshold from a device word (the scanned train step)
-        thr = torch.tensor(dbk.seed_threshold(gamma), dtype=torch.int64, device=dev)
-        out["K2_thr_ms"] = time_ms(
-            lambda: dbk.dropblock_mask(tuple(x.shape), key, None, BLOCK, threshold=thr), 20)
-        out["K2_thr_b1_device_ms"] = device_ms(
-            lambda: dbk.dropblock_mask(tuple(x1.shape), key, None, BLOCK, threshold=thr))
+    # K2 reading its threshold from a device word (the scanned train step)
+    thr = torch.tensor(dbk.seed_threshold(gamma), dtype=torch.int64, device=dev)
+    out["K2_thr_ms"] = time_ms(
+        lambda: dbk.dropblock_mask(tuple(x.shape), key, None, BLOCK, threshold=thr), 20)
+    out["K2_thr_b1_device_ms"] = device_ms(
+        lambda: dbk.dropblock_mask(tuple(x1.shape), key, None, BLOCK, threshold=thr))
     del x, ab
 
-    folds = "y" in inspect.signature(pc.conv3x3_pair_dx).parameters
     for cin in (64, 128):
         w = weights(cin)
         for n in (CHUNK, 1):
@@ -140,12 +135,7 @@ def main(argv=None) -> None:
         out[f"K3_bwd_{cin}_ms"] = time_ms(route, 20)
         out[f"K3_bwd_{cin}_device_ms"] = device_ms(route)
         y = outs[0].detach()
-        if folds:
-            dx = lambda: pc.conv3x3_pair_dx(cots[0], w, y, cots[1], cots[2])  # noqa: E731
-        else:
-            g = (cots[0].float() + cots[1][:, None, None, :]
-                 + 2.0 * y.float() * cots[2][:, None, None, :]).to(torch.bfloat16)
-            dx = lambda: pc.conv3x3_pair_dx(g, w)  # noqa: E731
+        dx = lambda: pc.conv3x3_pair_dx(cots[0], w, y, cots[1], cots[2])  # noqa: E731
         out[f"K3_dx_{cin}_ms"] = time_ms(dx, 50)
         out[f"K3_dx_{cin}_device_ms"] = device_ms(dx)
     x, w = randn(1, H, W, 64), weights(64)
@@ -159,13 +149,12 @@ def main(argv=None) -> None:
         warp = lambda: sr.rotate_fan(img, angles)  # noqa: E731
         out[f"K4_{name}_device_ms"] = device_ms(warp)
         out[f"K4_{name}_ms"] = time_ms(warp, 20)
-    if hasattr(sr, "rotate_fan_table"):
-        index = torch.zeros(1, dtype=torch.int64, device=dev)
-        for name, (img, sign) in {"fwd": (im, 1.0), "inv": (segs, -1.0)}.items():
-            table = sr.member_table([sign * fan], 584, 565, dev)
-            warp = lambda: sr.rotate_fan_table(img, table, index)  # noqa: E731
-            out[f"K4_table_{name}_device_ms"] = device_ms(warp)
-            out[f"K4_table_{name}_ms"] = time_ms(warp, 20)
+    index = torch.zeros(1, dtype=torch.int64, device=dev)
+    for name, (img, sign) in {"fwd": (im, 1.0), "inv": (segs, -1.0)}.items():
+        table = sr.member_table([sign * fan], 584, 565, dev)
+        warp = lambda: sr.rotate_fan_table(img, table, index)  # noqa: E731
+        out[f"K4_table_{name}_device_ms"] = device_ms(warp)
+        out[f"K4_table_{name}_ms"] = time_ms(warp, 20)
     print(json.dumps(out), flush=True)
 
 

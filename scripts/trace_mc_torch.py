@@ -22,9 +22,11 @@ chunks and no saved members is warmed up and captured by two predict
 calls, then one profiled window replays its --chunks body chunks in a row
 (the epoch of replays a predict call makes); the numbers are per chunk.
 Every run also reports the device's busy time as the union of its kernels'
-intervals (`busy_ms`, `idle_share_union`): over graph replays the summed
-event times can exceed the wall time. The counted window starts after a
-marker kernel, since a window can lose the first kernels it records.
+intervals (`busy_ms`, `idle_share_union`; benchmark/tracing.py's
+`union_seconds`): over graph replays the summed event times can exceed the
+wall time. Kernels fall into the benchmark's kinds (`KINDS`, `kind_of`).
+The counted window starts after a marker kernel, since a window can lose
+the first kernels it records.
 Needs one CUDA card.
 """
 
@@ -40,41 +42,12 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from benchmark.tracing import kind_of, union_seconds  # noqa: E402
 from unet_research_tpu_torch.models import unet as tunet  # noqa: E402
 from unet_research_tpu_torch.ops.cuda.shear_rotate import rotate_fan  # noqa: E402
 from unet_research_tpu_torch.ops.image import rotate_bilinear  # noqa: E402
 from unet_research_tpu_torch.train import POLICIES, Trainer, TrainerConfig  # noqa: E402
 from unet_research_tpu_torch.uncertainty import MCDropBlockEngine, RotationalEngine  # noqa: E402
-
-
-KINDS = (("K1 fused DropBlock", ("dropblock_apply_kernel",)),
-         ("K2 mask producer", ("dropblock_mask_kernel",)),
-         ("K3 conv3x3 (forward and dx)", ("conv3x3_wgmma_kernel", "conv3x3_kernel")),
-         ("K3 backward's fold", ("conv3x3_fold_kernel",)),
-         ("K4 shear fan", ("shear_",)),
-         ("cuDNN/cuBLAS convs and GEMMs", ("xmma", "cudnn", "cutlass", "wgrad", "dgrad", "gemm")),
-         ("reductions (GroupNorm statistics, sums, norms)", ("reduce_kernel",)),
-         ("copies and dtype casts", ("copy",)),
-         ("max-pool", ("max_pool",)),
-         ("optimizer (multi-tensor)", ("multi_tensor",)))
-
-
-def kind_of(name: str) -> str:
-    """The row of the by-kind table a kernel name belongs to."""
-    for kind, marks in KINDS:
-        if any(m in name for m in marks):
-            return kind
-    return "other elementwise"
-
-
-def busy_ms(events) -> float:
-    """The union of the events' intervals, in ms."""
-    total, end = 0.0, float("-inf")
-    for start, stop in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
-        if stop > end:
-            total += stop - max(start, end)
-            end = stop
-    return total / 1e3
 
 
 def main(argv=None) -> None:
@@ -168,7 +141,7 @@ def main(argv=None) -> None:
         kernels[ev.name][0] += ev.device_time / 1e3 / per
         kernels[ev.name][1] += 1 / per
     device_ms = sum(ms for ms, _ in kernels.values())
-    busy = busy_ms(counted) / per
+    busy = union_seconds((ev.time_range.start, ev.time_range.end) for ev in counted) / per * 1e3
     # the host's operators over the window's two calls, per call
     host = sorted(((ev.key, ev.self_cpu_time_total / 2e3 / per, ev.count / 2 / per)
                    for ev in prof.key_averages()), key=lambda r: -r[1])[:15]

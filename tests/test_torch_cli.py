@@ -9,8 +9,12 @@ exact ties both packages give, which the test asserts);
 `rotational_uncertainty -warp gather` mean and members to 1e-4, std to 2e-4
 (the rotational engine's tolerances); at -drop_prob 0
 `dropblock_uncertainty` mean and members to 1e-5, std at most 1e-6 in the
-port and 2e-6 in JAX (float32 noise). Each pair writes the same tree of files."""
+port and 2e-6 in JAX (float32 noise). Each pair writes the same tree of files.
+The model that cli/common.py builds from the route flags is JAX's, and the
+flags refuse a route neither package has."""
 
+import argparse
+import dataclasses
 import os
 from os.path import join
 
@@ -23,11 +27,12 @@ import torch
 from PIL import Image
 
 import unet_research_tpu.models.unet as junet
+from unet_research_tpu.cli import common as jax_common
 from unet_research_tpu.cli import dropblock_uncertainty as jax_db
 from unet_research_tpu.cli import rotational_uncertainty as jax_rot
 from unet_research_tpu.cli import training as jax_training
 from unet_research_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
-from unet_research_tpu_torch.cli import dropblock_uncertainty, rotational_uncertainty, training
+from unet_research_tpu_torch.cli import common, dropblock_uncertainty, rotational_uncertainty, training
 from unet_research_tpu_torch.evaluation.metrics import output_files
 from unet_research_tpu_torch.models.unet import canonical_config
 from unet_research_tpu_torch.train.checkpoint import find_checkpoint
@@ -207,3 +212,31 @@ def test_resume_and_device_flags(aug_data, jax_ckpt, trained, tmp_path):
     out = training.main(base + ["-save_path", str(tmp_path / "c"), "-num_epochs", "2",
                                 "-resume_from", ckpt] + CPU)
     assert os.listdir(join(out, "model_info"))[0].startswith("model-epoch=01")
+
+
+@pytest.mark.parametrize("conv,mask", [("pair", "fused"), ("xla", "elementwise"),
+                                       ("pair", "kernel")], ids=lambda v: v)
+def test_network_config_matches_jax(conv, mask):
+    """dropblock_uncertainty's model under -conv_impl / -mask_impl, built by
+    the port's cli/common.py and by JAX's from the same flags: the same
+    configuration, xla being cuDNN (the port's conv_impl='torch')."""
+    args = dropblock_uncertainty.build_parser().parse_args(
+        ["-model_path", "m", "-data_path", "d", "-save_path", "s", "-conv_impl", conv,
+         "-mask_impl", mask, "--precision", "bf16", *SMALL[:6], *CPU])
+    kw = dict(dropblock_kind="dependent", use_scheduler=False, drop_prob=args.drop_prob)
+    ours = dataclasses.asdict(common.build_network(args, **kw).cfg)
+    theirs = dataclasses.asdict(jax_common.build_unet(args, **kw).cfg)
+    assert set(ours) == set(theirs)
+    assert ours.pop("dtype") == torch.bfloat16 and theirs.pop("dtype") == jnp.bfloat16
+    assert ours.pop("conv_impl") == common.CONV_IMPLS[theirs.pop("conv_impl")]
+    assert ours == theirs
+
+
+@pytest.mark.parametrize("flag,route", [("-conv_impl", "mosaic"), ("-conv_impl", "torch"),
+                                        ("-mask_impl", "pallas")])
+def test_route_flags_refuse_unknown_routes(flag, route, capsys):
+    parser = argparse.ArgumentParser()
+    common.add_arch_args(parser)
+    with pytest.raises(SystemExit):
+        parser.parse_args([flag, route])
+    assert "invalid choice" in capsys.readouterr().err

@@ -77,6 +77,7 @@ def _assert_stats_close(got, ref):
     (12, 0, 3, -1),   # the first chunk outside, 3 body chunks, no remainder
     (13, 0, 3, 16),   # the first chunk outside, 3 body chunks, a remainder of 1, resize
     (14, 3, 4, -1),   # saved 3, 2 body chunks, a remainder of 3
+    (9, 0, 2, -1),    # the first chunk outside, 3 body chunks, a remainder of 1
 ])
 def test_mc_program_equals_per_chunk_route(rng, members, return_num, chunk, resize):
     """One generator seed: the same site keys for every chunk, bit for bit,

@@ -89,8 +89,8 @@ print("ok", len([m for m in sys.modules if blocked(m)]))
     assert out.stdout.strip() == "ok 0"
 
 
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_gpu.py", ROOT / "scripts" / "ladder_torch.py",
-           ROOT / "scripts" / "epoch_time_torch.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", *(ROOT / "scripts" / f"{name}_torch.py"
+                                     for name in ("epoch_time", "kernel_times", "trace_mc"))]
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + SCRIPTS,
@@ -108,8 +108,9 @@ def test_no_jax_imports_in_source(path):
 
 
 def test_bench_scripts_import_with_jax_blocked():
-    """bench_gpu.py and the ladder and epoch-time twins import with jax,
-    the JAX package and PIL (and the other blocked libraries) unavailable."""
+    """The port's scripts (epoch times, kernel times, the trace) import with
+    jax, the JAX package and PIL (and the other blocked libraries)
+    unavailable."""
     _import_with_blocked(f"""
 for path in {[str(p) for p in SCRIPTS[1:]]!r}:
     name = path.rsplit("/", 1)[1][:-3]

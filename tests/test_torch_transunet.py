@@ -1,9 +1,9 @@
 """TransUNet R50-ViT-B/16 (models/transunet.py) against its plain float32
-reference (tests/reference_transunet.py), at a small size on the CPU: the
-forward without and with masks, the MC-DropBlock and rotational engines,
-one SGD step's gradients through the Trainer, the published configuration's
-sites, parameters and FLOP, the benchmark's copy of the reference, and the
-training CLI's -arch flag.
+reference (the benchmark's, benchmark/reference/transunet.py), at a small
+size on the CPU: the forward without and with masks, the MC-DropBlock and
+rotational engines, one SGD step's gradients through the Trainer, the
+published configuration's sites, parameters and FLOP, and the training
+CLI's -arch flag.
 
 The weights of the comparisons are He-uniform (U(+-sqrt(6 / fan_in))) with
 perturbed norm parameters and BatchNorm statistics, so that the ViT's share
@@ -32,11 +32,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import reference_transunet as R  # noqa: E402
-from benchmark.reference import transunet as BR  # noqa: E402
+from benchmark.reference import transunet as R  # noqa: E402
 from unet_research_tpu_torch.models import (  # noqa: E402
     DropBlockConfig,
     TransUNetConfig,
@@ -214,21 +212,6 @@ def test_model_flops_hand_count():
     want = 2.0 * (root + s1 + s2 + s3 + vit + dec)
     assert R.model_flops(cfg, 592, 576) == want
     assert 440e9 < want < 470e9  # about 452 GFLOP a member
-
-
-def test_benchmark_copy_is_bit_equal():
-    """The benchmark's copy of the reference computes the same bits on one
-    seeded tiny model, with masks and under the float8 control."""
-    params = weights(7)
-    x = image(8, n=2)
-    keys = draw_site_keys(R.num_sites(REF_CFG), torch.Generator().manual_seed(9))
-    for quant in (False, True):
-        a = R.forward(params, x, REF_CFG, R.Drop(keys, P_DROP, BLOCK), quant=quant)
-        b = BR.forward(params, x, REF_CFG, BR.Drop(keys, P_DROP, BLOCK), quant=quant)
-        assert torch.equal(a, b)
-    assert R.param_specs(REF_CFG) == BR.param_specs(REF_CFG)
-    assert R.mask_sites(REF_CFG, 64, 48) == BR.mask_sites(REF_CFG, 64, 48)
-    assert R.model_flops(REF_CFG, 64, 48) == BR.model_flops(REF_CFG, 64, 48)
 
 
 # --- the engines and the trainer ----------------------------------------------------

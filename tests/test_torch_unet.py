@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import unet_research_tpu.models.unet as junet
+from unet_research_tpu_torch.cli.common import CONV_IMPLS
 from unet_research_tpu_torch.models import unet as tunet
 from unet_research_tpu_torch.utils.convert import (
     jax_params_to_state_dict,
@@ -28,7 +29,8 @@ SMALL = dict(filters=8, model_depth=2, group_norm_groups=4)
 
 
 def _configs(db=None, **kw):
-    """The same configuration for both packages."""
+    """The same configuration for both packages; conv_impl in JAX's names
+    (xla is the port's cuDNN route, conv_impl='torch')."""
     kw = {**SMALL, **kw}
     jdb = junet.DropBlockConfig(**(db or {}))
     tdb_kw = dict(db or {})
@@ -36,6 +38,8 @@ def _configs(db=None, **kw):
     if tdb_kw["mask_impl"] is None:
         tdb_kw["mask_impl"] = "elementwise"
     jcfg = junet.canonical_config(dropblock=jdb, **kw)
+    if "conv_impl" in kw:
+        kw["conv_impl"] = CONV_IMPLS[kw["conv_impl"]]
     tcfg = tunet.canonical_config(dropblock=tunet.DropBlockConfig(**tdb_kw), **kw)
     return jcfg, tcfg
 
@@ -80,6 +84,9 @@ EVAL_CONFIGS = [
     dict(pool_mode="avg", activation="gelu"),
     dict(same_padding=False, activation="silu"),
     dict(norm="batch", activation="tanh"),
+    # the ensembles' routes: K3 with the fused masks, cuDNN with plain masks
+    dict(conv_impl="pair", db=dict(mask_impl="fused")),
+    dict(conv_impl="xla", db=dict(mask_impl="elementwise")),
 ]
 
 

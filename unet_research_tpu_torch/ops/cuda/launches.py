@@ -6,7 +6,8 @@ conv3x3_pair's launches are also counted by kernel in `path_launches`);
 each collective of parallel/mesh.py adds one to its count in `calls`, and
 each attention call on the card (ops/attention.py) one to `attn:flash` or
 `attn:other`, each upsampling merge (ops/cuda/upsample.py) one to
-`up:kernel` or `up:plain`. A
+`up:kernel` or `up:plain`. `KERNELS` names the kernel behind each launch
+count, so that a profiler's records can be held against the counts. A
 CUDA graph replays the kernels and collectives that its capture recorded
 without calling a wrapper, so whoever replays one credits the counts that
 the capture added (`since`), once per replay (`credit`), and takes them
@@ -56,6 +57,16 @@ WRAPPERS = (dropblock_kernel.dropblock_fused_apply, dropblock_kernel.dropblock_m
             pair_conv.conv3x3_pair, pair_conv.conv3x3_pair_dx, pair_conv.conv3x3_pair_fold,
             shear_rotate.rotate_fan, shear_rotate.rotate_fan_table, *group_norm.WRAPPERS,
             upsample.upsample_concat)
+
+# the kernel behind each launch count of a snapshot, by a part of its name in
+# the profiler's records: what a profiled window's kernels are held against
+KERNELS = {"dropblock_mask_kernel": "dropblock_mask",
+           "dropblock_apply_kernel": "dropblock_fused_apply",
+           "conv3x3_wgmma_kernel": "path:wgmma", "conv3x3_kernel<": "path:cuda_cores",
+           "conv3x3_fold_kernel": "conv3x3_pair_fold", "shear_fan_kernel": "rotate_fan",
+           "shear_fan_table_kernel": "rotate_fan_table",
+           **{f"{fn.__name__}_kernel": fn.__name__ for fn in group_norm.WRAPPERS},
+           "upsample_concat_kernel": "upsample_concat"}
 
 
 def captures_on_card(program: bool = True, mesh=None) -> bool:
