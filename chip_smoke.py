@@ -9,7 +9,9 @@ shapes of the main path (K3 forward at batch 16 and 1, every main-path K3
 launch asserted to run the wgmma kernel; K4's table launch, rotate_fan_table,
 bit-equal to its parameter launch on both fans of two chunks; GroupNorm's six
 epilogue launches of ops/cuda/group_norm.py at (1, 592, 576, 64),
-(1, 37, 36, 1024) and (16, 592, 576, 64), each in its own `kernels` row), then
+(1, 37, 36, 1024) and (16, 592, 576, 64), each in its own `kernels` row;
+K1's merge mode bit-equal to the four launches it replaces at the canonical
+U-Net's four merges, each timed against them, its own `kernels` row), then
 runs the
 MC-DropBlock ensemble of the canonical 31M U-Net
 (bf16, dependent DropBlock b=7 p=0.15, conv_impl='pair' + mask_impl='fused')
@@ -25,8 +27,10 @@ conv_impl='pair', all 359 angles) under both warps, 'shear' (kernel K4, by
 its table launch in the program) and 'gather', and `rotational-program`,
 the same comparison under both warps, then `mc-full`: the MC ensemble at
 its full size (1000 members on the 584x565 frame, pair+fused, chunk 16,
-none saved, five predicts on one engine; K1 1386, K3 189 and GroupNorm's
-epilogue 504 x 3 launches in each of the last three, the first call's
+none saved, five predicts on one engine; K1 1386 (252 of them in its merge
+mode, `merge:kernel`, and no `merge:plain`), K3 189, GroupNorm's statistics
+and finishing launches 504 each and its apply 252 in each of the last
+three, the first call's
 capture the one program, replayed by every later call, the statistics
 against one eager 1000-member predict from the same seed), the same at
 resize 256 (chunk 128), and at 300 members on cuDNN with plain masks and
@@ -156,7 +160,8 @@ gn_apply timed at an odd-size stage-1 site and a 16-channel decoder site
 MC-DropBlock (48 members) and rotational (32) engines and three scanned
 train steps (remat, train-mode BatchNorm, the mask producer), with their
 ms, members/s and peaks (`python3 chip_smoke.py transunet` runs the build
-and that phase alone). Last, `eval-program`'s `failed-capture`
+and that phase alone; `python3 chip_smoke.py k1-merge` the build and the
+check of K1's merge mode). Last, `eval-program`'s `failed-capture`
 part: a capture that the card refuses (a host read inside the validation
 forward) raises out of Trainer.validate; it runs last because PyTorch's
 caching allocator keeps every later free of the process after a failed
@@ -263,7 +268,6 @@ from unet_research_tpu_torch.evaluation import artifacts as ev_artifacts  # noqa
 from unet_research_tpu_torch.evaluation import density as ev_density  # noqa: E402
 from unet_research_tpu_torch.evaluation import metrics as ev_metrics  # noqa: E402
 from unet_research_tpu_torch.models import sites as tsites  # noqa: E402
-from unet_research_tpu_torch.models import transunet as ttu  # noqa: E402
 from unet_research_tpu_torch.models import unet as tunet  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import build  # noqa: E402
 from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk  # noqa: E402
@@ -321,9 +325,11 @@ COUNTERS = {"dropblock_fused_apply": dbk.dropblock_fused_apply,
             **{fn.__name__: fn for fn in gnk.WRAPPERS},
             "upsample_concat": upk.upsample_concat}
 # GroupNorm's epilogue in the canonical U-Net: 26 GroupNorm sites, 3 of them
-# (K3's, at level 0) given K3's sums under conv_impl='pair'; beside K1 (mask_impl='fused') only the 4 upconv and the 4
-# pool norms take the epilogue's kernels
-GN_SITES, GN_K3_SITES, GN_K1_SIDE_SITES = 26, 3, 8
+# (K3's, at level 0) given K3's sums under conv_impl='pair'; beside K1
+# (mask_impl='fused') only the 4 upconv and the 4 pool norms take the
+# epilogue's statistics, and only the pool norms its apply: each upconv norm's
+# apply is in K1's merge mode, one launch at each of the 4 skip merges
+GN_SITES, GN_K3_SITES, GN_K1_SIDE_SITES, GN_K1_APPLY_SITES, U_MERGES = 26, 3, 8, 4, 4
 # one chunk of the rotational fan, the four ties 45 + 90k included
 FAN = torch.tensor([45.0, 135.0, 225.0, 315.0, 1.0, 17.0, 33.0, 60.0, 90.0, 101.0, 180.0,
                     200.5, 270.0, 300.0, 333.0, 359.0])
@@ -357,13 +363,14 @@ def epilogue(forwards: int = 0, steps: int = 0, k1_forwards: int = 0, k3: bool =
     canonical U-Net in bf16: `forwards` forwards through its 26 GroupNorm
     sites, statistics at each but the 3 that take K3's sums (`k3`:
     conv_impl='pair'); `k1_forwards` forwards beside K1 (the 8 upconv and
-    pool norms, each with its statistics); `steps` backwards through the 26
-    sites, the dx pass at each that computed its statistics. A train step
+    pool norms' statistics, the pool norms' apply); `steps` backwards
+    through the 26 sites, the dx pass at each that computed its statistics. A train step
     under remat is two forwards and one backward."""
     own = GN_SITES - (GN_K3_SITES if k3 else 0)
     side = GN_K1_SIDE_SITES * k1_forwards
     return {"gn_stats": own * forwards + side, "gn_stats_finish": GN_SITES * forwards + side,
-            "gn_apply": GN_SITES * forwards + side, "gn_grad_sums": GN_SITES * steps,
+            "gn_apply": GN_SITES * forwards + GN_K1_APPLY_SITES * k1_forwards,
+            "gn_grad_sums": GN_SITES * steps,
             "gn_grad_finish": GN_SITES * steps, "gn_grad_dx": own * steps}
 
 
@@ -518,6 +525,70 @@ def check_k1() -> dict:
            "shape": list(x.shape), "max_abs_err": worst, "ms": ms, "plain_ms": plain,
            "bound_ms": bound, "bound_by": by, "library_ms": None}
     emit({"phase": "K1-time", **row})
+    return row
+
+
+# the canonical U-Net's four skip merges at chunk 16, (n, h, w, C1, C2)
+MERGE_SHAPES = ((CHUNK, 74, 72, 512, 512), (CHUNK, 148, 144, 256, 256),
+                (CHUNK, 296, 288, 128, 128), (CHUNK, H, W, 64, 64))
+
+
+def merge_composition(x, ab, skip, scale, key, gamma):
+    """The four launches K1's merge mode replaces: gn_apply with ReLU, the
+    skip's deferred scale as a bf16 multiply, torch.cat, K1's bare site."""
+    y = gnk.gn_apply(x, ab, act="relu")
+    skip = skip * scale.to(skip.dtype)[:, None, None, None]
+    return dbk.dropblock_fused_apply(torch.cat([y, skip], dim=-1), None, key, gamma, BLOCK,
+                                     "none")
+
+
+def check_k1_merge() -> dict:
+    """K1's merge mode (dropblock_merge_apply) at MERGE_SHAPES: values and
+    keep counts bit-equal to merge_composition on the same inputs (the up
+    half's coefficients from gn_stats + gn_stats_finish of x, a per-sample
+    scale), then both timed: event ms a call, profiler device ms, the byte
+    bound (K1's at C1 + C2 channels) and its share. Returns the kernels row
+    (the top merge's timing, the others by shape)."""
+    row = {"name": "dropblock_merge_apply", "route": "cuda",
+           "source": "unet_research_tpu_torch/ops/cuda/csrc/dropblock.cu",
+           "replaces": "none: XLA fuses the JAX model's merge (models/unet.py:784-786)",
+           "library_ms": None}
+    for shape in MERGE_SHAPES:
+        n, h, w, c1, c2 = shape
+        g = torch.Generator(device=DEV).manual_seed(c1)
+        x = (1.5 * torch.randn((n, h, w, c1), device=DEV, generator=g) + 0.3).to(torch.bfloat16)
+        skip = torch.relu(torch.randn((n, h, w, c2), device=DEV, generator=g)).to(torch.bfloat16)
+        weight = 1.0 + 0.2 * torch.randn(c1, device=DEV, generator=g)
+        bias = 0.2 * torch.randn(c1, device=DEV, generator=g)
+        part = gnk.gn_stats(x)
+        ab, _ = gnk.gn_stats_finish(part[0], part[1], h * w, weight, bias, GN_GROUPS, 1e-5)
+        scale = 1.0 + 0.3 * torch.rand(n, device=DEV, generator=g)
+        key, gamma = keys(c1), dropblock_gamma_dependent(h, w, BLOCK, P_DROP)
+
+        def merge():
+            return dbk.dropblock_merge_apply(x, ab, skip, scale, key, gamma, BLOCK)
+
+        def plain():
+            return merge_composition(x, ab, skip, scale, key, gamma)
+
+        (out, keep), (ref, ref_keep) = merge(), plain()
+        torch.cuda.synchronize()
+        if not (torch.equal(out, ref) and torch.equal(keep, ref_keep)):
+            raise AssertionError(f"K1 merge {shape}: not bit-equal to the composition "
+                                 f"({bf16_ulps(out, ref)} ulps, keep {keep.tolist()} vs "
+                                 f"{ref_keep.tolist()})")
+        del out, ref
+        bound, by = bound_ms(2 * n * h * w * (c1 + c2) * 2 + ab.numel() * 4 + n * 12)
+        timing = {"shape": list(shape), "bit_equal": True, "ms": time_ms(merge, 10),
+                  "device_ms": device_ms(merge), "plain_ms": time_ms(plain, 10),
+                  "plain_device_ms": device_ms(plain), "bound_ms": bound, "bound_by": by}
+        timing["bound_share"] = bound / timing["device_ms"]
+        emit({"phase": "K1-merge", "card": power_limit(), **timing})
+        if shape == MERGE_SHAPES[-1]:
+            row.update(timing)
+        else:
+            row["x".join(map(str, shape))] = timing
+        del x, skip, part, ab
     return row
 
 
@@ -1251,16 +1322,18 @@ EPOCH_TIME_EPOCHS = 2
 
 def full_launches(conv: str, mask: str, members: int, chunk: int) -> dict:
     """The kernel launches of one predict with no member saved: K3 3 per
-    forward under pair, K1 at the 22 sites under fused, the wgmma kernel for
-    every K3 launch, and GroupNorm's epilogue (bf16) at the 8 upconv and
-    pool norms beside K1, else at all 26 GroupNorm sites, each with its
-    statistics unless K3 brought its sums."""
+    forward under pair, K1 at the 22 sites under fused, its 4 merges in its
+    merge mode (`merge:kernel`; no `merge:plain`), the wgmma kernel for
+    every K3 launch, and GroupNorm's epilogue (bf16) beside K1 (`epilogue`),
+    else at all 26 GroupNorm sites, each with its statistics unless K3
+    brought its sums."""
     forwards = sum(split_chunks(members, 0, chunk))
     want = {}
     if conv == "pair":
         want.update({"conv3x3_pair": 3 * forwards, "path:wgmma": 3 * forwards})
     if mask == "fused":
         want["dropblock_fused_apply"] = TRAIN_SITES * forwards
+        want["merge:kernel"] = U_MERGES * forwards
         want.update(epilogue(k1_forwards=forwards))
     else:
         want.update(epilogue(forwards=forwards, k3=conv == "pair"))
@@ -1274,13 +1347,15 @@ def full_predicts(where: str, model, conv: str, mask: str, members: int, chunk: 
     last FULL_CHECKED launches full_launches's counts, all of them together
     FULL_CALLS times those, and the program that the first call captured is
     the one program, replayed by every later call; the statistics in range.
-    Returns the launches, the last call's seed, mean and std, the capture's
-    seconds."""
+    Returns the launches, the skip merges by route (`merge:*` of all the
+    predicts, each FULL_CALLS times full_launches's), the last call's seed,
+    mean and std, the capture's seconds."""
     engine = MCDropBlockEngine(model, num_iterations=members, return_num=0, chunk=chunk,
                                resize=resize, device=DEV)
     im, gt, mask_im = synthetic_image()
     want = full_launches(conv, mask, members, chunk)
     reset_counts()
+    start = cuda_launches.snapshot()
     graph, captures = None, cuda_launches.HOST["graph:captures"]
     for seed in range(FULL_CALLS):
         before = cuda_launches.snapshot()
@@ -1299,24 +1374,30 @@ def full_predicts(where: str, model, conv: str, mask: str, members: int, chunk: 
     total = counts()
     expect_launches(where, total, {name: FULL_CALLS * n for name, n in want.items()
                                    if name in COUNTERS})
+    merges = {k: v for k, v in cuda_launches.since(start).items() if k.startswith("merge:")}
+    if merges != {k: FULL_CALLS * n for k, n in want.items() if k.startswith("merge:")}:
+        raise AssertionError(f"{where}: skip merges {merges} in {FULL_CALLS} predicts, "
+                             f"expected {want}")
     hw = (resize, resize) if resize > 0 else (584, 565)
     check_outputs(mean, std, torch.zeros((0, 1, *hw, 1)), 0, hw)
-    return {"launches": total, "launches_per_predict": want, "seed": seed, "mean": mean,
-            "std": std, "capture_s": prog.capture_seconds}
+    return {"launches": total, "merges": merges, "launches_per_predict": want, "seed": seed,
+            "mean": mean, "std": std, "capture_s": prog.capture_seconds}
 
 
 def run_mc_full_phase(state, noise: float) -> dict:
     """`mc-full`: the MC ensemble of the canonical model (pair+fused) at its
     full size, 1000 members in chunks of 16 with none saved on the 584x565
-    frame (full_predicts: each checked predict launching K1 1386, K3 189
-    and each of the epilogue's three forward kernels 504 times, 63
+    frame (full_predicts: each checked predict launching K1 1386, 252 of
+    them merges in its merge mode, K3 189, the epilogue's statistics and
+    finishing kernels 504 times and its apply 252, 63
     forwards: the first chunk, 61 replayed, a remainder of 8), its
     statistics within twice the plain bf16 route's distance from float32
     (`noise`) of one eager (program=False) 1000-member predict from the last
     call's seed; then the same at resize 256 (chunk 128, 8 forwards), and at
     300 members the canonical model on cuDNN with plain masks (no K1-K3
     launch) and on pair+fused. Returns the launches of the 1000-member
-    predicts."""
+    predicts and, by part, the merges that took K1's merge mode
+    (`merge:kernel` over each part's predicts)."""
     model = model_for(state)
     out = full_predicts("mc-full", model, "pair", "fused", FULL_MEMBERS, CHUNK)
     eager = MCDropBlockEngine(model, num_iterations=FULL_MEMBERS, return_num=0, chunk=CHUNK,
@@ -1332,18 +1413,22 @@ def run_mc_full_phase(state, noise: float) -> dict:
            "predicts": FULL_CALLS}
     emit({**row, "part": "native", "launches_per_predict": out["launches_per_predict"],
           "capture_s": out["capture_s"], "max_abs_captured_vs_eager": diffs,
-          "gate": 2.0 * noise, "launches": out["launches"]})
+          "gate": 2.0 * noise, "launches": out["launches"], "merges": out["merges"]})
+    merged = {"mc_full": out["merges"].get("merge:kernel", 0)}
 
     r256 = full_predicts("mc-full resize256", model, "pair", "fused", FULL_MEMBERS, 128, 256)
     emit({**row, "part": "resize256", "chunk": 128,
           "launches_per_predict": r256["launches_per_predict"], "capture_s": r256["capture_s"],
-          "launches": r256["launches"]})
+          "launches": r256["launches"], "merges": r256["merges"]})
+    merged["mc_full_resize256"] = r256["merges"].get("merge:kernel", 0)
     for conv, mask in (("xla", "elementwise"), ("pair", "fused")):
         routed = model_for(state, conv_impl=cli_common.CONV_IMPLS[conv], mask_impl=mask)
         run = full_predicts(f"mc-full {conv}+{mask}", routed, conv, mask, ROUTE_MEMBERS, CHUNK)
         emit({**row, "part": f"{conv}+{mask}", "members": ROUTE_MEMBERS,
-              "launches_per_predict": run["launches_per_predict"], "launches": run["launches"]})
-    return out["launches"]
+              "launches_per_predict": run["launches_per_predict"], "launches": run["launches"],
+              "merges": run["merges"]})
+        merged[f"mc_full_{conv}+{mask}"] = run["merges"].get("merge:kernel", 0)
+    return out["launches"], merged
 
 
 def run_epoch_time_phase(data: str) -> dict:
@@ -4107,9 +4192,9 @@ def held_to_plain(record: dict):
 
     patched = [(tsites, "dropblock_fused_apply", dbk.dropblock_fused_apply_plain, k1),
                (gnk, "gn_stats", gnk.gn_stats_plain, stats),
-               (ttu, "gn_stats", gnk.gn_stats_plain, stats),
+               (tsites, "gn_stats", gnk.gn_stats_plain, stats),
                (gnk, "gn_stats_finish", gnk.gn_stats_finish_plain, finish),
-               (ttu, "gn_stats_finish", gnk.gn_stats_finish_plain, finish),
+               (tsites, "gn_stats_finish", gnk.gn_stats_finish_plain, finish),
                (gnk, "gn_apply", gnk.gn_apply_plain, apply),
                (tsites, "gn_apply", gnk.gn_apply_plain, apply),
                (upk, "upsample_concat", upk.upsample_concat_plain, merge)]
@@ -4391,9 +4476,14 @@ def main() -> None:
         run_transunet_phase()
         emit({"ok": True, "phase": "transunet"})
         return
+    if sys.argv[1:] == ["k1-merge"]:  # that check alone
+        check_k1_merge()
+        emit({"ok": True, "phase": "k1-merge"})
+        return
     rows = [check_k1(), check_k2(), check_k3(), check_k4(), check_k4_table(),
             *check_k3_backward()]
     gn_rows = check_gn()
+    merge_row = check_k1_merge()
     check_k3_valid()
     check_offsets()
     state = base_state()
@@ -4401,7 +4491,7 @@ def main() -> None:
     mc_program = run_mc_program(state, launches["bf16_noise"])
     rotational = run_rotational(state)
     rotational_program = run_rotational_program(state, rotational["bf16_noise"])
-    mc_full = run_mc_full_phase(state, launches["bf16_noise"])
+    mc_full, mc_full_merges = run_mc_full_phase(state, launches["bf16_noise"])
     run_train_routes(state)
     train, steps = run_train_slice(state)
     run_train_scan(state)
@@ -4441,6 +4531,9 @@ def main() -> None:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items() if c[row["name"]]}
     rows += gn_rows
+    merge_row["launches"] = mc_full_merges["mc_full"]
+    merge_row["launches_by_path"] = {p: c for p, c in mc_full_merges.items() if c}
+    rows.append(merge_row)
     rows.append({"name": "upsample_concat", "route": "cuda",
                  "source": "unet_research_tpu_torch/ops/cuda/csrc/upsample.cu",
                  "replaces": "none: TransUNet exists only in the port",

@@ -38,7 +38,13 @@ Function against float32 autograd of GroupNorm -> mask -> scale -> relu,
 with its own statistics and with K3's sums; a captured bf16 train step
 replayed twice, bit-identical, with the epilogue's launches credited per
 replay; the canonical model's launches per train step, rotational and MC
-forward, and no GroupNorm site on the plain route (`gn:plain`). TransUNet's
+forward, and no GroupNorm site on the plain route (`gn:plain`). K1's merge
+mode (ops/cuda/dropblock_kernel.py::dropblock_merge_apply) bit-equal, values
+and keep counts, to the four launches it replaces (gn_apply with ReLU, the
+skip's bf16 scale, torch.cat, K1's bare site) at the canonical U-Net's four
+merges at chunk 16, at batch 1, a ragged size, with and without a scale and
+at a sample offset; the canonical model's forward with it against the same
+forward with it refused, bit for bit. TransUNet's
 upsampling merge (ops/cuda/upsample.py) bit-equal to its plain route in bf16
 and float32 at odd sizes, a 1x1 input, a short skip, no skip and more than
 65535 row blocks; its Function's gradients against the plain route's in
@@ -627,8 +633,9 @@ def test_canonical_model_epilogue_launches(dev):
     GroupNorm sites, 23 of their own statistics and 3 K3's, each forward
     twice under remat: 46 + 52 + 52 forward, 26 + 26 + 23 backward), a
     forward with DropBlock off (a rotational chunk) 23 + 26 + 26, and the MC
-    engine's forward through K1 the 8 upconv and pool-norm sites, 8 + 8 + 8;
-    no site takes the plain route."""
+    engine's forward through K1 the 8 upconv and pool-norm sites' statistics,
+    8 + 8, and the 4 pool norms' apply (the upconv norms' apply is in K1's
+    merge mode, at each of the 4 merges); no site takes the plain route."""
     from unet_research_tpu_torch.models import unet as tunet
     from unet_research_tpu_torch.ops.cuda import launches
     from unet_research_tpu_torch.ops.losses import masked_rescaled_bce
@@ -649,9 +656,12 @@ def test_canonical_model_epilogue_launches(dev):
         before = _gn_counts()
         model(x)
         assert _gn_added(before) == {"gn_stats": 23, "gn_stats_finish": 26, "gn_apply": 26}
-        before = _gn_counts()
+        before, merged = _gn_counts(), launches.snapshot()
         model(x, drop_prob=0.15, site_keys=keys)
-        assert _gn_added(before) == {"gn_stats": 8, "gn_stats_finish": 8, "gn_apply": 8}
+        assert _gn_added(before) == {"gn_stats": 8, "gn_stats_finish": 8, "gn_apply": 4}
+        got = launches.since(merged)
+        assert got["merge:kernel"] == 4 and "merge:plain" not in got
+        assert got["dropblock_fused_apply"] == model.num_mask_sites()
     assert launches.HOST["gn:plain"] == plain
 
 
@@ -718,6 +728,110 @@ def test_batch_norm_eval_sites_take_gn_apply(dev):
         model(x, drop_prob=0.15, site_keys=keys, train=True)
     assert gn.gn_apply.launches == applied
     assert launches.HOST["bn:plain"] - plain == sites_bn
+
+
+def _merge_inputs(dev, n, h, w, c1, c2, seed):
+    from unet_research_tpu_torch.ops.cuda import group_norm as gn
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (1.5 * torch.randn((n, h, w, c1), device=dev, generator=g) + 0.3).to(torch.bfloat16)
+    skip = torch.relu(torch.randn((n, h, w, c2), device=dev, generator=g)).to(torch.bfloat16)
+    weight = 1.0 + 0.2 * torch.randn(c1, device=dev, generator=g)
+    bias = 0.2 * torch.randn(c1, device=dev, generator=g)
+    p0, p1 = gn.gn_stats(x)
+    ab, _ = gn.gn_stats_finish(p0, p1, h * w, weight, bias, 32, 1e-5)
+    scale = (1.0 + 0.3 * torch.rand(n, device=dev, generator=g)).contiguous()
+    return x, skip, ab, scale
+
+
+def _merge_composition(x, ab, skip, scale, key, gamma, offset=0):
+    """The route K1's merge mode replaces on the card: gn_apply with ReLU,
+    the skip's scale as a bf16 multiply, torch.cat, K1's bare site."""
+    from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk
+    from unet_research_tpu_torch.ops.cuda import group_norm as gn
+
+    y = gn.gn_apply(x, ab, act="relu")
+    if scale is not None:
+        skip = skip * scale.to(skip.dtype)[:, None, None, None]
+    return dbk.dropblock_fused_apply(torch.cat([y, skip], dim=-1), None, key, gamma, 7, "none",
+                                     sample_offset=offset)
+
+
+# the canonical U-Net's four merges at chunk 16 on 592x576, (n, h, w, C1, C2)
+MERGE_SHAPES = [(16, 74, 72, 512, 512), (16, 148, 144, 256, 256), (16, 296, 288, 128, 128),
+                (16, 592, 576, 64, 64)]
+
+
+@pytest.mark.parametrize("scaled", [True, False], ids=["scale", "no_scale"])
+@pytest.mark.parametrize("shape", MERGE_SHAPES + [(1, 592, 576, 64, 64), (3, 37, 45, 128, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dropblock_merge_apply_matches_the_composition(dev, shape, scaled):
+    """K1's merge mode bit-equal, values and keep counts, to the four
+    launches it replaces, at the canonical U-Net's four merges (chunk 16),
+    at batch 1, and at a ragged size with unequal halves; with the deferred
+    scale and without."""
+    from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk
+    from unet_research_tpu_torch.ops.dropblock import dropblock_gamma_dependent
+
+    n, h, w, c1, c2 = shape
+    x, skip, ab, scale = _merge_inputs(dev, *shape, seed=c1 + n)
+    scale = scale if scaled else None
+    gamma, key = dropblock_gamma_dependent(h, w, 7, 0.15), _key(dev)
+    before = (dbk.dropblock_fused_apply.launches, dbk.merges["kernel"])
+    out, keep = dbk.dropblock_merge_apply(x, ab, skip, scale, key, gamma, 7)
+    assert (dbk.dropblock_fused_apply.launches, dbk.merges["kernel"]) == (before[0] + 1,
+                                                                          before[1] + 1)
+    want, want_keep = _merge_composition(x, ab, skip, scale, key, gamma)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(keep, want_keep)
+    assert 0 < float(keep.min()) < h * w * (c1 + c2)
+
+
+@pytest.mark.parametrize("shape,k,m", [((16, 74, 72, 512, 512), 3, 5),
+                                       ((4, 296, 288, 128, 128), 1, 3)])
+def test_dropblock_merge_apply_at_a_sample_offset(dev, shape, k, m):
+    """Rows [k, k+m) of the merge mode at sample_offset k equal rows [k,
+    k+m) of the whole batch's launch and the composition at offset k."""
+    from unet_research_tpu_torch.ops.cuda import dropblock_kernel as dbk
+    from unet_research_tpu_torch.ops.dropblock import dropblock_gamma_dependent
+
+    n, h, w, c1, c2 = shape
+    x, skip, ab, scale = _merge_inputs(dev, *shape, seed=11)
+    gamma, key = dropblock_gamma_dependent(h, w, 7, 0.15), _key(dev)
+    full, full_keep = dbk.dropblock_merge_apply(x, ab, skip, scale, key, gamma, 7)
+    rows = slice(k, k + m)
+    args = (x[rows].contiguous(), ab[:, rows].contiguous(), skip[rows].contiguous(),
+            scale[rows].contiguous(), key, gamma)
+    out, keep = dbk.dropblock_merge_apply(*args, 7, sample_offset=k)
+    want, want_keep = _merge_composition(*args, offset=k)
+    torch.cuda.synchronize()
+    assert torch.equal(out, full[rows]) and torch.equal(keep, full_keep[rows])
+    assert torch.equal(out, want) and torch.equal(keep, want_keep)
+
+
+def test_canonical_model_merges_match_the_composition(dev, monkeypatch):
+    """The canonical U-Net (bf16, pair convs, fused masks) at 2 x 64x80: a
+    forward takes K1's merge mode at its 4 merges and equals, bit for bit,
+    the same forward with the merge mode refused (the composition)."""
+    from unet_research_tpu_torch.models import unet as tunet
+    from unet_research_tpu_torch.ops.cuda import launches
+
+    cfg = tunet.canonical_config(dtype=torch.bfloat16,
+                                 dropblock=tunet.DropBlockConfig(kind="dependent", block_size=7))
+    model = tunet.UNet(cfg, device=dev, generator=torch.Generator().manual_seed(1)).eval()
+    x = torch.rand((2, 64, 80, 1), device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    keys = tunet.draw_site_keys(model.num_mask_sites(), torch.Generator().manual_seed(3)).to(dev)
+    outs, routes = [], []
+    for refuse in (False, True):
+        if refuse:
+            monkeypatch.setattr(tunet._Pass, "merge_site", lambda self, *args: None)
+        before = launches.snapshot()
+        with torch.no_grad():
+            outs.append(model(x, drop_prob=0.15, site_keys=keys))
+        got = launches.since(before)
+        routes.append((got.get("merge:kernel", 0), got.get("merge:plain", 0)))
+    assert routes == [(4, 0), (0, 4)]
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("x_shape,skip_shape", [

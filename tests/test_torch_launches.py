@@ -25,3 +25,12 @@ def test_every_wrapper_names_its_kernels(fn):
     parts = [part for part, count in launches.KERNELS.items() if count in counts]
     assert {launches.KERNELS[part] for part in parts} == counts
     assert all(part.rstrip("<") in GLOBALS for part in parts), (parts, sorted(GLOBALS))
+
+
+def test_k1_merge_mode_kernel_counts_on_k1():
+    """K1's merge mode launches its own instantiation of the tile template,
+    whose name the profiler's records hold against K1's launch count: one
+    part of KERNELS names it, the wrapper it counts on."""
+    assert "dropblock_apply_kernel_merge" in GLOBALS
+    parts = [part for part in launches.KERNELS if part in "dropblock_apply_kernel_merge<3, 64>"]
+    assert [launches.KERNELS[part] for part in parts] == ["dropblock_fused_apply"]

@@ -9,7 +9,9 @@ input allows:
 - K1 (ops/cuda/dropblock_kernel.py::dropblock_fused_apply): act((x*a + b) *
   mask) and the keep counts in one pass, forward only (eval with DropBlock
   on, mask_impl 'fused'); (a, b) are per-(sample, channel) coefficients, a
-  GroupNorm's or an eval-mode BatchNorm's (`coeffs`);
+  GroupNorm's or an eval-mode BatchNorm's (`coeffs`, or `kernel_coeffs`
+  from GroupNorm's statistics kernels); the U-Net's skip merge may take K1's
+  merge mode (models/unet.py::_Pass.merge_site);
 - otherwise the mask from the mask producer K2 (or the plain ops), and the
   norm, mask, rescale and activation as GroupNorm's epilogue kernels
   (ops/cuda/group_norm.py::group_norm_act, differentiable), or, for an
@@ -45,6 +47,8 @@ from unet_research_tpu_torch.ops.cuda.dropblock_kernel import (
 )
 from unet_research_tpu_torch.ops.cuda.group_norm import (
     gn_apply,
+    gn_stats,
+    gn_stats_finish,
     group_norm_act,
     group_norm_act_supported,
 )
@@ -288,6 +292,23 @@ class SitePass:
             a, b = group_norm_coeffs(x, norm.mod.weight, norm.mod.bias, norm.groups, norm.eps)
         return torch.stack([a, b]).contiguous()
 
+    @staticmethod
+    def kernel_coeffs(x, norm: Norm):
+        """K1's (2, N, C) float32 GroupNorm coefficients from the statistics
+        kernels (gn_stats, gn_stats_finish: one pass over x), as
+        group_norm_act computes them; x as group_norm_act_supported takes
+        it."""
+        p0, p1 = gn_stats(x)
+        ab, _ = gn_stats_finish(p0, p1, x.shape[1] * x.shape[2], norm.mod.weight, norm.mod.bias,
+                                norm.groups, norm.eps)
+        return ab
+
+    def gamma(self, h: int, w: int):
+        """The seed probability of an (h, w) mask site."""
+        db = self.db
+        fn = dropblock_gamma_dependent if db.kind == "dependent" else dropblock_gamma_independent
+        return fn(h, w, db.block_size, self.drop_prob)
+
     # -- DropBlock sites -------------------------------------------------------
 
     def fused_site(self, x, key, norm: Optional[Norm], rescale: str, with_act: bool,
@@ -300,12 +321,10 @@ class SitePass:
         ab = None
         if with_act and norm is not None and norm.kind is not None:
             ab = self.coeffs(x, norm, sums)
-        gamma_fn = (dropblock_gamma_dependent if db.kind == "dependent"
-                    else dropblock_gamma_independent)
         out, keep = dropblock_fused_apply(
-            x.contiguous(), ab, key, gamma_fn(h, w, db.block_size, self.drop_prob),
-            db.block_size, act=self.activation if with_act else "none",
-            slope=self.slope, sample_offset=self.sample_offset)
+            x.contiguous(), ab, key, self.gamma(h, w), db.block_size,
+            act=self.activation if with_act else "none", slope=self.slope,
+            sample_offset=self.sample_offset)
         out = out.to(self.dtype)
         if rescale == "skip":
             return out
@@ -333,10 +352,7 @@ class SitePass:
         # the gamma and seed threshold of the device drop_prob, once per size
         h, w = x.shape[1:3]
         if (h, w) not in self.thresholds:
-            gamma_fn = (dropblock_gamma_dependent if db.kind == "dependent"
-                        else dropblock_gamma_independent)
-            self.thresholds[h, w] = seed_threshold(gamma_fn(h, w, db.block_size,
-                                                            self.drop_prob))
+            self.thresholds[h, w] = seed_threshold(self.gamma(h, w))
         return dropblock_mask_scale(x, key, None, db.block_size, db.kind, db.mask_impl,
                                     rescale, self.mesh, threshold=self.thresholds[h, w])
 

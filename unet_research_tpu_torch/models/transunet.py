@@ -91,11 +91,7 @@ from unet_research_tpu_torch.device import resolve_device
 from unet_research_tpu_torch.models.sites import Norm, SitePass, _nchw, _nhwc
 from unet_research_tpu_torch.models.unet import DropBlockConfig
 from unet_research_tpu_torch.ops.attention import attention
-from unet_research_tpu_torch.ops.cuda.group_norm import (
-    gn_stats,
-    gn_stats_finish,
-    group_norm_act_supported,
-)
+from unet_research_tpu_torch.ops.cuda.group_norm import group_norm_act_supported
 from unet_research_tpu_torch.ops.cuda.upsample import upsample_merge
 from unet_research_tpu_torch.ops.dropblock import hash_bits
 from unet_research_tpu_torch.ops.image import crop_to, pad_to_multiple
@@ -285,13 +281,10 @@ class _Pass(SitePass):
 
     def coeffs(self, x, norm: Norm, sums=None):
         """K1's GroupNorm coefficients from the statistics kernels where
-        they take x (one pass over x), else as the U-Net computes them."""
+        they take x (`kernel_coeffs`), else as the U-Net computes them."""
         if (norm.kind == "group" and sums is None and x.dtype == self.dtype
                 and group_norm_act_supported(x, norm.groups, "none")):
-            p0, p1 = gn_stats(x)
-            ab, _ = gn_stats_finish(p0, p1, x.shape[1] * x.shape[2], norm.mod.weight,
-                                    norm.mod.bias, norm.groups, norm.eps)
-            return ab
+            return self.kernel_coeffs(x, norm)
         return super().coeffs(x, norm, sums)
 
     # -- layers ----------------------------------------------------------------

@@ -14,9 +14,12 @@ its torch state_dict keys, so a reference PL checkpoint loads as it is
   output_conv.0              1x1 Conv2d head
 
 Each conv is followed by norm -> DropBlock -> activation; the skip merge
-carries one more (bare) DropBlock site. Norm modules hold parameters only:
-GroupNorm is computed by `group_norm_affine` (float32 statistics, the apply
-in the storage dtype), as in the JAX model. On the card a bf16 GroupNorm
+carries one more (bare) DropBlock site, which on the fused route takes
+K1's merge mode with the upconv's epilogue, the skip's deferred scale and
+the concatenation where the input allows it (`_Pass.merge_site`). Norm
+modules hold parameters only: GroupNorm is computed by `group_norm_affine`
+(float32 statistics, the apply in the storage dtype), as in the JAX model.
+On the card a bf16 GroupNorm
 epilogue (norm, the mask and its rescale, the activation) runs instead as one
 kernel Function, ops/cuda/group_norm.py::group_norm_act, wherever its input
 lets it (`group_norm_act_supported`); a card site that cannot is counted in
@@ -72,6 +75,12 @@ from unet_research_tpu_torch.models.sites import (  # noqa: F401 (the U-Net's pu
     group_norm_coeffs,
     group_norm_coeffs_from_sums,
 )
+from unet_research_tpu_torch.ops.cuda.dropblock_kernel import (
+    dropblock_merge_apply,
+    merge_apply_supported,
+    merges,
+)
+from unet_research_tpu_torch.ops.cuda.group_norm import group_norm_act_supported
 from unet_research_tpu_torch.ops.cuda.pair_conv import conv3x3_pair, conv3x3_pair_valid
 from unet_research_tpu_torch.ops.image import center_crop, crop_to, pad_to_multiple
 from unet_research_tpu_torch.parallel.mesh import rank_offset
@@ -386,17 +395,60 @@ class _Pass(SitePass):
         return self.norm_act(x, seq[1], act=mode == "conv")
 
     def up(self, x, seq):
-        return self.block(lambda x: self._up(x, seq), x)
+        def run(x):
+            x, sums = self.up_conv(x, seq)
+            return self.norm_act(x, seq[-1], sums)
 
-    def _up(self, x, seq):
+        return self.block(run, x)
+
+    def up_conv(self, x, seq):
+        """The up block before its norm (seq[-1]): the 2x2 stride-2
+        transposed conv ('upconv'), or nearest x2 and a conv ('upsample').
+        Returns (y, sums) as `conv` does."""
         if self.cfg.up_mode == "upconv":
             mod = seq[0]
             bias = None if mod.bias is None else mod.bias.to(self.dtype)
-            x = _nhwc(F.conv_transpose2d(_nchw(x), mod.weight.to(self.dtype), bias, stride=2))
-            return self.norm_act(x, seq[1])
+            return _nhwc(F.conv_transpose2d(_nchw(x), mod.weight.to(self.dtype), bias,
+                                            stride=2)), None
         x = _nhwc(F.interpolate(_nchw(x), scale_factor=2, mode="nearest"))
-        x, sums = self.conv(x, seq[1])
-        return self.norm_act(x, seq[2], sums)
+        return self.conv(x, seq[1])
+
+    def up_merge(self, x, seq, skip, skip_scale):
+        """The up block, then the skip merge. On the fused route (forward
+        only, so no remat) a merge takes K1's merge mode where `merge_site`
+        allows it, counted `merge:kernel` by its wrapper; every other merge
+        on that route runs the composition and counts `merge:plain`
+        (ops/cuda/launches.py)."""
+        if not (self.fused and self.cfg.connection != "none"):
+            return self.merge(self.up(x, seq), skip, skip_scale)
+        x, sums = self.up_conv(x, seq)
+        out = self.merge_site(x, seq[-1], skip, skip_scale)
+        if out is not None:
+            return out
+        merges["plain"] += 1
+        return self.merge(self.norm_act(x, seq[-1], sums), skip, skip_scale)
+
+    def merge_site(self, x, norm_mod, skip, skip_scale):
+        """drop(cat([relu(norm(x)), skip * skip_scale], -1)) with the
+        merge's rescale skipped, for the up block's pre-norm output x, as
+        one launch of K1's merge mode (dropblock_merge_apply), or None where
+        the input does not allow it: a cat merge after an upconv under
+        fold_rescale, a GroupNorm ahead of ReLU that the epilogue kernels
+        take, x and the skip of one size (no crop), contiguous bf16, both
+        channel counts multiples of 64. The coefficients are
+        group_norm_act's (`kernel_coeffs`), so the output is the
+        composition's, bit for bit. skip_scale: the skip's deferred (N,)
+        scale, or None."""
+        norm = self.norm_of(norm_mod)
+        if not (self.cfg.connection == "cat" and self.fold and self.cfg.up_mode == "upconv"
+                and norm.kind == "group" and self.activation == "relu"
+                and merge_apply_supported(x, skip)
+                and group_norm_act_supported(x, norm.groups, "relu")):
+            return None
+        out, _ = dropblock_merge_apply(x, self.kernel_coeffs(x, norm), skip, skip_scale,
+                                       self.take(1)[0], self.gamma(*x.shape[1:3]),
+                                       self.db.block_size, self.sample_offset)
+        return out
 
     def merge(self, x, skip, skip_scale):
         """The skip merge and its bare mask site; not rematerialised (JAX
@@ -429,9 +481,8 @@ class _Pass(SitePass):
         x = self.conv_block(x, self.model.conn_block, False)
         head_scale = None
         for d, blk in enumerate(self.model.up_blocks):
-            x = self.up(x, blk[0])
             skip_x, skip_s = skips[-1 - d]
-            x = self.merge(x, skip_x, skip_s)
+            x = self.up_merge(x, blk[0], skip_x, skip_s)
             if self.fold and d == cfg.model_depth - 1:
                 x, head_scale = self.conv_block(x, blk[1], True)
             else:

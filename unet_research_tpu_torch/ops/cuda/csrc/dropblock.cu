@@ -16,6 +16,14 @@
 //       storage type after each op as the plain version does;
 //   K2: mask = !dropped as int8;
 //   both: keep[n] += number of kept positions (exact, 64-bit).
+//   K1's merge mode (a U-Net skip merge): the NHWC tensor is the
+//       concatenation cat([relu(u*a + b), s*k], -1) of an up block's
+//       pre-norm output u (C1 channels, a/b its GroupNorm coefficients, in
+//       float32, rounded once: gn_apply's arithmetic) and a skip k (C2
+//       channels, s its deferred per-sample scale rounded to the storage
+//       type, the product rounded: a bf16 multiply), never written to
+//       device memory; out = dropped ? 0 : that value, and the seeds, the
+//       window and keep are the concatenation's, at its flat index.
 //
 // Bound: memory. K1 reads x once and writes out once (2 x 698 MB at the top
 // site (16,592,576,64) bf16: 0.42 ms at 3.35 TB/s); K2 writes 1 B/element
@@ -40,6 +48,10 @@
 //   load and store in bf16, so a warp touches 4 whole lines); its 8 drop bits
 //   are one byte of a seed word; GN-affine, rounding and ReLU run on packed
 //   bf16 pairs. K2 writes its 8 mask bytes with one 8-byte store.
+// - The merge mode reads each 64-channel slice from the one input that holds
+//   it (C1 is a multiple of 64), so the concatenation, the up block's
+//   GroupNorm-ReLU pass and the skip's scale pass cost no bytes beyond the
+//   bare merge site's: 2 x (C1 + C2) channels a position, in and out.
 // The TPU kernel's bit planes along sublanes, its 8-row PRNG strips and its
 // 16-bit gamma are TPU devices and are not carried over: the hash is
 // counter-based, so halo seeds are simply recomputed by the neighbouring
@@ -128,6 +140,35 @@ __device__ __forceinline__ uint4 apply8(uint4 v, uint32_t bits, bool affine, con
     return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// merge mode, the up half on 8 bf16 channels: relu(x*a + b) in float32,
+// rounded once (gn_apply's arithmetic), then drop
+__device__ __forceinline__ uint4 merge_up8(uint4 v, uint32_t bits, const float* a,
+                                           const float* b) {
+    uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        float lo = __fadd_rn(__fmul_rn(lo_f(w[i]), a[2 * i]), b[2 * i]);
+        float hi = __fadd_rn(__fmul_rn(hi_f(w[i]), a[2 * i + 1]), b[2 * i + 1]);
+        lo = lo <= 0.0f ? 0.0f : lo;
+        hi = hi <= 0.0f ? 0.0f : hi;
+        w[i] = pack2(lo, hi) & keep_pair(bits >> (2 * i));
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// merge mode, the skip half on 8 bf16 channels: x*s rounded (s a bf16
+// value; scaled false: s = 1, no multiply), then drop
+__device__ __forceinline__ uint4 merge_skip8(uint4 v, uint32_t bits, bool scaled, float s) {
+    uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        uint32_t pr = w[i];
+        if (scaled) pr = pack2(__fmul_rn(lo_f(pr), s), __fmul_rn(hi_f(pr), s));
+        w[i] = pr & keep_pair(bits >> (2 * i));
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // the same on one element of either type
 template <typename T>
 __device__ __forceinline__ T apply1(T xv, bool dropped, bool affine, float a, float b, int act,
@@ -148,13 +189,18 @@ __device__ __forceinline__ uint2 mask_bytes(uint32_t bits) {
 }
 
 // MODE 0: int8 keep-mask (K2). MODE 1: fused apply (K1). P: p = b // 2 as a
-// constant, or 0 for a runtime p <= 8. TW: tile columns.
-template <typename T, int MODE, int P, int TW>
+// constant, or 0 for a runtime p <= 8. TW: tile columns. MERGE (MODE 1, bf16):
+// K1's merge mode, C = C1 + C2 output channels, channels [0, C1) from x
+// (C1 a multiple of CS, ab its (2, N, C1) coefficients) and [C1, C) from
+// skip, scaled by sscale[n] (or null: unscaled).
+template <typename T, int MODE, int P, int TW, bool MERGE = false>
 __device__ __forceinline__ void dropblock_tile(
         const T* __restrict__ x, T* __restrict__ out, int8_t* __restrict__ mask,
         const float* __restrict__ ab, unsigned long long* __restrict__ keep,
         const long long* __restrict__ key, int N, int H, int W, int C, int sample_offset,
-        uint32_t threshold, int p_rt, int act, float slope) {
+        uint32_t threshold, int p_rt, int act, float slope,
+        const T* __restrict__ skip = nullptr, const float* __restrict__ sscale = nullptr,
+        int C1 = 0) {
     constexpr int MAXP = P > 0 ? P : 8;
     constexpr int SH = TH + 2 * MAXP;
     constexpr int SWM = TW + 2 * MAXP;
@@ -254,6 +300,35 @@ __device__ __forceinline__ void dropblock_tile(
     const bool vec = (C & 7) == 0;
     const uint32_t* drop = s_seed + (j >> 2) * PLANE_D;
     const int shift = (j & 3) * 8;
+    if constexpr (MERGE) {
+        // the block's slice lies in one input: the up half's or the skip's
+        const bool up = cs < C1;
+        const T* src = up ? x : skip;
+        const int c_in = up ? C1 : C - C1;
+        const int c_src = up ? c : c - C1;
+        float a[8], b[8];
+        const bool scaled = sscale != nullptr;
+        const float s = scaled ? rnd<__nv_bfloat16>(sscale[n]) : 1.0f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            a[e] = up ? ab[(size_t)n * C1 + c + e] : 1.0f;
+            b[e] = up ? ab[(size_t)N * C1 + (size_t)n * C1 + c + e] : 0.0f;
+        }
+#pragma unroll 4
+        for (int q = tid >> 3; q < PLANE_D; q += THREADS / 8) {
+            const int r = q / TW;
+            const int col = q - r * TW;
+            const int hh = h0 + r;
+            const int ww = w0 + col;
+            if (hh >= H || ww >= W) continue;
+            const uint32_t bits = (drop[q] >> shift) & 0xFFu;
+            const size_t pos = ((size_t)n * H + hh) * W + ww;
+            const uint4 v = *reinterpret_cast<const uint4*>(src + pos * c_in + c_src);
+            *reinterpret_cast<uint4*>(out + pos * C + c) =
+                up ? merge_up8(v, bits, a, b) : merge_skip8(v, bits, scaled, s);
+        }
+        return;
+    }
     const bool affine = MODE == 1 && ab != nullptr;
     float a[8], b[8];
 #pragma unroll
@@ -315,6 +390,21 @@ dropblock_apply_kernel(const T* __restrict__ x, T* __restrict__ out, const float
                                 threshold, p, act, slope);
 }
 
+// K1's merge mode: the tile template on two inputs (dropblock_tile, MERGE)
+template <int P, int TW>
+__global__ void __launch_bounds__(THREADS, 4)
+dropblock_apply_kernel_merge(const __nv_bfloat16* __restrict__ x,
+                             const __nv_bfloat16* __restrict__ skip,
+                             __nv_bfloat16* __restrict__ out, const float* __restrict__ ab,
+                             const float* __restrict__ sscale,
+                             unsigned long long* __restrict__ keep,
+                             const long long* __restrict__ key, int N, int H, int W, int C1,
+                             int C, int sample_offset, uint32_t threshold, int p) {
+    dropblock_tile<__nv_bfloat16, 1, P, TW, true>(x, out, nullptr, ab, keep, key, N, H, W, C,
+                                                  sample_offset, threshold, p, 0, 0.0f, skip,
+                                                  sscale, C1);
+}
+
 // threshold_dev: the threshold as a word on the device (a train step's,
 // computed there from its drop probability), or null for the scalar
 template <int P, int TW>
@@ -371,6 +461,33 @@ extern "C" int dropblock_fused_apply_launch(const void* x, void* out, const floa
     else
         launch_apply<__nv_bfloat16>(x, out, ab, keep, key, N, H, W, C, sample_offset, threshold,
                                     p, act, slope, s);
+    return (int)cudaGetLastError();
+}
+
+// K1's merge mode over bf16 NHWC inputs: x (N, H, W, C1) with ab (2, N, C1)
+// float32, skip (N, H, W, C2), sscale (N,) float32 or null; out (N, H, W,
+// C1 + C2). C1 and C2 multiples of 64; x, skip and out 16-byte aligned.
+// Seeds, keep and sample_offset as dropblock_fused_apply_launch's, over the
+// concatenation ((sample_offset + N) * H * W * (C1 + C2) < 2^32).
+extern "C" int dropblock_merge_apply_launch(const void* x, const void* skip, void* out,
+                                            const float* ab, const float* sscale, void* keep,
+                                            const void* key, int N, int H, int W, int C1,
+                                            int C2, int sample_offset, unsigned threshold,
+                                            int block_size, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    const int p = block_size / 2;
+    const int C = C1 + C2;
+    if (p == 3) {
+        dropblock_apply_kernel_merge<3, 64><<<grid_for(N, H, W, C, 64), THREADS, 0, s>>>(
+            (const __nv_bfloat16*)x, (const __nv_bfloat16*)skip, (__nv_bfloat16*)out, ab,
+            sscale, (unsigned long long*)keep, (const long long*)key, N, H, W, C1, C,
+            sample_offset, threshold, p);
+    } else {
+        dropblock_apply_kernel_merge<0, 32><<<grid_for(N, H, W, C, 32), THREADS, 0, s>>>(
+            (const __nv_bfloat16*)x, (const __nv_bfloat16*)skip, (__nv_bfloat16*)out, ab,
+            sscale, (unsigned long long*)keep, (const long long*)key, N, H, W, C1, C,
+            sample_offset, threshold, p);
+    }
     return (int)cudaGetLastError();
 }
 

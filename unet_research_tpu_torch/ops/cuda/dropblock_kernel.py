@@ -9,6 +9,14 @@ Replaces unet_research_tpu/ops/pallas/dropblock_kernel.py:
   dropblock_kernel.py:204-225, 347-386): the dense int8 keep-mask and the
   keep counts, reading no x.
 
+K1 has a merge mode, `dropblock_merge_apply`: a U-Net skip merge's bare mask
+site over cat([relu(GroupNorm(u)), skip * scale], -1), read from the up
+block's pre-norm output u and the skip and written once, with the
+arithmetic of the composition it replaces (`gn_apply` with ReLU, the bf16
+multiply, the concatenation, K1's bare site). Its launches count on
+`dropblock_fused_apply.launches` (one more mask site through K1); which
+merges take it and which the composition is counted in `merges`.
+
 Source: csrc/dropblock.cu. Both are bound by memory: K1 moves 2 bytes/element
 each way in bf16 (0.42 ms at the top site (16,592,576,64) on an H100 SXM at
 3.35 TB/s), K2 writes 1 byte/element (0.10 ms). A block owns a 64-channel
@@ -30,11 +38,18 @@ import math
 import torch
 
 from unet_research_tpu_torch.ops.cuda.build import check, load_library
+from unet_research_tpu_torch.ops.cuda.group_norm import gn_apply_plain
 from unet_research_tpu_torch.ops.dropblock import dropped_blocks, f32
 
 _ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+# skip merges under the fused route by route: a launch of K1's merge mode
+# (counted by dropblock_merge_apply), or the composition (counted by
+# models/unet.py::_Pass.up_merge); a CUDA graph replays them without calling
+# either, so whoever replays one credits the counts (ops/cuda/launches.py,
+# as `merge:kernel` / `merge:plain`)
+merges = {"kernel": 0, "plain": 0}
 
 
 def dropblock_kernel_supported(block_size: int) -> bool:
@@ -50,6 +65,9 @@ def _library():
         lib.dropblock_fused_apply_launch.restype = i
         lib.dropblock_mask_launch.argtypes = [p, p, p, i, i, i, i, i, u, p, i, p]
         lib.dropblock_mask_launch.restype = i
+        lib.dropblock_merge_apply_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, u,
+                                                     i, p]
+        lib.dropblock_merge_apply_launch.restype = i
         _lib = lib
     return _lib
 
@@ -146,6 +164,79 @@ def dropblock_fused_apply(x, ab, key_words, gamma, block_size: int,
 
 
 dropblock_fused_apply.launches = 0
+
+
+def dropblock_merge_apply_plain(x, ab, skip, skip_scale, key_words, gamma, block_size: int,
+                                sample_offset: int = 0):
+    """K1's merge mode in plain ops: the composition it replaces. relu(x*a +
+    b) in float32 rounded once (gn_apply's plain version), the skip times
+    its scale rounded to the skip's dtype, the two concatenated, then K1's
+    bare site (no affine, no activation)."""
+    y = gn_apply_plain(x, ab, act="relu")
+    if skip_scale is not None:
+        skip = skip * skip_scale.to(skip.dtype)[:, None, None, None]
+    return dropblock_fused_apply_plain(torch.cat([y, skip], dim=-1), None, key_words, gamma,
+                                       block_size, "none", sample_offset=sample_offset)
+
+
+def merge_apply_supported(x, skip) -> bool:
+    """Whether the merge mode takes these inputs: contiguous bf16 NHWC
+    tensors of one card and one batch and spatial size, both channel counts
+    multiples of 64 (a block's 64-channel slice lies in one input)."""
+    return (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4 and x.is_contiguous()
+            and skip.device == x.device and skip.dtype == x.dtype and skip.dim() == 4
+            and skip.is_contiguous() and tuple(skip.shape[:3]) == tuple(x.shape[:3])
+            and x.shape[-1] % 64 == 0 and skip.shape[-1] % 64 == 0)
+
+
+def dropblock_merge_apply(x, ab, skip, skip_scale, key_words, gamma, block_size: int,
+                          sample_offset: int = 0):
+    """K1's merge mode: drop(cat([relu(x*a + b), skip * scale], -1)) and the
+    per-sample keep counts of the concatenation, in one pass.
+
+    x: (N, H, W, C1) bf16, the up block's output before its GroupNorm; ab:
+    (2, N, C1) float32, that GroupNorm's coefficients; skip: (N, H, W, C2)
+    bf16; skip_scale: (N,) float32 (rounded to bf16 before the multiply), or
+    None for none. key_words, gamma, block_size and sample_offset as in
+    dropblock_fused_apply, the seeds at the concatenation's flat index.
+    Returns (out (N, H, W, C1 + C2) bf16, keep (N,) float32), bit-equal to
+    dropblock_merge_apply_plain. Forward only; a launch counts on
+    dropblock_fused_apply and in `merges["kernel"]`. CPU tensors take the
+    plain version; raises on card inputs the kernel does not take
+    (merge_apply_supported)."""
+    n, h, w, c1 = x.shape
+    c2 = skip.shape[-1]
+    _check_args((n, h, w, c1 + c2), key_words, block_size, sample_offset)
+    if not x.is_cuda:
+        return dropblock_merge_apply_plain(x, ab, skip, skip_scale, key_words, gamma,
+                                           block_size, sample_offset)
+    if not merge_apply_supported(x, skip):
+        raise ValueError("dropblock_merge_apply: x and skip must be contiguous bf16 NHWC of one "
+                         "card, batch and size, C1 and C2 multiples of 64")
+    if tuple(ab.shape) != (2, n, c1) or ab.dtype != torch.float32 or not ab.is_contiguous() \
+            or ab.device != x.device:
+        raise ValueError("dropblock_merge_apply: ab must be contiguous (2, N, C1) float32")
+    if skip_scale is not None:
+        if tuple(skip_scale.shape) != (n,) or skip_scale.dtype != torch.float32 \
+                or skip_scale.device != x.device:
+            raise ValueError("dropblock_merge_apply: skip_scale must be (N,) float32 on x's "
+                             "device")
+        skip_scale = skip_scale.contiguous()
+    if key_words.device != x.device:
+        raise ValueError("dropblock_merge_apply: key_words must be on x's device")
+    x = x if x.data_ptr() % 16 == 0 else x.clone()
+    skip = skip if skip.data_ptr() % 16 == 0 else skip.clone()
+    out = torch.empty((n, h, w, c1 + c2), dtype=x.dtype, device=x.device)
+    keep = torch.zeros(n, dtype=torch.int64, device=x.device)
+    status = _library().dropblock_merge_apply_launch(
+        x.data_ptr(), skip.data_ptr(), out.data_ptr(), ab.data_ptr(),
+        None if skip_scale is None else skip_scale.data_ptr(), keep.data_ptr(),
+        key_words.data_ptr(), n, h, w, c1, c2, sample_offset, seed_threshold(gamma), block_size,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(status, "dropblock_merge_apply")
+    dropblock_fused_apply.launches += 1
+    merges["kernel"] += 1
+    return out, keep.to(torch.float32)
 
 
 def dropblock_mask_plain(shape, key_words, gamma, block_size: int, sample_offset: int = 0,

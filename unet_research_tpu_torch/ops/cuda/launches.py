@@ -6,7 +6,10 @@ conv3x3_pair's launches are also counted by kernel in `path_launches`);
 each collective of parallel/mesh.py adds one to its count in `calls`, and
 each attention call on the card (ops/attention.py) one to `attn:flash` or
 `attn:other`, each upsampling merge (ops/cuda/upsample.py) one to
-`up:kernel` or `up:plain`. `KERNELS` names the kernel behind each launch
+`up:kernel` or `up:plain`, and each U-Net skip merge under the fused route
+(models/unet.py::_Pass.up_merge) one to `merge:kernel` (a launch of K1's
+merge mode, which also counts on `dropblock_fused_apply`) or `merge:plain`.
+`KERNELS` names the kernel behind each launch
 count, so that a profiler's records can be held against the counts. A
 CUDA graph replays the kernels and collectives that its capture recorded
 without calling a wrapper, so whoever replays one credits the counts that
@@ -60,6 +63,8 @@ WRAPPERS = (dropblock_kernel.dropblock_fused_apply, dropblock_kernel.dropblock_m
 
 # the kernel behind each launch count of a snapshot, by a part of its name in
 # the profiler's records: what a profiled window's kernels are held against
+# (K1's `dropblock_apply_kernel` also names its merge mode's kernel,
+# `dropblock_apply_kernel_merge`, counted on the same wrapper)
 KERNELS = {"dropblock_mask_kernel": "dropblock_mask",
            "dropblock_apply_kernel": "dropblock_fused_apply",
            "conv3x3_wgmma_kernel": "path:wgmma", "conv3x3_kernel<": "path:cuda_cores",
@@ -84,20 +89,18 @@ HOST = {"graph:captures": 0, "members:host": 0, "members:program": 0, "gn:plain"
 
 # credit's dispatch: the count tables by the prefix of a snapshot's name
 _TABLES = {"path": pair_conv.path_launches, "collective": _mesh.calls, "attn": attention.calls,
-           "up": upsample.calls}
+           "up": upsample.calls, "merge": dropblock_kernel.merges}
 _BY_NAME = {fn.__name__: fn for fn in WRAPPERS}
 
 
 def snapshot() -> dict:
     """Every count now: {wrapper name: launches}, {"path:<kernel>": K3
     launches by kernel}, {"collective:<kind>": calls}, {"attn:<route>":
-    attention calls}, {"up:<route>": upsampling merges} and the host-side
-    counts of HOST."""
+    attention calls}, {"up:<route>": upsampling merges}, {"merge:<route>":
+    skip merges} and the host-side counts of HOST."""
     counts = {name: fn.launches for name, fn in _BY_NAME.items()}
-    counts.update({f"path:{k}": v for k, v in pair_conv.path_launches.items()})
-    counts.update({f"collective:{k}": v for k, v in _mesh.calls.items()})
-    counts.update({f"attn:{k}": v for k, v in attention.calls.items()})
-    counts.update({f"up:{k}": v for k, v in upsample.calls.items()})
+    for prefix, table in _TABLES.items():
+        counts.update({f"{prefix}:{k}": v for k, v in table.items()})
     counts.update(HOST)
     return counts
 
