@@ -161,7 +161,23 @@ MC-DropBlock (48 members) and rotational (32) engines and three scanned
 train steps (remat, train-mode BatchNorm, the mask producer), with their
 ms, members/s and peaks (`python3 chip_smoke.py transunet` runs the build
 and that phase alone; `python3 chip_smoke.py k1-merge` the build and the
-check of K1's merge mode). Last, `eval-program`'s `failed-capture`
+check of K1's merge mode). Then `swinunetr`: Swin UNETR (models/
+swin_unetr.py) at the paper's widths in bf16 on the 584x565 frame, one
+eager forward of 16 members with DropBlock on and its CUDA graph replayed
+bit-equal, with their launches asserted (K1 at the 15 sites, GroupNorm's
+statistics kernels at the 26 InstanceNorms and its apply at the 16
+unmasked ones, the 8 window attention calls on the memory-efficient
+backend, no `attn:other` or `gn:plain`), a forward with DropBlock off (the
+epilogue with leaky_relu at the 10 masked norms), the kernel route against
+the plain routes in bf16 and float32 with DropBlock on and off (each
+within twice the bf16 route's noise) and against the benchmark's float32 reference on two members, the
+window attention kernels' names, the Swin's share of a forward, the
+rotational (48 members, the captured chunk's window attention all on the
+efficient backend) and MC-DropBlock (48 members, K1 at 15 sites a forward)
+engines and three scanned train steps (remat, the mask producer, the
+efficient backend's backward with the bias), with their ms, members/s and
+peaks (`python3 chip_smoke.py swinunetr` runs the build and that phase
+alone). Last, `eval-program`'s `failed-capture`
 part: a capture that the card refuses (a host read inside the validation
 forward) raises out of Trainer.validate; it runs last because PyTorch's
 caching allocator keeps every later free of the process after a failed
@@ -4369,8 +4385,8 @@ def run_transunet_phase() -> dict:
         total.update(got)
         want = transunet_want(forwards, fused)
         if {k: got.get(k, 0) for k in want} != want or any(
-                got.get(k, 0) for k in ("attn:other", "gn:plain", "bn:plain", "dropblock_mask",
-                                        "up:plain")):
+                got.get(k, 0) for k in ("attn:other", "attn:efficient", "gn:plain", "bn:plain",
+                                        "dropblock_mask", "up:plain")):
             raise AssertionError(f"{where}: launches {got}, want {want}")
         return got
 
@@ -4464,6 +4480,209 @@ def run_transunet_phase() -> dict:
     return {k: total.get(k, 0) for k in COUNTERS}, timed
 
 
+# Swin UNETR (models/swin_unetr.py) on the 608 x 576 canvas: 15 mask sites (IN1
+# of its 10 residual blocks, 5 bare merges), 10 IN2 and 6 IN3 InstanceNorms
+# without a mask, 8 window attention calls a forward
+SW_SITES, SW_IN1, SW_IN_PLAIN, SW_BLOCKS = 15, 10, 16, 8
+
+
+def swinunetr_want(forwards: int, fused: bool) -> dict:
+    """Swin UNETR's launches in `forwards` eval forwards: GroupNorm's
+    statistics kernels at all 26 InstanceNorms (the 10 masked ones' for K1's
+    coefficients when fused), its apply at the 16 unmasked ones and, with
+    DropBlock off, at the 10 masked ones too (leaky_relu); K1 at the 15
+    sites when fused; the window attention on the efficient backend."""
+    stats = (SW_IN1 + SW_IN_PLAIN) * forwards
+    want = {"gn_stats": stats, "gn_stats_finish": stats,
+            "attn:efficient": SW_BLOCKS * forwards,
+            "gn_apply": (SW_IN_PLAIN + (0 if fused else SW_IN1)) * forwards}
+    if fused:
+        want["dropblock_fused_apply"] = SW_SITES * forwards
+    return want
+
+
+def run_swinunetr_phase() -> dict:
+    """Swin UNETR at the paper's widths (feature size 48), bf16, on the
+    584x565 frame (canvas 608x576): one eager forward of 16 members with
+    DropBlock on (K1) and its CUDA graph replayed, with their launches
+    asserted (no attn:other or gn:plain) and the replay bit-equal to the
+    eager forward; one forward with DropBlock off; the kernel route against
+    the plain routes (elementwise masks, InstanceNorm on the plain ops) in
+    bf16 and float32, with DropBlock on and off, each within twice the plain
+    bf16 route's distance from float32, and two members against benchmark/reference/swinunetr.py in
+    float32; the window attention kernels' names from one eager forward;
+    the Swin encoder's ms beside the whole forward's; then the engines
+    (RotationalEngine 48 members, MCDropBlockEngine 48) and three scanned
+    trainer steps (remat, the mask producer) at the same size. Prints each
+    forward's ms, members/s, peaks. Returns the launches."""
+    from benchmark.reference import swinunetr as sref
+    from unet_research_tpu_torch.models import DropBlockConfig, SwinUNETRConfig, build_model
+    from unet_research_tpu_torch.models import swin_unetr as swin
+
+    def make(**kw):
+        db = DropBlockConfig(kind="dependent", block_size=BLOCK,
+                             mask_impl=kw.pop("mask_impl", "fused"),
+                             use_scheduler=kw.pop("use_scheduler", False), drop_prob=P_DROP,
+                             max_drop_prob=P_DROP, nr_steps=8)
+        cfg = SwinUNETRConfig(**{"dtype": torch.bfloat16, "dropblock": db, **kw})
+        return build_model(cfg, device=DEV, generator=torch.Generator().manual_seed(0))
+
+    out = {"phase": "swinunetr"}
+    model = make().eval()
+    out["params"] = sum(p.numel() for p in model.parameters())
+    im, gt, fov = (torch.from_numpy(a).to(DEV) for a in synthetic_image())
+    xb = im.expand(CHUNK, -1, -1, -1).contiguous()
+    site_keys = tunet.draw_site_keys(SW_SITES, torch.Generator().manual_seed(4)).to(DEV)
+    total = collections.Counter()
+
+    def forward(drop: bool):
+        return model(xb, drop_prob=P_DROP if drop else None,
+                     site_keys=site_keys if drop else None)
+
+    def since(before: dict, forwards: int, fused: bool, where: str) -> dict:
+        got = cuda_launches.since(before)
+        total.update(got)
+        want = swinunetr_want(forwards, fused)
+        if {k: got.get(k, 0) for k in want} != want or any(
+                got.get(k, 0) for k in ("attn:other", "gn:plain", "attn:flash",
+                                        "dropblock_mask")):
+            raise AssertionError(f"{where}: launches {got}, want {want}")
+        return got
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = cuda_launches.snapshot()
+        t0 = time.perf_counter()
+        eager = forward(True)
+        torch.cuda.synchronize()
+        out["first_eager_seconds"] = time.perf_counter() - t0
+        out["eager_launches"] = since(before, 1, True, "swinunetr eager")
+        out["eager_ms"] = time_ms(lambda: forward(True), 3)
+        before = cuda_launches.snapshot()
+        result = torch.empty_like(eager)
+        graph, replay_counts, out["capture_seconds"] = cuda_launches.capture(
+            lambda: result.copy_(forward(True)))
+        graph.replay()
+        cuda_launches.credit(replay_counts)
+        torch.cuda.synchronize()
+        since(before, 1, True, "swinunetr replay")
+        if not torch.equal(result, eager):
+            raise AssertionError("swinunetr: the replayed forward differs from the eager one "
+                                 f"by {float((result - eager).abs().max())}")
+        ms = time_ms(graph.replay, 10)
+        out.update(replay_ms=ms, members_per_s=CHUNK / ms * 1e3,
+                   forward_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del graph
+        padded = torch.nn.functional.pad(xb, (0, 0, 0, 576 - 565, 0, 608 - 584))
+        out["swin_ms"] = time_ms(lambda: swin._Pass(model, None, None, False, None).swin(padded),
+                                 3)
+        trace = window(lambda: forward(False))
+        names = kernel_names(trace)
+        out["attention_kernels"] = {n: c for n, c in names.items()
+                                    if "fmha" in n or "attention" in n.lower()}
+        out["device_ms_by_kind"] = {kind: secs * 1e3 for kind, secs
+                                    in trace.breakdown()["device_ops"]}
+        before = cuda_launches.snapshot()
+        plain = forward(False)
+        torch.cuda.synchronize()
+        out["drop_off_launches"] = since(before, 1, False, "swinunetr DropBlock off")
+        out["drop_off_ms"] = time_ms(lambda: forward(False), 3)
+        out["mean_abs_drop_effect"] = float((eager.float() - plain.float()).abs().mean())
+        del result
+        # DropBlock on: K1 at the IN1 sites; off: gn_apply's leaky_relu there
+        outs = {"kernels": eager * fov, "kernels_off": plain * fov}
+        del plain
+        for name, dtype in (("plain_bf16", torch.bfloat16), ("plain_f32", torch.float32)):
+            m = make(mask_impl="elementwise", dtype=dtype).eval()
+            m.load_state_dict(model.state_dict())
+            with plain_epilogue(f"swinunetr routes {name}"):
+                outs[name] = m(xb, drop_prob=P_DROP, site_keys=site_keys) * fov
+            with plain_epilogue(f"swinunetr routes {name}, DropBlock off"):
+                outs[name + "_off"] = m(xb, drop_prob=None, site_keys=None) * fov
+            del m
+        d_kernel = float((outs["kernels"] - outs["plain_bf16"]).abs().max())
+        d_bf16 = float((outs["plain_bf16"] - outs["plain_f32"]).abs().max())
+        d_kernel_off = float((outs["kernels_off"] - outs["plain_bf16_off"]).abs().max())
+        d_bf16_off = float((outs["plain_bf16_off"] - outs["plain_f32_off"]).abs().max())
+        ref_cfg = dict(feature_size=48, depths=(2, 2, 2, 2), heads=(3, 6, 12, 24), window=7,
+                       mlp_ratio=4, init_channels=1, output_channels=1)
+        params = {k: v.float() for k, v in model.state_dict().items()}
+        drop = sref.Drop(site_keys.cpu(), P_DROP, BLOCK)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        ref = sref.forward(params, xb[:2], ref_cfg, drop) * fov
+        out["routes"] = {"max_abs_kernel_vs_plain_bf16": d_kernel,
+                         "max_abs_plain_bf16_vs_f32": d_bf16,
+                         "max_abs_kernel_vs_plain_bf16_drop_off": d_kernel_off,
+                         "max_abs_plain_bf16_vs_f32_drop_off": d_bf16_off,
+                         "rel_l2_kernel_vs_reference_f32": rel_l2(outs["kernels"][:2], ref),
+                         "rel_l2_plain_f32_vs_reference_f32": rel_l2(outs["plain_f32"][:2], ref)}
+        if not d_kernel <= 2.0 * d_bf16:
+            raise AssertionError(f"swinunetr kernel route {d_kernel} vs plain bf16 noise {d_bf16}")
+        if not d_kernel_off <= 2.0 * d_bf16_off:
+            raise AssertionError(f"swinunetr kernel route, DropBlock off, {d_kernel_off} vs "
+                                 f"plain bf16 noise {d_bf16_off}")
+        del outs, eager, ref
+
+        before = cuda_launches.snapshot()
+        rot = RotationalEngine(model, num_iterations=48, return_num=0, chunk=CHUNK, device=DEV)
+        mean, std = rot.predict(im, gt, fov)[:2]
+        torch.cuda.synchronize()
+        check_outputs(mean, std, torch.zeros((0, 1, 584, 565, 1)), 0)
+        got = cuda_launches.since(before)
+        total.update(got)
+        if (got.get("attn:other", 0) or got.get("gn:plain", 0)
+                or got.get("attn:efficient", 0) != SW_BLOCKS * 48 // CHUNK):
+            raise AssertionError(f"swinunetr rotational: launches {got}")
+        out["rotational_launches"] = got
+        t0 = time.perf_counter()
+        rot.predict(im, gt, fov)
+        torch.cuda.synchronize()
+        out["rotational_48_seconds"] = time.perf_counter() - t0
+        before = cuda_launches.snapshot()
+        mc = MCDropBlockEngine(model, num_iterations=48, return_num=0, chunk=CHUNK, device=DEV)
+        mean, std = mc.predict(im, gt, fov, P_DROP, generator=torch.Generator().manual_seed(5))[:2]
+        torch.cuda.synchronize()
+        check_outputs(mean, std, torch.zeros((0, 1, 584, 565, 1)), 0)
+        got = cuda_launches.since(before)
+        total.update(got)
+        if (got.get("dropblock_fused_apply", 0) != SW_SITES * 48 // CHUNK
+                or got.get("attn:other", 0) or got.get("gn:plain", 0)):
+            raise AssertionError(f"swinunetr MC: launches {got}")
+        out["mc_launches"] = got
+        out["engine_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del mc, rot
+
+    del model
+    torch.cuda.empty_cache()
+    model = make(remat=True, use_scheduler=True)
+    trainer = Trainer(model, POLICIES["none"], TrainerConfig(lr=1e-3, auto_lr_find=False,
+                                                             verbose=False, seed=3), device=DEV)
+    state = trainer.create_state(None, 1e-3)
+    data = tuple(torch.from_numpy((np.clip(a, 0, 1) * 255).astype(np.uint8)).to(DEV)
+                 .expand(3, -1, -1, -1).contiguous() for a in synthetic_image())
+    start = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    before = cuda_launches.snapshot()
+    losses = trainer.train_epoch_scan(state, data, np.arange(3), 1e-3)
+    got = cuda_launches.since(before)
+    total.update(got)
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(model.parameters(), start))
+    if not (np.isfinite(losses).all() and moved > 0 and got.get("dropblock_mask", 0)
+            and got.get("attn:efficient", 0) and not got.get("attn:other", 0)
+            and not got.get("gn:plain", 0)):
+        raise AssertionError(f"swinunetr train: losses {losses}, moved {moved}, launches {got}")
+    out.update(train_losses=[float(v) for v in losses], train_launches=got,
+               train_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               train_step_ms=time_ms(lambda: trainer.train_epoch_scan(state, data,
+                                                                      np.arange(3), 1e-3),
+                                     2, warmup=0) / 3)
+    emit(out)
+    del trainer, state, model
+    torch.cuda.empty_cache()
+    return {k: total.get(k, 0) for k in COUNTERS}
+
+
 def main() -> None:
     # float32 references run in full float32, not TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -4475,6 +4694,10 @@ def main() -> None:
     if sys.argv[1:] == ["transunet"]:  # that phase alone
         run_transunet_phase()
         emit({"ok": True, "phase": "transunet"})
+        return
+    if sys.argv[1:] == ["swinunetr"]:  # that phase alone
+        run_swinunetr_phase()
+        emit({"ok": True, "phase": "swinunetr"})
         return
     if sys.argv[1:] == ["k1-merge"]:  # that check alone
         check_k1_merge()
@@ -4508,6 +4731,7 @@ def main() -> None:
     shutil.rmtree(DRIVE_ROOT)
     run_density_scale_phase()
     transunet, transunet_timed = run_transunet_phase()
+    swinunetr = run_swinunetr_phase()
     check_failed_capture(state)
     # each path's counts, read right after it ran; `launches` is the path
     # that runs the kernel by default (K1 and K3: mc-full's 1000-member
@@ -4518,7 +4742,7 @@ def main() -> None:
              "rotational_program_shear": rotational_program["shear"],
              "rotational_program_gather": rotational_program["gather"], "train": train,
              **step_program, **eval_program, **dp,
-             **cli, **epoch_time, "transunet": transunet}
+             **cli, **epoch_time, "transunet": transunet, "swinunetr": swinunetr}
     for row, name, main_path in zip(rows, ("dropblock_fused_apply", "dropblock_mask",
                                            "conv3x3_pair", "rotate_fan", "rotate_fan_table",
                                            "conv3x3_pair_dx", "conv3x3_pair_fold"),

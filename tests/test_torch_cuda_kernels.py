@@ -879,3 +879,34 @@ def test_upsample_merge_gradients_match_plain(dev):
     assert routes == {"kernel": 1, "plain": 0}
     assert float((gx - px).abs().max()) <= 1e-6 * float(px.abs().max())
     assert torch.equal(gs, ps)
+
+
+@pytest.mark.parametrize("shifted", [False, True], ids=["plain", "shifted"])
+def test_window_attention_takes_the_efficient_backend(dev, shifted):
+    """ops/attention.py with a bias on the card: head size 16 and a bias of
+    (1, windows x heads, 49, 49) in bf16 (its rows padded to 56 elements in
+    storage, as Swin UNETR gathers it, -100.0 in a shifted block's mask)
+    broadcast over a batch of 16 take the memory-efficient backend, count
+    `attn:efficient` once and no `attn:flash` or `attn:other`, and match the softmax
+    written out in float32 within bf16's rounding (3e-2 of the largest
+    magnitude: q, k, v and the bias are bf16, the sums float32)."""
+    from unet_research_tpu_torch.ops import attention
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    n, windows, heads, t = 16, 42, 3, 49
+    q, k, v = (torch.randn((n, windows * heads, t, 16), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    buf = torch.empty((windows * heads, t, 56), device=dev, dtype=torch.bfloat16)
+    bias = 0.02 * torch.randn((windows * heads, t, t), generator=g, device=dev)
+    if shifted:
+        bias[:, :20, 30:] = -100.0
+    buf[..., :t] = bias
+    attn_bias = buf[..., :t][None]
+    before = dict(attention.calls)
+    out = attention.attention(q, k, v, attn_bias)
+    torch.cuda.synchronize()
+    assert {key: attention.calls[key] - before[key] for key in before} == {
+        "efficient": 1, "flash": 0, "other": 0}
+    ref = torch.softmax(q.float() @ k.float().transpose(-1, -2) / 4.0 + attn_bias.float(),
+                        dim=-1) @ v.float()
+    assert float((out.float() - ref).abs().max()) <= 3e-2 * float(ref.abs().max())

@@ -34,3 +34,22 @@ def test_k1_merge_mode_kernel_counts_on_k1():
     assert "dropblock_apply_kernel_merge" in GLOBALS
     parts = [part for part in launches.KERNELS if part in "dropblock_apply_kernel_merge<3, 64>"]
     assert [launches.KERNELS[part] for part in parts] == ["dropblock_fused_apply"]
+
+
+def test_window_attention_counts_are_credited_per_replay():
+    """The window attention calls' `attn:efficient` (ops/attention.py) rides
+    in the snapshot beside `attn:flash` and `attn:other` as launches, not
+    host counts: a capture's are taken back and each replay credits them."""
+    from unet_research_tpu_torch.ops import attention
+
+    before = launches.snapshot()
+    assert {"attn:efficient", "attn:flash", "attn:other"} <= set(before)
+    attention.calls["efficient"] += 8  # a captured forward's eight calls
+    try:
+        counts = launches.launched(launches.since(before))
+        assert counts == {"attn:efficient": 8}
+        launches.credit(counts, -1)  # the capture launched nothing
+        launches.credit(counts, 3)  # three replays
+        assert launches.since(before) == {"attn:efficient": 24}
+    finally:
+        attention.calls.update(efficient=before["attn:efficient"])

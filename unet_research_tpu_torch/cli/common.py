@@ -43,6 +43,7 @@ from unet_research_tpu_torch.evaluation.metrics import final_test_metrics
 from unet_research_tpu_torch.models import (
     ARCHS,
     DropBlockConfig,
+    SwinUNETRConfig,
     TransUNetConfig,
     build_model,
     canonical_config,
@@ -83,9 +84,11 @@ def add_arch_args(parser: argparse.ArgumentParser) -> None:
     TransUNet R50-ViT-B/16 at its published widths instead; -filters and
     -group_norm_groups then set its ResNet's width and GroupNorm groups
     (published 64 and 32), -model_depth, -norm, -activation and -conv_impl
-    are the U-Net's alone."""
+    are the U-Net's alone. -arch swin_unetr builds Swin UNETR at the
+    paper's widths (feature size 48), which none of those flags set."""
     parser.add_argument("-arch", dest="arch", choices=ARCHS, default="unet",
-                        help="the model: unet (the study's U-Net) | transunet_r50_b16")
+                        help="the model: unet (the study's U-Net) | transunet_r50_b16 | "
+                        "swin_unetr")
     parser.add_argument("-filters", dest="filters", type=int, default=64)
     parser.add_argument("-model_depth", dest="model_depth", type=int, default=4)
     parser.add_argument("-group_norm_groups", dest="group_norm_groups", type=int, default=32)
@@ -188,8 +191,8 @@ def compute_dtype(args) -> torch.dtype:
 def build_network(args, dropblock_kind: Optional[str], use_scheduler: bool,
                   drop_prob: Optional[float] = None, remat: bool = False):
     """The model of -arch on args.device: the canonical UNet every reference
-    entry point builds (training.py:171-192), or TransUNet R50-ViT-B/16;
-    its weights come from a checkpoint or the trainer's seeded
+    entry point builds (training.py:171-192), TransUNet R50-ViT-B/16 or
+    Swin UNETR; its weights come from a checkpoint or the trainer's seeded
     initialisation."""
     db = DropBlockConfig(
         kind=dropblock_kind,
@@ -204,6 +207,9 @@ def build_network(args, dropblock_kind: Optional[str], use_scheduler: bool,
     if getattr(args, "arch", "unet") == "transunet_r50_b16":
         cfg = TransUNetConfig(dropblock=db, remat=remat, dtype=compute_dtype(args),
                               width=args.filters, gn_groups=args.group_norm_groups)
+        return build_model(cfg, device=args.device)
+    if getattr(args, "arch", "unet") == "swin_unetr":
+        cfg = SwinUNETRConfig(dropblock=db, remat=remat, dtype=compute_dtype(args))
         return build_model(cfg, device=args.device)
     cfg = canonical_config(
         dropblock=db,

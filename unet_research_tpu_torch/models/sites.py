@@ -72,9 +72,10 @@ def draw_site_keys(num_sites: int, generator: torch.Generator) -> torch.Tensor:
 
 def group_norm_coeffs_from_sums(s1, s2, hw: int, scale, bias, num_groups: int,
                                 eps: float):
-    """(a, b), float32 (N, C) each, with GN(x) = x*a + b, from the per-channel
-    sums s1 = sum x and s2 = sum x^2 over (H, W); hw = H*W. The variance is
-    clamped at 0 against float32 cancellation."""
+    """(a, b), (N, C) each in the sums' dtype (float32, or float64 for a
+    float64 model), with GN(x) = x*a + b, from the per-channel sums s1 = sum x
+    and s2 = sum x^2 over (H, W); hw = H*W. The variance is clamped at 0
+    against float32 cancellation."""
     n, c = s1.shape
     cg = c // num_groups
     g1 = s1.reshape(n, num_groups, cg).sum(-1)
@@ -83,19 +84,20 @@ def group_norm_coeffs_from_sums(s1, s2, hw: int, scale, bias, num_groups: int,
     mean = g1 / cnt
     var = torch.clamp(g2 / cnt - mean * mean, min=0.0)
     mul = torch.rsqrt(var + eps).repeat_interleave(cg, dim=1)
-    a = mul * scale.to(torch.float32)[None, :]
-    b = bias.to(torch.float32)[None, :] - mean.repeat_interleave(cg, dim=1) * a
+    a = mul * scale.to(s1.dtype)[None, :]
+    b = bias.to(s1.dtype)[None, :] - mean.repeat_interleave(cg, dim=1) * a
     return a, b
 
 
 def group_norm_coeffs(x, scale, bias, num_groups: int, eps: float):
     """GroupNorm affine coefficients of NHWC x (torch GroupNorm semantics:
-    biased variance over (H, W, C/G) per sample), statistics in float32.
-    Both sums accumulate in float32 straight from x's dtype (one reduction
-    kernel each on the card, no float32 copy of x); s2 is the squared
-    float32 2-norm."""
-    s1 = x.sum(dim=(1, 2), dtype=torch.float32)
-    s2 = torch.linalg.vector_norm(x, 2, dim=(1, 2), dtype=torch.float32).square()
+    biased variance over (H, W, C/G) per sample), statistics in float32 (in
+    float64 for a float64 x). Both sums accumulate in float32 straight from
+    x's dtype (one reduction kernel each on the card, no float32 copy of x);
+    s2 is the squared float32 2-norm."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    s1 = x.sum(dim=(1, 2), dtype=acc)
+    s2 = torch.linalg.vector_norm(x, 2, dim=(1, 2), dtype=acc).square()
     return group_norm_coeffs_from_sums(s1, s2, x.shape[1] * x.shape[2], scale,
                                        bias, num_groups, eps)
 
@@ -158,6 +160,11 @@ class SitePass:
     runs (`take`), so a block that remat runs again in the backward draws
     the same masks. A subclass sets `fuses()` (whether its sites may take
     K1 at all)."""
+
+    # whether K1's GroupNorm coefficients come from the statistics kernels
+    # (`kernel_coeffs`) where they take x; the U-Net's K1 sites keep
+    # group_norm_coeffs
+    kernel_statistics = False
 
     def __init__(self, model: nn.Module, db, dtype, drop_prob, site_keys, train: bool, mesh,
                  remat: bool, activation: str, slope: float):
@@ -281,9 +288,12 @@ class SitePass:
     def coeffs(self, x, norm: Norm, sums=None):
         """(2, N, C) float32 coefficients of a site's normalisation for K1:
         GroupNorm's from its statistics, an eval BatchNorm's from its running
-        ones."""
+        ones; from the statistics kernels under `kernel_statistics`."""
         if norm.kind == "batch":
             return batch_norm_coeffs(norm.mod, x.shape[0], norm.eps)
+        if (self.kernel_statistics and sums is None and x.dtype == self.dtype
+                and group_norm_act_supported(x, norm.groups, "none")):
+            return self.kernel_coeffs(x, norm)
         h, w = x.shape[1:3]
         if sums is not None:
             a, b = group_norm_coeffs_from_sums(sums[0], sums[1], h * w, norm.mod.weight,

@@ -91,7 +91,6 @@ from unet_research_tpu_torch.device import resolve_device
 from unet_research_tpu_torch.models.sites import Norm, SitePass, _nchw, _nhwc
 from unet_research_tpu_torch.models.unet import DropBlockConfig
 from unet_research_tpu_torch.ops.attention import attention
-from unet_research_tpu_torch.ops.cuda.group_norm import group_norm_act_supported
 from unet_research_tpu_torch.ops.cuda.upsample import upsample_merge
 from unet_research_tpu_torch.ops.dropblock import hash_bits
 from unet_research_tpu_torch.ops.image import crop_to, pad_to_multiple
@@ -264,6 +263,8 @@ class TransUNet(nn.Module):
 class _Pass(SitePass):
     """One forward pass of TransUNet on the shared site machinery."""
 
+    kernel_statistics = True
+
     def __init__(self, model: TransUNet, drop_prob, site_keys, train: bool, mesh):
         cfg = model.cfg
         super().__init__(model, cfg.dropblock, cfg.dtype, drop_prob, site_keys, train, mesh,
@@ -278,14 +279,6 @@ class _Pass(SitePass):
     @staticmethod
     def bn(mod) -> Norm:
         return Norm("batch", mod, 1, mod.eps)
-
-    def coeffs(self, x, norm: Norm, sums=None):
-        """K1's GroupNorm coefficients from the statistics kernels where
-        they take x (`kernel_coeffs`), else as the U-Net computes them."""
-        if (norm.kind == "group" and sums is None and x.dtype == self.dtype
-                and group_norm_act_supported(x, norm.groups, "none")):
-            return self.kernel_coeffs(x, norm)
-        return super().coeffs(x, norm, sums)
 
     # -- layers ----------------------------------------------------------------
 

@@ -4,8 +4,8 @@ capture of a CUDA graph that keeps them.
 Each wrapper adds one to its `launches` where it launches its kernel (and
 conv3x3_pair's launches are also counted by kernel in `path_launches`);
 each collective of parallel/mesh.py adds one to its count in `calls`, and
-each attention call on the card (ops/attention.py) one to `attn:flash` or
-`attn:other`, each upsampling merge (ops/cuda/upsample.py) one to
+each attention call on the card (ops/attention.py) one to `attn:flash`,
+`attn:efficient` or `attn:other`, each upsampling merge (ops/cuda/upsample.py) one to
 `up:kernel` or `up:plain`, and each U-Net skip merge under the fused route
 (models/unet.py::_Pass.up_merge) one to `merge:kernel` (a launch of K1's
 merge mode, which also counts on `dropblock_fused_apply`) or `merge:plain`.
